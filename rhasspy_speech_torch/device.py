@@ -1,0 +1,31 @@
+"""Device resolution: the port runs where it is told, or raises."""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+# The AM matmuls and the feature math are held to the JAX package's f32
+# numerics; TF32 keeps about three decimal digits (ARCHITECTURE.md, "MXU
+# precision", records the damage to log-mel features). Both switches are
+# stated here, so importing the port fixes them for the process.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """``torch.device`` for ``device``; raises when CUDA is asked for and
+    ``torch.cuda.is_available()`` is false (no silent CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but torch.cuda.is_available() "
+                "is false; pass device='cpu' to run the plain versions"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    return dev

@@ -1,0 +1,166 @@
+"""Hand-written CUDA kernels against their plain PyTorch twins, on the card.
+
+Every test here needs a CUDA device (marker ``cuda``) and skips without
+one; the kernel modules import nothing CUDA-specific until a launch, so
+the file still collects on the CPU. Run on the card with::
+
+    python -m pytest tests/test_torch_kernels.py -q
+
+Tolerances: the decode kernel must be bit-identical to the scatter twin
+(its arithmetic is mins and adds in the reference's order). The MFCC
+kernel computes a direct DFT with FMAs where the twin calls rfft and
+cuBLAS, so it is held to rtol 2e-3 / atol 3e-2 -- the tolerance the JAX
+package holds its own DFT-as-matmul kernel to against rfft
+(tests/test_pallas_mfcc.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rhasspy_speech_torch.host import NEG_INF_F32, DenseGraph
+from rhasspy_speech_torch.ops.decoder import DecodeGraph, viterbi, backtrace
+from rhasspy_speech_torch.ops.frontend import (
+    FrontendConfig,
+    make_frontend_params,
+    mfcc_batch_torch,
+)
+from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch
+from rhasspy_speech_torch.ops.viterbi_cuda import viterbi_decode
+
+MFCC_RTOL, MFCC_ATOL = 2e-3, 3e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel tests run on the card)")
+    return torch.device("cuda", 0)
+
+
+def speech_like(rng, n):
+    t = np.arange(n) / 16000.0
+    return (
+        4000 * np.sin(2 * np.pi * 300 * t)
+        + 1500 * np.sin(2 * np.pi * 1200 * t)
+        + 300 * rng.randn(n)
+    ).astype(np.float32)
+
+
+def random_graph(rng, num_states, extra_arcs, num_pdfs=40, folded=True, hubs=0):
+    """Chain + self-loops + random extra arcs (+ optional hub states with
+    in-degree num_states/2), pdfs a function of the source when folded."""
+    S = num_states
+    src = np.concatenate([np.arange(S), np.arange(S), rng.randint(S, size=extra_arcs)])
+    dst = np.concatenate([(np.arange(S) + 1) % S, np.arange(S), rng.randint(S, size=extra_arcs)])
+    for h in range(hubs):
+        hub_src = np.arange(0, S, 2)
+        src = np.concatenate([src, hub_src])
+        dst = np.concatenate([dst, np.full(hub_src.size, S - 1 - h)])
+    A = src.size
+    if folded:
+        pdf = rng.randint(num_pdfs, size=S)[src]
+    else:
+        pdf = rng.randint(num_pdfs, size=A)
+    init = np.full(S, NEG_INF_F32, np.float32)
+    init[0] = 0.0
+    final = np.full(S, NEG_INF_F32, np.float32)
+    final[S - 1] = 0.25
+    final[S // 2] = 0.5
+    return DenseGraph(
+        num_states=S,
+        arc_src=src.astype(np.int32),
+        arc_dst=dst.astype(np.int32),
+        arc_pdf=pdf.astype(np.int32),
+        arc_wseq=np.zeros(A, np.int32),
+        arc_weight=rng.rand(A).astype(np.float32),
+        final_weight=final,
+        final_wseq=np.zeros(S, np.int32),
+        init_weight=init,
+        init_wseq=np.zeros(S, np.int32),
+        word_seqs=[()],
+        num_pdfs=num_pdfs,
+    )
+
+
+def assert_decode_bit_exact(dense, device, B=5, T=11, lengths=None, scale=0.7, seed=0):
+    rng = np.random.RandomState(seed)
+    lp = torch.as_tensor(rng.randn(B, T, dense.num_pdfs).astype(np.float32), device=device)
+    lens = None if lengths is None else torch.as_tensor(lengths, dtype=torch.int32, device=device)
+    g = DecodeGraph.from_dense(dense, device)
+    compact = dense.num_arcs <= 65533
+    want_alpha, want_bps = viterbi(g, lp, scale, lens, compact_bp=compact)
+    want = backtrace(g, want_alpha, want_bps)
+    before = viterbi_decode.launches
+    got = viterbi_decode(g, lp, scale, lens, return_forward=True)
+    torch.cuda.synchronize()
+    assert viterbi_decode.launches == before + 1
+    assert got[4].dtype == want_bps.dtype
+    for a, b in zip(got, want + (want_alpha, want_bps)):
+        np.testing.assert_array_equal(
+            a.cpu().to(torch.int64 if a.dtype == torch.uint16 else a.dtype).numpy(),
+            b.cpu().to(torch.int64 if b.dtype == torch.uint16 else b.dtype).numpy(),
+        )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "cfg",
+    [
+        FrontendConfig(),
+        FrontendConfig(num_mel_bins=20, num_ceps=20),
+        FrontendConfig(use_energy=True),
+        FrontendConfig(use_energy=True, raw_energy=False, energy_floor=1.0),
+        FrontendConfig(snip_edges=False),
+    ],
+    ids=["hires", "20x20", "energy_raw", "energy_windowed", "no_snip"],
+)
+def test_mfcc_kernel_matches_plain(cuda, cfg):
+    rng = np.random.RandomState(1)
+    pcm = torch.as_tensor(np.stack([speech_like(rng, 24000) for _ in range(3)]), device=cuda)
+    params = make_frontend_params(cfg, cuda)
+    want = mfcc_batch_torch(params, pcm)
+    before = mfcc_batch.launches
+    got = mfcc_batch(params, pcm)
+    torch.cuda.synchronize()
+    assert mfcc_batch.launches == before + 1
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=MFCC_RTOL, atol=MFCC_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind", ["folded", "hubs", "unfolded", "lengths", "int32_bp"]
+)
+def test_viterbi_kernel_bit_exact(cuda, kind):
+    rng = np.random.RandomState(7)
+    if kind == "folded":
+        assert_decode_bit_exact(random_graph(rng, 37, 120), cuda)
+    elif kind == "hubs":
+        assert_decode_bit_exact(random_graph(rng, 300, 500, hubs=3), cuda, seed=1)
+    elif kind == "unfolded":
+        assert_decode_bit_exact(random_graph(rng, 53, 200, folded=False), cuda, seed=2)
+    elif kind == "lengths":
+        assert_decode_bit_exact(
+            random_graph(rng, 41, 90), cuda, B=6, lengths=[11, 0, 4, 7, 1, 11], seed=3
+        )
+    else:  # > 65533 arcs: int32 backpointers
+        assert_decode_bit_exact(random_graph(rng, 3000, 66000), cuda, B=2, T=6, seed=4)
+
+
+@pytest.mark.cuda
+def test_viterbi_kernel_large_graph_shared_memory(cuda):
+    """~14k states: alpha needs > 48 KB of dynamic shared memory."""
+    rng = np.random.RandomState(11)
+    assert_decode_bit_exact(
+        random_graph(rng, 14200, 9600, num_pdfs=3072, hubs=2), cuda, B=3, T=8, seed=5
+    )
+
+
+@pytest.mark.cuda
+def test_viterbi_kernel_rejects_oversized_graph(cuda):
+    rng = np.random.RandomState(12)
+    g = DecodeGraph.from_dense(random_graph(rng, 40000, 10), cuda)
+    lp = torch.zeros((1, 2, 40), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        viterbi_decode(g, lp)
