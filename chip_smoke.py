@@ -4,12 +4,15 @@
 Drives batch WAV transcription (``Nnet3WavTranscriber.transcribe_pcm_batch``)
 at the full width of the benchmarked model -- TDNN-F 768 x 9, 40-dim MFCC,
 100-dim i-vector from a 512-Gaussian UBM, 3,072 pdfs, random weights from a
-seed -- over the flagship decode graph, and checks both hand-written
-kernels against their plain PyTorch twins:
+seed -- over the flagship decode graph, then its n-best, silence-weighting
+and lattice paths, and the windowed-relaxation entry point, and checks the
+three hand-written kernels against their plain PyTorch twins:
 
-1. builds ``csrc/mfcc.cu`` and ``csrc/viterbi.cu`` with nvcc for sm_90a;
-2. transcribes 32 seeded 3 s utterances with the launch counters zeroed
-   just before and read just after, and requires both kernels to have run;
+1. builds ``csrc/mfcc.cu``, ``csrc/viterbi.cu`` and
+   ``csrc/windowed_relax.cu`` with nvcc for sm_90a, in parallel;
+2. transcribes 32 seeded 3 s utterances (1-best) with the launch counters
+   zeroed just before and read just after, and requires the MFCC and
+   Viterbi kernels to have run;
 3. recomputes the same batch through the plain twins on the card and
    requires equal transcripts;
 4. compares the MFCC kernel with its twin (rtol 2e-3 / atol 3e-2, the JAX
@@ -20,7 +23,27 @@ kernels against their plain PyTorch twins:
 5. checks the card's log-probs against the CPU twins on 2 utterances
    (rtol 1e-3 / atol 1e-2: f32 sums ordered differently through eleven
    768-wide layers), times each kernel beside its twin with CUDA events,
-   and prints the main path's wall time stage by stage.
+   and prints the main path's wall time stage by stage;
+6. n-best (k=5) on the same batch: the MFCC kernel ran, transcripts equal
+   the plain twins' path, and given the same log-probs the card's k-best
+   outputs are bit-equal to the CPU's on 2 utterances;
+7. silence weighting (``silence_weight=0.01``, with ``model/phones.txt``
+   written from the graph's phone table): the first pass went through the
+   Viterbi kernel and the silence-weighted second pass ran; transcripts
+   equal the CPU's on 2 utterances;
+8. lattices and confidence on 2 utterances, at a lattice beam of 4: given
+   the same log-probs the card's tropical forward-backward is bit-equal to
+   the CPU's, and the confidences agree with the CPU's within 1e-2 (the
+   log-probs differ by up to 1e-2; a lattice arc flipping across the beam
+   moves a confidence by at most exp(-4) of a rival's share). The beam is
+   4, not the default 8, because on noise through a random model the
+   default beam keeps ~10,000 arcs and the host's lattice determinization
+   then takes tens of seconds per utterance;
+9. the windowed relaxation at the example's shape (B=512, T=116,
+   S_pad=14,208, NSTEP=1,280) through
+   ``rhasspy_speech_torch.examples.windowed_cost.main``, counted, bit-equal
+   to its plain version on every stream; and bit-equal again on small
+   tables and initial alphas that differ per stream.
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and exits non-zero.
@@ -33,6 +56,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -53,10 +77,16 @@ from rhasspy_speech_torch.host import (  # noqa: E402
 )
 from rhasspy_speech_torch.ops import _build  # noqa: E402
 from rhasspy_speech_torch.ops import decoder as twin_decoder  # noqa: E402
+from rhasspy_speech_torch.examples import windowed_cost  # noqa: E402
 from rhasspy_speech_torch.ops.frontend import mfcc_batch_torch  # noqa: E402
 from rhasspy_speech_torch.ops.ivector import extract_ivectors  # noqa: E402
+from rhasspy_speech_torch.ops.lattice import forward_backward  # noqa: E402
 from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch  # noqa: E402
 from rhasspy_speech_torch.ops.viterbi_cuda import viterbi_decode  # noqa: E402
+from rhasspy_speech_torch.ops.windowed_relax_cuda import (  # noqa: E402
+    windowed_relax,
+    windowed_relax_torch,
+)
 
 SEED = 0
 BATCH = 32
@@ -64,6 +94,11 @@ SECONDS = 3.0
 HIDDEN, LAYERS, NUM_PDFS, IVEC_DIM, UBM_GAUSS = 768, 9, 3072, 100, 512
 MFCC_RTOL, MFCC_ATOL = 2e-3, 3e-2
 CPU_RTOL, CPU_ATOL = 1e-3, 1e-2
+NBEST = 5
+SILENCE_WEIGHT = 0.01
+CONF_ATOL = 1e-2
+LATTICE_BEAM = 4.0
+KERNELS = ("mfcc", "viterbi", "windowed_relax")
 
 
 def check(cond, what):
@@ -149,6 +184,10 @@ def stage_ms(t, pcms, fuzzy):
 
 
 def build_profile(root):
+    """The flagship graph and a random full-width model. The model dir
+    gets ``model/phones.txt`` from the graph's phone table, as a trained
+    Kaldi model dir has it: silence weighting finds its silence pdfs
+    there."""
     graph, g_fuzzy, lang = build_flagship_graph(order=3, with_fuzzy=True, num_pdfs=NUM_PDFS)
     max_phone = max(pid for (p, pid) in lang.phones if pid != 0 and not p.startswith("#"))
     model_dir = write_flagship_model_dir(
@@ -156,9 +195,181 @@ def build_profile(root):
         hidden_dim=HIDDEN, num_tdnnf_layers=LAYERS, ivector_dim=IVEC_DIM,
         ubm_gauss=UBM_GAUSS, seed=SEED + 7,
     )
+    with open(os.path.join(model_dir, "model", "phones.txt"), "w", encoding="utf-8") as f:
+        lang.phones.write_text(f)
     graph_dir = os.path.join(root, "graph")
     LangArtifacts(words=lang.words, g_fuzzy=g_fuzzy, graph=graph, phones=lang.phones).save(graph_dir)
     return model_dir, graph_dir, graph
+
+
+def zero_counts():
+    for fn in (mfcc_batch, viterbi_decode, windowed_relax):
+        fn.launches = 0
+
+
+def read_counts():
+    return {"mfcc": mfcc_batch.launches, "viterbi": viterbi_decode.launches,
+            "windowed_relax": windowed_relax.launches}
+
+
+def nbest_phase(t, tc, pcms, fuzzy):
+    """n-best at full width; returns the plain k-best's time on the card."""
+    zero_counts()
+    t0 = time.time()
+    texts = t.transcribe_pcm_batch(pcms, nbest=NBEST, **fuzzy)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    print(f"n-best (k={NBEST}): {BATCH} x {SECONDS} s in {wall * 1000:.1f} ms; launches {counts}")
+    check(counts["mfcc"] > 0, f"n-best path did not launch the MFCC kernel: {counts}")
+    check(len(texts) == BATCH and all(len(x) == 1 for x in texts),
+          f"expected one fuzzy transcript per utterance, got {texts[:3]}")
+
+    pcm, feat_lengths, lengths, n_out = t._pad_batch(pcms)
+    lp_plain = t.am.log_probs(mfcc_batch_torch(t.am.frontend_params, pcm), n_out,
+                              feat_lengths=feat_lengths)
+    plain = t._texts(t._decode_nbest(lp_plain, lengths, NBEST), None, require_fuzzy=False, **fuzzy)
+    check(plain == texts, "n-best transcripts differ between kernels and plain twins")
+
+    lp2, lens2 = lp_plain[:2].contiguous(), lengths[:2]
+    dev_out = twin_decoder.viterbi_kbest_decode(t.device_graph, lp2, NBEST, t.acoustic_scale, lens2)
+    cpu_out = twin_decoder.viterbi_kbest_decode(tc.device_graph, lp2.cpu(), NBEST,
+                                                tc.acoustic_scale, lens2.cpu())
+    check(all(torch.equal(d.cpu(), c) for d, c in zip(dev_out, cpu_out)),
+          "k-best outputs differ between the card and the CPU")
+    kbest_ms = cuda_ms(lambda: twin_decoder.viterbi_kbest_decode(
+        t.device_graph, lp_plain, NBEST, t.acoustic_scale, lengths), iters=2)
+    print(f"n-best transcripts equal the plain twins' path; k-best bit-equal to the CPU's on 2 "
+          f"utterances; plain k-best decode {tuple(lp_plain.shape)} k={NBEST}: {kbest_ms:.4f} ms; "
+          f"first: {texts[0]}")
+    return kbest_ms
+
+
+def silence_phase(model_dir, graph_dir, dev, pcms, fuzzy):
+    """silence_weight at full width: the first pass on the Viterbi kernel,
+    then the silence-weighted second pass."""
+    t = Nnet3WavTranscriber(model_dir, graph_dir, device=dev, silence_weight=SILENCE_WEIGHT)
+    sil_pdfs = t._get_silence_pdfs()
+    check(len(sil_pdfs) > 0, "no silence pdfs found from model/phones.txt")
+    t.transcribe_pcm_batch(pcms, **fuzzy)  # warm-up
+    weights = []
+    log_probs = t.am.log_probs
+
+    def recording(*args, **kwargs):
+        weights.append(kwargs.get("ivector_frame_weights"))
+        return log_probs(*args, **kwargs)
+
+    t.am.log_probs = recording
+    zero_counts()
+    t0 = time.time()
+    texts = t.transcribe_pcm_batch(pcms, **fuzzy)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    t.am.log_probs = log_probs
+    check(len(weights) == 2 and weights[0] is None and weights[1] is not None,
+          "the silence-weighted second pass did not run")
+    check(counts["viterbi"] >= 2 and counts["mfcc"] > 0,
+          f"silence weighting: first pass and decode should both launch the Viterbi kernel: {counts}")
+    w = weights[1]
+    sil_share = float((w == SILENCE_WEIGHT).float().mean())
+    print(f"silence weighting ({len(sil_pdfs)} silence pdfs): {BATCH} x {SECONDS} s in "
+          f"{wall * 1000:.1f} ms; launches {counts}; frames weighted {SILENCE_WEIGHT}: "
+          f"{sil_share:.4f} of {tuple(w.shape)}")
+    tc = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", silence_weight=SILENCE_WEIGHT)
+    check(tc.transcribe_pcm_batch(pcms[:2], **fuzzy) == texts[:2],
+          "silence-weighted transcripts differ between the card and the CPU")
+
+    # weighted i-vector stats on the card against the CPU, with weights
+    # that are not all 1 whatever the first pass found
+    pcm, feat_lengths, _, _ = t._pad_batch(pcms[:2])
+    feats = t.am.features(pcm)
+    fw = torch.ones(feats.shape[:2], device=dev)
+    fw[:, ::3] = SILENCE_WEIGHT
+    ivec = extract_ivectors(feats, t.am.ivector_params, feat_lengths, frame_weights=fw)
+    ivec_cpu = extract_ivectors(feats.cpu(), tc.am.ivector_params, feat_lengths.cpu(),
+                                frame_weights=fw.cpu())
+    plain = extract_ivectors(feats, t.am.ivector_params, feat_lengths)
+    iv_err = float((ivec.cpu() - ivec_cpu).abs().max())
+    check(torch.allclose(ivec.cpu(), ivec_cpu, rtol=CPU_RTOL, atol=CPU_ATOL),
+          f"weighted i-vectors on the card vs the CPU: max |d| {iv_err}")
+    check(not torch.allclose(ivec, plain, rtol=CPU_RTOL, atol=CPU_ATOL),
+          "frame weights left the i-vectors unchanged")
+    print(f"silence-weighted transcripts equal the CPU's on 2 utterances; weighted i-vectors "
+          f"vs CPU max |d| {iv_err:.3e}")
+    return wall
+
+
+def lattice_phase(t, tc, pcms):
+    """get_lattice_pcm and confidence_pcm on 2 utterances, card against
+    CPU."""
+    for i, pcm in enumerate(pcms[:2]):
+        zero_counts()
+        t0 = time.time()
+        lat = t.get_lattice_pcm(pcm)
+        conf = t.confidence_pcm(pcm)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+        check(counts["mfcc"] > 0, f"lattice path did not launch the MFCC kernel: {counts}")
+        check(lat is not None and lat.num_arcs() > 0, "empty lattice")
+        _words, best = lat.shortest_path_words(t.artifacts.graph)
+        check(abs(best - lat.best_cost) <= 1e-3 * max(1.0, abs(best)),
+              f"lattice best path {best} vs forward-backward best {lat.best_cost}")
+
+        lp = t._utterance_log_probs(pcm)
+        fb_dev = forward_backward(t.device_graph, lp, t.acoustic_scale)
+        fb_cpu = forward_backward(tc.device_graph, lp.cpu(), tc.acoustic_scale)
+        check(all(torch.equal(d.cpu(), c) for d, c in zip(fb_dev, fb_cpu)),
+              "forward-backward differs between the card and the CPU")
+        conf_cpu = tc.confidence_pcm(pcm)
+        check(0.0 <= conf <= 1.0 and abs(conf - conf_cpu) <= CONF_ATOL,
+              f"confidence {conf} on the card vs {conf_cpu} on the CPU")
+        fb_ms = cuda_ms(lambda: forward_backward(t.device_graph, lp, t.acoustic_scale), iters=3)
+        print(f"lattice utt {i}: {lat.num_nodes} nodes, {lat.num_arcs()} arcs; lattice + "
+              f"confidence {wall * 1000:.1f} ms; forward-backward {tuple(lp.shape)} bit-equal to "
+              f"the CPU's, {fb_ms:.4f} ms on the card; confidence {conf:.6f} (CPU {conf_cpu:.6f})")
+
+
+def windowed_relax_phase(dev):
+    """K3 through its entry point at the example's shape, then against its
+    plain version; returns (launches, max |d|, kernel ms, plain ms)."""
+    zero_counts()
+    out = windowed_cost.main([])
+    torch.cuda.synchronize()
+    launches = read_counts()["windowed_relax"]
+    check(launches > 0, "windowed_cost.main did not launch the windowed_relax kernel")
+    tables = out["tables"]
+    B, S = out["alpha"].shape
+    T = out["bp"].shape[0]
+    want_alpha, want_bp = windowed_relax_torch(*tables, T, B, S)
+    torch.cuda.synchronize()
+    check(torch.equal(out["alpha"], want_alpha), "windowed_relax alpha differs from its plain version")
+    check(torch.equal(out["bp"].to(torch.int32), want_bp.to(torch.int32)),
+          "windowed_relax bp differs from its plain version")
+    err = float((out["alpha"] - want_alpha).abs().max())
+    del want_alpha, want_bp
+    plain_ms = cuda_ms(lambda: windowed_relax_torch(*tables, T, B, S), iters=2)
+    print(f"K3 windowed_relax B={B} T={T} S_pad={S} NSTEP={tables[0].shape[0]}: bit-equal on every "
+          f"stream; kernel {out['ms']:.4f} ms ({out['us_per_step']:.6f} us/step), plain "
+          f"{plain_ms:.4f} ms")
+
+    # tables and initial alphas that differ per stream, with exact ties
+    Bs, s_pad, nstep = 8, 1024, 100
+    per = [windowed_cost.make_step_tables(nstep, s_pad, seed=40 + i) for i in range(Bs)]
+    dbase, sbase, idx, w, arc = (np.stack(x) for x in zip(*per))
+    w = (np.round(w * 4) / 4).astype(np.float32)
+    arc = (arc % 11).astype(np.int32)
+    alpha0 = (np.round(np.random.RandomState(9).rand(Bs, s_pad) * 8) / 8).astype(np.float32)
+    small = [torch.as_tensor(x, device=dev) for x in (dbase, sbase, idx, w, arc)]
+    a0 = torch.as_tensor(alpha0, device=dev)
+    got = windowed_relax(*small, 4, Bs, s_pad, alpha0=a0)
+    ref = windowed_relax_torch(*small, 4, Bs, s_pad, alpha0=a0)
+    check(torch.equal(got[0], ref[0]) and torch.equal(got[1].to(torch.int32), ref[1].to(torch.int32)),
+          "windowed_relax differs from its plain version on per-stream tables")
+    check(not torch.equal(got[1][:, 0], got[1][:, 1]), "per-stream case: streams should differ")
+    print(f"K3 windowed_relax per-stream tables [{Bs}, {nstep}, 128], S_pad={s_pad}: bit-equal")
+    return launches, err, out["ms"], plain_ms
 
 
 def main():
@@ -170,14 +381,15 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {smi}")
 
     t0 = time.time()
-    for name in ("mfcc", "viterbi"):
-        print(f"built {_build.build(name).name}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all at once
+        for path in pool.map(_build.build, KERNELS):
+            print(f"built {path.name}")
     print(f"kernel build {time.time() - t0:.1f} s")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         t0 = time.time()
         model_dir, graph_dir, graph = build_profile(root)
-        t = Nnet3WavTranscriber(model_dir, graph_dir, device=dev)
+        t = Nnet3WavTranscriber(model_dir, graph_dir, device=dev, lattice_beam=LATTICE_BEAM)
         print(f"profile: {graph.num_states} states, {graph.num_arcs} arcs, "
               f"{graph.num_pdfs} pdfs; AM TDNN-F {HIDDEN}x{LAYERS}, ivector {IVEC_DIM}, "
               f"UBM {UBM_GAUSS}; built in {time.time() - t0:.1f} s")
@@ -194,13 +406,12 @@ def main():
         torch.cuda.synchronize()
 
         # -- the main path, counted ------------------------------------------
-        mfcc_batch.launches = 0
-        viterbi_decode.launches = 0
+        zero_counts()
         t0 = time.time()
         main_texts = t.transcribe_pcm_batch(pcms, **fuzzy)
         torch.cuda.synchronize()
         main_s = time.time() - t0
-        launches = {"mfcc": mfcc_batch.launches, "viterbi": viterbi_decode.launches}
+        launches = read_counts()
         print(f"main path: {BATCH} x {SECONDS} s in {main_s * 1000:.1f} ms; launches {launches}")
         check(launches["mfcc"] > 0 and launches["viterbi"] > 0, f"kernels not launched: {launches}")
         check(len(main_texts) == BATCH and all(len(x) == 1 for x in main_texts),
@@ -271,7 +482,7 @@ def main():
               f"kernel {big_ms:.4f} ms, plain {big_plain_ms:.4f} ms")
 
         # -- the card against the CPU twins on a small input -------------------
-        tc = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu")
+        tc = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", lattice_beam=LATTICE_BEAM)
         lp_cpu, _ = tc._acoustic_batch(pcms[:2])
         lp_dev, _ = t._acoustic_batch(pcms[:2])
         cpu_err = float((lp_dev.cpu() - lp_cpu).abs().max())
@@ -281,6 +492,14 @@ def main():
               "CPU twins transcribe differently")
         print(f"card vs CPU twins on 2 utterances: log-probs max |d| {cpu_err:.3e}, transcripts equal")
 
+        # -- n-best, silence weighting, lattices --------------------------------
+        nbest_phase(t, tc, pcms, fuzzy)
+        silence_phase(model_dir, graph_dir, dev, pcms, fuzzy)
+        lattice_phase(t, tc, pcms)
+
+    # -- K3: the windowed relaxation's entry point ----------------------------
+    k3_launches, k3_err, k3_ms, k3_plain_ms = windowed_relax_phase(dev)
+
     kernels = [
         {"name": "mfcc", "route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
          "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122",
@@ -288,6 +507,9 @@ def main():
         {"name": "viterbi", "route": "cuda", "source": "rhasspy_speech_torch/csrc/viterbi.cu",
          "replaces": "rhasspy_speech_tpu/ops/pallas_decoder.py:370",
          "launches": launches["viterbi"], "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "windowed_relax", "route": "cuda", "source": "rhasspy_speech_torch/csrc/windowed_relax.cu",
+         "replaces": "examples/pallas_windowed_cost.py:59",
+         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -64,7 +64,9 @@ else:
     _register_bare_packages()
 
 from rhasspy_speech_tpu.const import LangSuffix  # noqa: E402
-from rhasspy_speech_tpu.fst.core import SymbolTable  # noqa: E402
+from rhasspy_speech_tpu.fst.core import EPS_ID, Fst, SymbolTable  # noqa: E402
+from rhasspy_speech_tpu.fst.determinize import determinize  # noqa: E402
+from rhasspy_speech_tpu.fst.ops import rmepsilon, shortest_path  # noqa: E402
 from rhasspy_speech_tpu.grammar.fst import decode_meta  # noqa: E402
 from rhasspy_speech_tpu.graph.dense import NEG_INF_F32, DenseGraph  # noqa: E402
 from rhasspy_speech_tpu.io.ivector import (  # noqa: E402
@@ -75,6 +77,10 @@ from rhasspy_speech_tpu.io.ivector import (  # noqa: E402
 )
 from rhasspy_speech_tpu.io.gmm_am import is_gmm_model  # noqa: E402
 from rhasspy_speech_tpu.io.kaldi_io import read_kaldi_object  # noqa: E402
+from rhasspy_speech_tpu.io.lattice_io import (  # noqa: E402
+    compact_lattice_from_decode,
+    determinize_lattice_phone_pruned,
+)
 from rhasspy_speech_tpu.io.nnet3_file import (  # noqa: E402
     ComponentSpec,
     Descriptor,
@@ -86,7 +92,9 @@ from rhasspy_speech_tpu.pipeline.artifacts import (  # noqa: E402
     LangArtifacts,
     lang_dir_name,
 )
-from rhasspy_speech_tpu.pipeline.fuzzy import get_fuzzy_text  # noqa: E402
+from rhasspy_speech_tpu.pipeline.endpoint import silence_pdfs_from_model  # noqa: E402
+from rhasspy_speech_tpu.pipeline.fuzzy import get_fuzzy_text, rescore_nbest  # noqa: E402
+from rhasspy_speech_tpu.pipeline.rescore import rescore_lattice, rescore_tail  # noqa: E402
 from rhasspy_speech_tpu.pipeline.train import (  # noqa: E402
     train_model,
     train_model_sync,
@@ -101,6 +109,8 @@ __all__ = [
     "DenseGraph",
     "Descriptor",
     "DiagGmm",
+    "EPS_ID",
+    "Fst",
     "IvectorExtractor",
     "LangArtifacts",
     "LangSuffix",
@@ -110,13 +120,22 @@ __all__ = [
     "OnlineIvectorConfig",
     "SymbolTable",
     "build_flagship_graph",
+    "compact_lattice_from_decode",
     "decode_meta",
+    "determinize",
+    "determinize_lattice_phone_pruned",
     "get_fuzzy_text",
     "is_gmm_model",
     "lang_dir_name",
     "parse_conf",
     "read_am_nnet3",
     "read_kaldi_object",
+    "rescore_lattice",
+    "rescore_nbest",
+    "rescore_tail",
+    "rmepsilon",
+    "shortest_path",
+    "silence_pdfs_from_model",
     "train_model",
     "train_model_sync",
     "write_flagship_model_dir",

@@ -1,7 +1,7 @@
-"""Dense 1-best Viterbi decoding in PyTorch: the plain twin of the decode
-kernel.
+"""Dense Viterbi decoding in PyTorch: the plain twin of the decode kernel,
+and the k-best decoder.
 
-Counterpart of the 1-best half of ``rhasspy_speech_tpu/ops/decoder.py``.
+Counterpart of the dense decoders of ``rhasspy_speech_tpu/ops/decoder.py``.
 ``viterbi`` is that module's flat scatter step (``viterbi_step``): per
 frame, every arc's candidate cost, a scatter-min into its destination and
 the lowest arc id among the winners, with ``scatter_reduce("amin")``. The
@@ -15,8 +15,15 @@ pdf-per-source fold the candidate is ``(alpha + am[src_pdf]) + weight``,
 without it ``(alpha + weight) + am[arc_pdf]``; then ``min(., 1e30)``; ties
 go to the lowest arc id; a state is dead when its cost reaches 1e30.
 
-``_state_pdf``, ``STAY``, ``_COMPACT_BP_MAX_ARC``, ``traces_to_words_batch``
-and ``trace_to_words`` are copied from the JAX module, which imports JAX.
+The k-best decoder (``kbest_step``, ``viterbi_kbest``,
+``viterbi_kbest_decode``) is the JAX module's scatter form, bit for bit: k
+rounds of scatter-min per frame over flat candidates ``arc * K + k_prev``,
+each round knocking out the candidate it selected. The JAX package has no
+TPU kernel for it, so neither has the port.
+
+``_state_pdf``, ``STAY``, ``_COMPACT_BP_MAX_ARC``, ``traces_to_words_batch``,
+``trace_to_words``, ``kbest_traces_to_nbest`` and ``backtrace_nbest`` are
+copied from the JAX module, which imports JAX.
 """
 
 from __future__ import annotations
@@ -293,3 +300,208 @@ def trace_to_words(
         words.extend(seg)
     words.extend(graph.words_of(int(graph.final_wseq[int(final_state[stream])])))
     return words, cost
+
+
+# ---------------------------------------------------------------------------
+# K-best (n-best extraction)
+# ---------------------------------------------------------------------------
+
+
+def kbest_step(
+    graph: DecodeGraph, alpha: torch.Tensor, am_cost: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame of k-best Viterbi. alpha [B, S, K]; am_cost [B, P].
+    Returns (new_alpha [B, S, k], bp [B, S, k] int32 = winning flat
+    candidate arc * K + k_prev, or -1)."""
+    B, S, K = alpha.shape
+    A = graph.num_arcs
+    inf = _inf(alpha)
+    if graph.folded:
+        alpha = alpha + am_cost[:, graph.src_pdf][:, :, None]
+        cand = alpha[:, graph.arc_src, :] + graph.arc_weight[None, :, None]
+    else:
+        cand = (
+            alpha[:, graph.arc_src, :] + graph.arc_weight[None, :, None]
+        ) + am_cost[:, graph.arc_pdf, None]
+    cand = torch.minimum(cand, inf).reshape(B, A * K)
+    dst_flat = graph.arc_dst.repeat_interleave(K)  # [A*K]
+    dst = dst_flat[None, :].expand(B, A * K)
+    flat_ids = torch.arange(A * K, device=alpha.device)
+    alphas, bps = [], []
+    for _ in range(k):
+        m = torch.full((B, S), NEG_INF_F32, dtype=torch.float32, device=alpha.device)
+        m = m.scatter_reduce(1, dst, cand, "amin")
+        sel = torch.where(cand <= m[:, dst_flat], flat_ids[None, :], A * K)
+        bp = torch.full((B, S), A * K, dtype=torch.int64, device=alpha.device)
+        bp = bp.scatter_reduce(1, dst, sel, "amin")
+        bp = torch.where(m >= inf, -1, bp)
+        alphas.append(m)
+        bps.append(bp)
+        # knock out the selected candidate so the next round finds rank+1
+        cand = torch.where(bp[:, dst_flat] == flat_ids[None, :], inf, cand)
+    return torch.stack(alphas, dim=-1), torch.stack(bps, dim=-1).to(torch.int32)
+
+
+def viterbi_kbest(
+    graph: DecodeGraph,
+    log_probs: torch.Tensor,
+    k: int,
+    acoustic_scale: float = 1.0,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K-best batched Viterbi over [B, T, P]. Returns (alpha_final [B, S, k],
+    backptr [T, B, S, k] int32 flat ids arc * k + k_prev; STAY for masked
+    frames)."""
+    B, T, _P = log_probs.shape
+    S = graph.num_states
+    am_costs = (-acoustic_scale) * log_probs.transpose(0, 1)
+    alpha = torch.full((B, S, k), NEG_INF_F32, dtype=torch.float32, device=log_probs.device)
+    alpha[:, :, 0] = graph.init_weight[None, :]
+    bps = torch.empty((T, B, S, k), dtype=torch.int32, device=log_probs.device)
+    if lengths is not None:
+        lengths = lengths.to(log_probs.device)
+    for t in range(T):
+        new_alpha, bp = kbest_step(graph, alpha, am_costs[t], k)
+        if lengths is not None:
+            active = (t < lengths)[:, None, None]
+            new_alpha = torch.where(active, new_alpha, alpha)
+            bp = torch.where(active, bp, STAY)
+        bps[t] = bp
+        alpha = new_alpha
+    return alpha, bps
+
+
+def viterbi_kbest_decode(
+    graph: DecodeGraph,
+    log_probs: torch.Tensor,
+    k: int,
+    acoustic_scale: float = 1.0,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K-best forward + backtrace of the global top-k hypotheses on the
+    device: (arc_traces [B, k, T] int32 with STAY/-1 sentinels,
+    seed_states [B, k] int32, seed_costs [B, k] f32).
+
+    The top-k is a stable ascending sort of the [B, S * k] totals: the
+    lowest flat index first among equal costs, as XLA's top_k orders
+    ties (dead states all tie at 1e30)."""
+    alpha_final, bps = viterbi_kbest(graph, log_probs, k, acoustic_scale, lengths)
+    B, S = log_probs.shape[0], graph.num_states
+    totals = alpha_final + graph.final_weight[None, :, None]
+    flat = totals.reshape(B, S * k)
+    seed_costs, seed_flat = torch.sort(flat, dim=1, stable=True)
+    seed_costs, seed_flat = seed_costs[:, :k], seed_flat[:, :k]
+    states = seed_flat // k
+    ranks = seed_flat % k
+    seed_states = states.to(torch.int32)
+    rows = torch.arange(B, device=log_probs.device)[:, None]
+    T = bps.shape[0]
+    traces = torch.empty((B, k, T), dtype=torch.int32, device=log_probs.device)
+    for t in range(T - 1, -1, -1):
+        entry = bps[t][rows, states, ranks].to(torch.int64)  # [B, k]
+        keep = (entry == STAY) | (entry == -1)
+        arc = torch.where(keep, 0, entry.clamp_min(0)) // k
+        traces[:, :, t] = torch.where(entry == STAY, STAY, torch.where(entry == -1, -1, arc)).to(
+            torch.int32
+        )
+        states = torch.where(keep, states, graph.arc_src[arc])
+        ranks = torch.where(keep, ranks, entry.clamp_min(0) % k)
+    return traces, seed_states, seed_costs.contiguous()
+
+
+def kbest_traces_to_nbest(
+    graph: DenseGraph,
+    arc_traces: np.ndarray,
+    seed_states: np.ndarray,
+    seed_costs: np.ndarray,
+    stream: int,
+    n: int,
+    dedup: bool = True,
+) -> List[Tuple[List[int], float]]:
+    """Host word assembly for viterbi_kbest_decode outputs."""
+    results: List[Tuple[List[int], float]] = []
+    seen = set()
+    K = arc_traces.shape[1]
+    for kk in range(K):
+        cost = float(seed_costs[stream, kk])
+        if cost >= NEG_INF_F32:
+            continue
+        arcs = arc_traces[stream, kk]
+        if (arcs == -1).any():
+            continue
+        real = arcs[arcs >= 0]
+        if real.shape[0]:
+            first_state = int(graph.arc_src[real[0]])
+        else:
+            first_state = int(seed_states[stream, kk])
+        words: List[int] = list(graph.words_of(int(graph.init_wseq[first_state])))
+        wseqs = graph.arc_wseq[real]
+        for wid in wseqs[wseqs != 0]:
+            words.extend(graph.words_of(int(wid)))
+        words.extend(
+            graph.words_of(int(graph.final_wseq[int(seed_states[stream, kk])]))
+        )
+        key = tuple(words)
+        if dedup and key in seen:
+            continue
+        seen.add(key)
+        results.append((words, cost))
+        if len(results) >= n:
+            break
+    return results
+
+
+def backtrace_nbest(
+    graph: DenseGraph,
+    alpha_final: np.ndarray,
+    backptr: np.ndarray,
+    stream: int,
+    n: int,
+    num_frames: Optional[int] = None,
+    dedup: bool = True,
+) -> List[Tuple[List[int], float]]:
+    """Host-side n-best backtrace for one stream from k-best tensors.
+
+    Returns up to n (word ids, cost) pairs sorted by cost; word-sequence
+    duplicates keep the cheapest (like nbest after lattice determinization)."""
+    T = backptr.shape[0] if num_frames is None else num_frames
+    S, K = alpha_final.shape[1], alpha_final.shape[2]
+    totals = alpha_final[stream] + graph.final_weight[:, None]  # [S, K]
+    flat_order = np.argsort(totals, axis=None, kind="stable")
+
+    results: List[Tuple[List[int], float]] = []
+    seen = set()
+    for flat in flat_order:
+        state, rank = divmod(int(flat), K)
+        cost = float(totals[state, rank])
+        if cost >= NEG_INF_F32:
+            break
+        words_rev: List[Tuple[int, ...]] = [
+            graph.words_of(int(graph.final_wseq[state]))
+        ]
+        s, r = state, rank
+        dead = False
+        for t in range(T - 1, -1, -1):
+            entry = int(backptr[t, stream, s, r])
+            if entry == STAY:
+                continue
+            if entry < 0:
+                dead = True
+                break
+            arc, r = divmod(entry, K)
+            words_rev.append(graph.words_of(int(graph.arc_wseq[arc])))
+            s = int(graph.arc_src[arc])
+        if dead:
+            continue
+        words_rev.append(graph.words_of(int(graph.init_wseq[s])))
+        words: List[int] = []
+        for seq in reversed(words_rev):
+            words.extend(seq)
+        key = tuple(words)
+        if dedup and key in seen:
+            continue
+        seen.add(key)
+        results.append((words, cost))
+        if len(results) >= n:
+            break
+    return results

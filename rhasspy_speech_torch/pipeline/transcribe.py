@@ -1,17 +1,24 @@
 """Batch WAV transcription on one device: PCM -> MFCC -> i-vector ->
-nnet3 forward -> dense 1-best Viterbi -> word assembly -> fuzzy match.
+nnet3 forward -> dense Viterbi (1-best or k-best) -> word assembly -> fuzzy
+match; lattices, confidence and lattice rescoring beside it.
 
-Counterpart of ``rhasspy_speech_tpu/pipeline/transcribe.py``'s batch path
-(``Nnet3WavTranscriber.transcribe_pcm_batch`` -> ``_decode_batch``). On a
-CUDA device the frontend is the MFCC kernel (``ops/mfcc_cuda.py``) and the
-decoder the Viterbi kernel (``ops/viterbi_cuda.py``); on the CPU the same
-calls run their plain twins. ``device="cuda"`` is the default and raises
-where CUDA is absent.
+Counterpart of ``rhasspy_speech_tpu/pipeline/transcribe.py``
+(``Nnet3WavTranscriber``). On a CUDA device the frontend is the MFCC kernel
+(``ops/mfcc_cuda.py``) and the 1-best decoder the Viterbi kernel
+(``ops/viterbi_cuda.py``); on the CPU the same calls run their plain twins.
+The k-best decoder (``nbest > 1``) and the forward-backward pass of the
+lattice calls are plain PyTorch on either device, as they are plain JAX in
+the JAX package. ``device="cuda"`` is the default and raises where CUDA is
+absent.
+
+With ``silence_weight`` set (and an i-vector extractor present), a
+first-pass 1-best decode marks the silence frames, their weight in the
+i-vector statistics drops to ``silence_weight``, and the batch is scored
+again (the JAX package's OnlineSilenceWeighting equivalent).
 
 Not ported yet, and raising ``NotImplementedError`` rather than answering
-differently: n-best (nbest > 1), the checkpointed and frontier decoders,
-silence weighting, GMM models, pitch features, bfloat16 compute, rescoring
-and lattices (ROADMAP Queue 1).
+differently: the checkpointed and frontier decoders, GMM models, pitch
+features and bfloat16 compute (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -32,16 +39,29 @@ from ..host import (
     IvectorExtractor,
     LangArtifacts,
     OnlineIvectorConfig,
+    SymbolTable,
+    compact_lattice_from_decode,
     decode_meta,
+    determinize_lattice_phone_pruned,
     get_fuzzy_text,
     is_gmm_model,
     parse_conf,
     read_am_nnet3,
     read_kaldi_object,
+    rescore_lattice,
+    rescore_nbest,
+    rescore_tail,
+    silence_pdfs_from_model,
 )
 from ..models.nnet3 import CompiledNnet3, compile_nnet3
 from ..ops.cmvn import online_cmvn
-from ..ops.decoder import _COMPACT_BP_MAX_ARC, DecodeGraph, traces_to_words_batch
+from ..ops.decoder import (
+    _COMPACT_BP_MAX_ARC,
+    DecodeGraph,
+    kbest_traces_to_nbest,
+    traces_to_words_batch,
+    viterbi_kbest_decode,
+)
 from ..ops.frontend import (
     FrontendConfig,
     frontend_from_mfcc_conf,
@@ -49,6 +69,7 @@ from ..ops.frontend import (
     num_frames,
 )
 from ..ops.ivector import extract_ivectors, make_ivector_params
+from ..ops.lattice import Lattice, build_lattice, forward_backward
 from ..ops.mfcc_cuda import mfcc_batch
 from ..ops.viterbi_cuda import viterbi_decode
 
@@ -181,12 +202,15 @@ class AcousticModel:
         self,
         feats: torch.Tensor,
         num_out_frames: int,
+        ivector_frame_weights: Optional[torch.Tensor] = None,
         feat_lengths: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """[B, T, D] features -> [B, N, num_pdfs] pdf log-likelihood terms.
-        Edge frames are replicated for context; ``feat_lengths`` [B] masks
-        each stream's padding out of the i-vector stats; log-priors are
-        subtracted when the model carries them."""
+        Edge frames are replicated for context; ``ivector_frame_weights``
+        [B, T] scales each frame's weight in the i-vector stats (silence
+        weighting); ``feat_lengths`` [B] masks each stream's padding out of
+        the i-vector stats; log-priors are subtracted when the model
+        carries them."""
         model = self.compiled(num_out_frames)
         T = feats.shape[1]
         lo, hi = model.ranges["input"]
@@ -197,7 +221,10 @@ class AcousticModel:
                 iv_feats = feats
                 if self.ivector_cmvn_stats is not None:
                     iv_feats = online_cmvn(iv_feats, self.ivector_cmvn_stats)
-                ivec = extract_ivectors(iv_feats, self.ivector_params, lengths=feat_lengths)
+                ivec = extract_ivectors(
+                    iv_feats, self.ivector_params, lengths=feat_lengths,
+                    frame_weights=ivector_frame_weights,
+                )
             else:
                 ivec = feats.new_zeros((feats.shape[0], self.spec.ivector_dim))
         out = model(feats[:, idx], ivec)
@@ -246,8 +273,9 @@ def select_decoder(
 class Nnet3WavTranscriber:
     """Reference-compatible WAV transcriber on one device.
 
-    ``max_active``, ``beam``, ``min_active`` and ``lattice_beam`` only
-    matter to decoders not ported yet; the dense decoder is exact."""
+    ``max_active``, ``beam`` and ``min_active`` only matter to decoders not
+    ported yet; the dense decoders are exact. ``lattice_beam`` prunes the
+    lattices of ``get_lattice``, ``confidence`` and ``transcribe_rescore``."""
 
     def __init__(
         self,
@@ -264,8 +292,6 @@ class Nnet3WavTranscriber:
         min_active: int = 200,
         device: Union[str, torch.device] = "cuda",
     ):
-        if silence_weight is not None and silence_weight != 1.0:
-            raise _not_ported("silence weighting", "item 9")
         self.device = resolve_device(device)
         self.model_dir = Path(model_dir)
         self.graph_dir = Path(graph_dir)
@@ -282,6 +308,46 @@ class Nnet3WavTranscriber:
             raise ValueError(f"no graph.npz in {graph_dir}")
         self.device_graph = DecodeGraph.from_dense(self.artifacts.graph, self.device)
         self._lang_cache: Dict[str, LangArtifacts] = {}
+        self._silence_pdfs: Optional[frozenset] = None
+
+    def _get_silence_pdfs(self) -> frozenset:
+        """The model's silence pdfs, from ``model/phones.txt`` (empty
+        without one, and then silence weighting does nothing)."""
+        if self._silence_pdfs is None:
+            pdfs = frozenset()
+            phones_path = self.am._resolved_model_dir / "model" / "phones.txt"
+            if phones_path.exists():
+                with open(phones_path, "r", encoding="utf-8") as f:
+                    model_phones = SymbolTable.read_text(f)
+                pdfs = frozenset(silence_pdfs_from_model(self.am.transition_model, model_phones))
+            self._silence_pdfs = pdfs
+        return self._silence_pdfs
+
+    def _silence_frame_weights(
+        self, log_probs: torch.Tensor, lengths: torch.Tensor, num_in_frames: int
+    ) -> Optional[torch.Tensor]:
+        """First-pass 1-best alignment -> [B, T_in] i-vector frame weights
+        (silence frames get ``silence_weight``, speech frames 1.0)."""
+        sil_pdfs = self._get_silence_pdfs()
+        if not sil_pdfs:
+            return None
+        trace, _final, _cost = viterbi_decode(
+            self.device_graph, log_probs, acoustic_scale=self.acoustic_scale, lengths=lengths
+        )
+        trace = trace.cpu().numpy()  # [B, T_out]; arc id, STAY, or -1
+        graph = self.artifacts.graph
+        B, T_out = trace.shape
+        # forward-fill self-loop (STAY) frames with the last real arc
+        filled = trace.copy()
+        for t in range(1, T_out):
+            m = filled[:, t] < 0
+            filled[m, t] = filled[m, t - 1]
+        pdf = np.where(filled >= 0, graph.arc_pdf[np.maximum(filled, 0)], -1)
+        is_sil = np.isin(pdf, np.fromiter(sil_pdfs, dtype=np.int64))
+        w_out = np.where(is_sil, float(self.silence_weight), 1.0)
+        # upsample output-frame weights to the input frame rate
+        idx = np.minimum(np.arange(num_in_frames) // self.am.subsampling, T_out - 1)
+        return torch.as_tensor(w_out[:, idx].astype(np.float32), device=self.device)
 
     def _lang(self, lang_dir: Optional[Union[str, Path]]) -> LangArtifacts:
         if lang_dir is None:
@@ -323,10 +389,23 @@ class Nnet3WavTranscriber:
         )
 
     def _acoustic_batch(self, pcm_batch: List[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """PCM list -> (log_probs [B, N, P], output lengths [B] int32)."""
+        """PCM list -> (log_probs [B, N, P], output lengths [B] int32).
+        With silence weighting on, the log-probs are those of the second,
+        silence-weighted pass."""
         pcm, feat_lengths, lengths, bucket_out = self._pad_batch(pcm_batch)
         feats = self.am.features(pcm)
-        return self.am.log_probs(feats, bucket_out, feat_lengths=feat_lengths), lengths
+        log_probs = self.am.log_probs(feats, bucket_out, feat_lengths=feat_lengths)
+        if (
+            self.silence_weight is not None
+            and self.silence_weight != 1.0
+            and self.am.ivector_params is not None
+        ):
+            w = self._silence_frame_weights(log_probs, lengths, feats.shape[1])
+            if w is not None:
+                log_probs = self.am.log_probs(
+                    feats, bucket_out, ivector_frame_weights=w, feat_lengths=feat_lengths
+                )
+        return log_probs, lengths
 
     def _decode_traces(
         self, log_probs: torch.Tensor, lengths: torch.Tensor
@@ -352,14 +431,46 @@ class Nnet3WavTranscriber:
             parts.append([r.cpu().numpy() for r in res])
         return tuple(np.concatenate(p) for p in zip(*parts))
 
+    def _decode_nbest(
+        self, log_probs: torch.Tensor, lengths: torch.Tensor, k: int
+    ) -> List[List[Tuple[List[int], float]]]:
+        """Dense k-best decode in sub-batches sized to the backpointer
+        budget ([T, sub, S, k] int32 plus the [sub, A, k] candidates):
+        per-utterance n-best [(word ids, cost)], at most k each."""
+        graph = self.artifacts.graph
+        B, N = log_probs.shape[0], log_probs.shape[1]
+        mode, sub = select_decoder(
+            graph.num_states, B, N, k, self.max_active, self.decode_memory_budget,
+            num_arcs=graph.num_arcs,
+        )
+        if mode != "dense":
+            raise _not_ported(f"the {mode} decoder (graph too big for dense)", "item 10")
+        out: List[List[Tuple[List[int], float]]] = []
+        for start in range(0, B, sub):
+            res = viterbi_kbest_decode(
+                self.device_graph,
+                log_probs[start : start + sub],
+                k,
+                acoustic_scale=self.acoustic_scale,
+                lengths=lengths[start : start + sub],
+            )
+            traces, seed_states, seed_costs = (r.cpu().numpy() for r in res)
+            out.extend(
+                kbest_traces_to_nbest(graph, traces, seed_states, seed_costs, i, n=k)
+                for i in range(traces.shape[0])
+            )
+        return out
+
     def _decode_batch(
         self, pcm_batch: List[np.ndarray], nbest: int
     ) -> List[List[Tuple[List[int], float]]]:
-        """PCM list -> per-utterance [(word ids, cost)] (empty when no
-        complete path)."""
-        if nbest > 1:
-            raise _not_ported("nbest > 1", "item 7")
-        trace, final_state, cost = self._decode_traces(*self._acoustic_batch(pcm_batch))
+        """PCM list -> per-utterance n-best [(word ids, cost)] (empty when
+        no complete path)."""
+        log_probs, lengths = self._acoustic_batch(pcm_batch)
+        k = max(nbest, 1)
+        if k > 1:
+            return self._decode_nbest(log_probs, lengths, k)
+        trace, final_state, cost = self._decode_traces(log_probs, lengths)
         assembled = traces_to_words_batch(self.artifacts.graph, trace, final_state, cost)
         return [[] if words is None else [(words, c)] for words, c in assembled]
 
@@ -437,17 +548,124 @@ class Nnet3WavTranscriber:
             out.append(texts)
         return out
 
-    def transcribe_rescore(self, *args, **kwargs) -> List[str]:
-        raise _not_ported("rescoring", "item 8")
+    def _utterance_log_probs(self, pcm: np.ndarray) -> torch.Tensor:
+        """One utterance's [1, N, P] log-probs over its own frames (no
+        bucket padding), as the lattice calls score it."""
+        pcm_t, _feat_lengths, _lengths, _bucket = self._pad_batch([pcm])
+        T = num_frames(self.am.frontend_config, pcm.shape[0])
+        n_out = max(1, -(-T // self.am.subsampling))
+        return self.am.log_probs(self.am.features(pcm_t), n_out)
 
-    def get_lattice(self, *args, **kwargs):
-        raise _not_ported("lattices", "item 8")
+    def get_lattice_pcm(
+        self, pcm: np.ndarray, lattice_beam: Optional[float] = None
+    ) -> Optional[Lattice]:
+        """Pruned word lattice for one utterance's samples: tropical
+        forward-backward over the dense graph on this transcriber's device,
+        then every (frame, arc) within ``lattice_beam`` of the best path
+        kept in a host DAG (None when no path completes)."""
+        log_probs = self._utterance_log_probs(pcm)
+        alphas, betas = forward_backward(self.device_graph, log_probs, self.acoustic_scale)
+        return build_lattice(
+            self.artifacts.graph,
+            alphas.cpu().numpy(),
+            betas.cpu().numpy(),
+            log_probs.cpu().numpy(),
+            0,
+            lattice_beam=lattice_beam if lattice_beam is not None else self.lattice_beam,
+            acoustic_scale=self.acoustic_scale,
+        )
 
-    def get_compact_lattice(self, *args, **kwargs):
-        raise _not_ported("lattices", "item 8")
+    def get_lattice(
+        self, wav_path: Union[str, Path], lattice_beam: Optional[float] = None
+    ) -> Optional[Lattice]:
+        """Pruned word lattice for one WAV file (``get_lattice_pcm``)."""
+        return self.get_lattice_pcm(read_wav(wav_path), lattice_beam=lattice_beam)
 
-    def confidence(self, *args, **kwargs) -> float:
-        raise _not_ported("lattice confidence", "item 8")
+    def get_compact_lattice(
+        self,
+        wav_path: Union[str, Path],
+        lattice_beam: Optional[float] = None,
+        determinize: bool = True,
+    ):
+        """Word-level Kaldi CompactLattice for one utterance, writable with
+        the host's lattice writers. ``determinize`` (the default) gives the
+        canonical form Kaldi tools expect: epsilon-free, one path per word
+        sequence at its best cost."""
+        lat = self.get_lattice(wav_path, lattice_beam=lattice_beam)
+        if lat is None:
+            return None
+        clat = compact_lattice_from_decode(lat, self.artifacts.graph)
+        if determinize:
+            try:
+                clat = determinize_lattice_phone_pruned(clat, self.am.transition_model)
+            except ValueError as exc:
+                # as Kaldi's DeterminizeLatticePhonePrunedWrapper, degrade to
+                # the input lattice rather than fail the utterance
+                _LOGGER.warning(
+                    "lattice determinization gave up (%s); exporting the "
+                    "undeterminized lattice",
+                    exc,
+                )
+        return clat
+
+    def confidence_pcm(self, pcm: np.ndarray, n: int = 8) -> float:
+        """Posterior of the 1-best transcript over the lattice's n best
+        distinct word sequences, in [0, 1]: exp(-c1) / sum_i exp(-ci)."""
+        lat = self.get_lattice_pcm(pcm)
+        if lat is None:
+            return 0.0
+        hyps = lat.nbest(self.artifacts.graph, n, dedup=True)
+        if not hyps:
+            return 0.0
+        costs = np.asarray([c for _, c in hyps], dtype=np.float64)
+        w = np.exp(-(costs - costs.min()))
+        return float(w[0] / w.sum())
+
+    def confidence(self, wav_path: Union[str, Path], n: int = 8) -> float:
+        return self.confidence_pcm(read_wav(wav_path), n=n)
+
+    def transcribe_rescore(
+        self,
+        wav_path: Union[str, Path],
+        old_lang_dir: Union[str, Path],
+        new_lang_dir: Union[str, Path],
+        nbest: int = 5,
+        max_fuzzy_cost: Optional[float] = None,
+        require_fuzzy: bool = False,
+    ) -> List[str]:
+        """Dual-graph rescore: decode with this transcriber's graph, remap
+        the pruned decode lattice through the new lang dir's lexicon and LM,
+        then run the fuzzy tail against ``old_lang_dir``'s G.fuzzy. Falls
+        back to an n-best-list LM swap, which cannot recover hypotheses
+        outside the first pass, only when the artifacts lack lattice
+        metadata."""
+        old_lang = self._lang(old_lang_dir)
+        new_lang = self._lang(new_lang_dir)
+        if new_lang.g_fst is None:
+            raise ValueError(f"no G.fst in {new_lang_dir}")
+        graph = self.artifacts.graph
+        if graph.has_phone_info and new_lang.ldet is not None:
+            lat = self.get_lattice(wav_path)
+            hyp_list = (
+                rescore_lattice(lat, graph, self.artifacts.phones, new_lang, nbest=nbest)
+                if lat is not None
+                else []
+            )
+        else:
+            _LOGGER.warning(
+                "Artifacts lack lattice rescore metadata (phone tags or "
+                "ldet.fst) — falling back to an n-best LM swap, which cannot "
+                "recover hypotheses outside the first pass. Retrain to fix."
+            )
+            if old_lang.g_fst is None:
+                raise ValueError(f"no G.fst in {old_lang_dir}")
+            hyp_list = rescore_nbest(
+                self._decode_batch([read_wav(wav_path)], nbest)[0],
+                old_lang.g_fst,
+                new_lang.g_fst,
+                self.artifacts.words,
+            )
+        return rescore_tail(hyp_list, old_lang, new_lang, max_fuzzy_cost, require_fuzzy)
 
     async def async_transcribe(
         self,
@@ -461,8 +679,19 @@ class Nnet3WavTranscriber:
             self.transcribe, wav_path, lang_dir, nbest, max_fuzzy_cost, require_fuzzy
         )
 
-    async def async_transcribe_rescore(self, *args, **kwargs) -> List[str]:
-        raise _not_ported("rescoring", "item 8")
+    async def async_transcribe_rescore(
+        self,
+        wav_path: Union[str, Path],
+        old_lang_dir: Union[str, Path],
+        new_lang_dir: Union[str, Path],
+        nbest: int = 5,
+        max_fuzzy_cost: Optional[float] = None,
+        require_fuzzy: bool = False,
+    ) -> List[str]:
+        return await asyncio.to_thread(
+            self.transcribe_rescore,
+            wav_path, old_lang_dir, new_lang_dir, nbest, max_fuzzy_cost, require_fuzzy,
+        )
 
 
 # Reference-compatible alias (rhasspy_speech.KaldiNnet3WavTranscriber)

@@ -6,7 +6,7 @@ the file still collects on the CPU. Run on the card with::
 
     python -m pytest tests/test_torch_kernels.py -q
 
-Tolerances: the decode kernel must be bit-identical to the scatter twin
+Tolerances: the decode and windowed-relaxation kernels must be bit-identical to the scatter twin
 (its arithmetic is mins and adds in the reference's order). The MFCC
 kernel computes a direct DFT with FMAs where the twin calls rfft and
 cuBLAS, so it is held to rtol 2e-3 / atol 3e-2 -- the tolerance the JAX
@@ -27,6 +27,8 @@ from rhasspy_speech_torch.ops.frontend import (
 )
 from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch
 from rhasspy_speech_torch.ops.viterbi_cuda import viterbi_decode
+from rhasspy_speech_torch.ops.windowed_relax_cuda import windowed_relax, windowed_relax_torch
+from rhasspy_speech_torch.examples.windowed_cost import make_step_tables
 
 MFCC_RTOL, MFCC_ATOL = 2e-3, 3e-2
 
@@ -164,3 +166,41 @@ def test_viterbi_kernel_rejects_oversized_graph(cuda):
     lp = torch.zeros((1, 2, 40), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         viterbi_decode(g, lp)
+
+
+def assert_relax_bit_exact(tables, T, B, s_pad, device, alpha0=None):
+    tables = [torch.as_tensor(x, device=device) for x in tables]
+    a0 = None if alpha0 is None else torch.as_tensor(alpha0, device=device)
+    want = windowed_relax_torch(*tables, T, B, s_pad, alpha0=a0)
+    before = windowed_relax.launches
+    got = windowed_relax(*tables, T, B, s_pad, alpha0=a0)
+    torch.cuda.synchronize()
+    assert windowed_relax.launches == before + 1
+    assert got[1].dtype == torch.uint16
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+    np.testing.assert_array_equal(got[1].cpu().to(torch.int32).numpy(),
+                                  want[1].cpu().to(torch.int32).numpy())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_pad,nstep", [(256, 8), (1024, 100), (14208, 1280)])
+def test_windowed_relax_kernel_bit_exact(cuda, s_pad, nstep):
+    """The example's shared tables; 14,208 states need 113 KB of shared
+    memory."""
+    assert_relax_bit_exact(make_step_tables(nstep, s_pad), 3, 4, s_pad, cuda)
+
+
+@pytest.mark.cuda
+def test_windowed_relax_kernel_per_stream(cuda):
+    """Tables and initial alpha differ per stream, with many exact ties: a
+    kernel that reads another stream's row cannot pass."""
+    B, s_pad, nstep = 5, 512, 60
+    rng = np.random.RandomState(9)
+    per = [make_step_tables(nstep, s_pad, seed=40 + i) for i in range(B)]
+    dbase, sbase, idx, w, arc = (np.stack(x) for x in zip(*per))
+    w = (np.round(w * 4) / 4).astype(np.float32)
+    arc = (arc % 11).astype(np.int32)
+    alpha0 = (np.round(rng.rand(B, s_pad) * 8) / 8).astype(np.float32)
+    _, bp = assert_relax_bit_exact((dbase, sbase, idx, w, arc), 4, B, s_pad, cuda, alpha0)
+    assert not torch.equal(bp[:, 0], bp[:, 1])

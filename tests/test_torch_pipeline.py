@@ -1,4 +1,4 @@
-"""The port's batch transcription slice against the JAX package, end to end.
+"""The port's transcriber against the JAX package's, end to end.
 
 A synthetic profile with an i-vector extractor (``build_synthetic_profile
 (..., with_ivector=True)``) is trained once; the JAX transcriber and the
@@ -6,7 +6,12 @@ port's transcriber (``device="cpu"``, so the plain twins run) must give
 equal transcripts, equal arc traces and the spoken sentence. Log-probs
 are held within rtol 1e-4 / atol 1e-3 (f32 matmuls summed in another
 order); the traces are equal because the decode is exact and the tiny
-log-prob differences never flip a path on these inputs.
+log-prob differences never flip a path on these inputs. Costs that sum
+those log-probs over an utterance are held to atol 1e-2, confidences to
+atol 1e-3.
+
+Beside the 1-best path: n-best with the fuzzy tail, lattices, compact
+lattices, confidence and silence weighting.
 """
 
 import os
@@ -32,6 +37,9 @@ import torch
 
 import rhasspy_speech_torch
 from rhasspy_speech_torch import Nnet3WavTranscriber
+
+COST_ATOL = 1e-2
+CONF_ATOL = 1e-3
 
 LEXICON = {
     "turn": ["t", "er", "n"],
@@ -97,16 +105,17 @@ def test_require_fuzzy_rejects_like_jax(trained):
 
 
 def test_unported_options_raise(trained):
+    """bf16 and the decoders for graphs too big for dense backpointers
+    (checkpointed for 1-best, frontier for k-best) name their ROADMAP
+    items."""
     model_dir, graph_dir, pcms = trained
-    tt = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.transcribe_pcm_batch(pcms[:1], nbest=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", silence_weight=0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.transcribe_rescore("x.wav", graph_dir, graph_dir)
+    tiny = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", decode_memory_budget=1024)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+        tiny.transcribe_pcm_batch(pcms[:1])
+    with pytest.raises(NotImplementedError, match="frontier.*ROADMAP.*item 10"):
+        tiny.transcribe_pcm_batch(pcms[:1], nbest=3)
 
 
 def test_cuda_default_raises_without_cuda(trained):
@@ -144,8 +153,12 @@ def test_port_runs_with_jax_blocked(trained, tmp_path):
         sys.path.insert(0, {str(REPO)!r})
         import numpy as np
         from rhasspy_speech_torch import Nnet3WavTranscriber
+        import rhasspy_speech_torch.examples.windowed_cost
         t = Nnet3WavTranscriber({str(model_dir)!r}, {str(graph_dir)!r}, device="cpu")
-        out = t.transcribe_pcm_batch([np.load({str(tmp_path / "pcm.npy")!r})])
+        pcm = np.load({str(tmp_path / "pcm.npy")!r})
+        out = t.transcribe_pcm_batch([pcm])
+        assert t.transcribe_pcm_batch([pcm], nbest=2)[0][0] == out[0][0]
+        assert t.confidence_pcm(pcm) > 0.5
         assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v is not None)
         print(out[0][0])
         """
@@ -164,7 +177,9 @@ def test_package_surface():
     for name in ("Nnet3WavTranscriber", "KaldiNnet3WavTranscriber", "AcousticModel",
                  "train_model", "train_model_sync", "LangSuffix"):
         assert hasattr(rhasspy_speech_torch, name)
-    for method in ("transcribe", "transcribe_batch", "transcribe_pcm_batch", "async_transcribe"):
+    for method in ("transcribe", "transcribe_batch", "transcribe_pcm_batch", "async_transcribe",
+                   "get_lattice", "get_compact_lattice", "confidence", "confidence_pcm",
+                   "transcribe_rescore", "async_transcribe_rescore"):
         assert callable(getattr(Nnet3WavTranscriber, method))
 
 
@@ -198,3 +213,120 @@ def test_copied_read_wav_equals_original(trained, tmp_path):
         w.setframerate(16000)
         w.writeframes(np.clip(pcms[2], -32768, 32767).astype(np.int16).tobytes())
     np.testing.assert_array_equal(read_wav(path), jax_read_wav(path))
+
+
+def _write_wav(path, pcm):
+    import wave
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(np.clip(pcm, -32768, 32767).astype(np.int16).tobytes())
+
+
+def test_nbest_equals_jax(trained):
+    """k-best word lists and costs, then the fuzzy tail with
+    require_fuzzy, as tests/test_pipeline.py drives them."""
+    model_dir, graph_dir, pcms = trained
+    jt = JaxTranscriber(model_dir, graph_dir)
+    tt = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu")
+    want = jt._decode_batch(pcms, 5)
+    got = tt._decode_batch(pcms, 5)
+    assert [[w for w, _ in h] for h in got] == [[w for w, _ in h] for h in want]
+    for g_h, w_h in zip(got, want):
+        np.testing.assert_allclose([c for _, c in g_h], [c for _, c in w_h], atol=COST_ATOL)
+    kw = dict(nbest=3, max_fuzzy_cost=1.5, require_fuzzy=True)
+    assert tt.transcribe_pcm_batch(pcms, **kw) == jt.transcribe_pcm_batch(pcms, **kw) == [
+        [s] for s in SPOKEN]
+    assert tt.transcribe_pcm_batch(pcms, nbest=3) == jt.transcribe_pcm_batch(pcms, nbest=3)
+
+
+def test_lattice_and_compact_lattice_equal_jax(trained, tmp_path):
+    model_dir, graph_dir, pcms = trained
+    jt = JaxTranscriber(model_dir, graph_dir)
+    tt = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu")
+    wav = tmp_path / "lat.wav"
+    _write_wav(wav, pcms[0])
+    lat, jlat = tt.get_lattice(wav), jt.get_lattice(wav)
+    assert lat.num_arcs() > 0
+    assert [a[:3] + a[5:] for a in lat.arcs] == [a[:3] + a[5:] for a in jlat.arcs]
+    np.testing.assert_allclose([a[4] for a in lat.arcs], [a[4] for a in jlat.arcs], atol=COST_ATOL)
+    words, _ = lat.shortest_path_words(tt.artifacts.graph)
+    assert " ".join(tt.artifacts.words.find_id(w) for w in words) == SPOKEN[0]
+
+    clat, jclat = tt.get_compact_lattice(wav), jt.get_compact_lattice(wav)
+    assert clat.num_arcs() > 0 and clat.start == jclat.start
+
+    def shape(c):
+        return [[(w, tids, ns) for w, _g, _a, tids, ns in arcs] for arcs in c.arcs]
+
+    assert shape(clat) == shape(jclat) and clat.finals.keys() == jclat.finals.keys()
+    costs = [[g + a for _w, g, a, _t, _n in arcs] for arcs in clat.arcs]
+    jcosts = [[g + a for _w, g, a, _t, _n in arcs] for arcs in jclat.arcs]
+    for c, jc in zip(costs, jcosts):
+        np.testing.assert_allclose(c, jc, atol=COST_ATOL)
+
+
+def test_confidence_equals_jax(trained, tmp_path):
+    """High on clean in-grammar audio; collapses when the acoustic
+    evidence is scaled away (tests/test_pipeline.py's case)."""
+    model_dir, graph_dir, pcms = trained
+    for scale, check in ((1.0, lambda c: c > 0.99), (1e-5, lambda c: 0.0 < c < 0.9)):
+        jt = JaxTranscriber(model_dir, graph_dir, acoustic_scale=scale)
+        tt = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", acoustic_scale=scale)
+        got, want = tt.confidence_pcm(pcms[0]), jt.confidence_pcm(pcms[0])
+        assert check(got), (scale, got)
+        assert abs(got - want) <= CONF_ATOL, (scale, got, want)
+    wav = tmp_path / "c.wav"
+    _write_wav(wav, pcms[0])
+    assert abs(tt.confidence(wav) - jt.confidence(wav)) <= CONF_ATOL
+
+
+def test_silence_weighting_equals_jax(trained, monkeypatch):
+    """silence_weight=0.01 on speech padded with silence: the first-pass
+    frame weights are equal, the weighted i-vectors and the second pass's
+    log-probs agree, the transcripts are the spoken sentence. (The
+    synthetic AM reads its i-vector input with zero weights, so the
+    i-vectors are compared directly.)"""
+    from rhasspy_speech_tpu.ops.ivector import extract_ivectors as jax_extract_ivectors
+    from rhasspy_speech_tpu.testing.synthetic import _silence_wave
+
+    from rhasspy_speech_torch.ops.ivector import extract_ivectors
+
+    model_dir, graph_dir, pcms = trained
+    sil = _silence_wave(16000, np.random.RandomState(0))[:8000]
+    batch = [np.concatenate([sil, pcms[0], sil]), pcms[1]]
+    jt = JaxTranscriber(model_dir, graph_dir, silence_weight=0.01)
+    tt = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", silence_weight=0.01)
+    assert tt._get_silence_pdfs() == jt._get_silence_pdfs() and tt._get_silence_pdfs()
+
+    pcm, feat_lengths, lengths, n_out = tt._pad_batch(batch)
+    feats = tt.am.features(pcm)
+    lp1 = tt.am.log_probs(feats, n_out, feat_lengths=feat_lengths)
+    w = tt._silence_frame_weights(lp1, lengths, feats.shape[1])
+    jw = np.asarray(jt._silence_frame_weights(
+        jnp.asarray(lp1.numpy()), jnp.asarray(lengths.numpy()), feats.shape[1]))
+    np.testing.assert_array_equal(w.numpy(), jw)
+    assert (jw == np.float32(0.01)).any() and (jw == 1.0).any()
+
+    ivec = extract_ivectors(feats, tt.am.ivector_params, feat_lengths, frame_weights=w)
+    jivec = np.asarray(jax_extract_ivectors(
+        jnp.asarray(feats.numpy()), jt.am.ivector_params, jnp.asarray(feat_lengths.numpy()),
+        frame_weights=jnp.asarray(jw)))
+    np.testing.assert_allclose(ivec.numpy(), jivec, rtol=1e-4, atol=1e-3)
+    plain = extract_ivectors(feats, tt.am.ivector_params, feat_lengths)
+    assert not torch.allclose(ivec, plain, rtol=1e-3, atol=1e-2)  # the weights matter
+
+    calls = []
+    log_probs = tt.am.log_probs
+    monkeypatch.setattr(tt.am, "log_probs", lambda *a, **k: calls.append(k) or log_probs(*a, **k))
+    lp2, _ = tt._acoustic_batch(batch)
+    assert [c.get("ivector_frame_weights") is not None for c in calls] == [False, True]
+    assert torch.equal(calls[1]["ivector_frame_weights"], w)
+    jlp2 = np.asarray(jt.am.log_probs(
+        jnp.asarray(feats.numpy()), n_out, ivector_frame_weights=jnp.asarray(jw),
+        feat_lengths=jnp.asarray(feat_lengths.numpy())))
+    np.testing.assert_allclose(lp2.numpy(), jlp2, rtol=1e-4, atol=1e-3)
+    want = [[SPOKEN[0]], [SPOKEN[1]]]
+    assert tt.transcribe_pcm_batch(batch) == jt.transcribe_pcm_batch(batch) == want
