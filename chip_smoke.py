@@ -84,6 +84,7 @@ from rhasspy_speech_torch.ops.lattice import forward_backward  # noqa: E402
 from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch  # noqa: E402
 from rhasspy_speech_torch.ops.viterbi_cuda import viterbi_decode  # noqa: E402
 from rhasspy_speech_torch.ops.windowed_relax_cuda import (  # noqa: E402
+    prepare_steps,
     windowed_relax,
     windowed_relax_torch,
 )
@@ -363,7 +364,7 @@ def windowed_relax_phase(dev):
     alpha0 = (np.round(np.random.RandomState(9).rand(Bs, s_pad) * 8) / 8).astype(np.float32)
     small = [torch.as_tensor(x, device=dev) for x in (dbase, sbase, idx, w, arc)]
     a0 = torch.as_tensor(alpha0, device=dev)
-    got = windowed_relax(*small, 4, Bs, s_pad, alpha0=a0)
+    got = windowed_relax(prepare_steps(*small, s_pad), 4, Bs, alpha0=a0)
     ref = windowed_relax_torch(*small, 4, Bs, s_pad, alpha0=a0)
     check(torch.equal(got[0], ref[0]) and torch.equal(got[1].to(torch.int32), ref[1].to(torch.int32)),
           "windowed_relax differs from its plain version on per-stream tables")

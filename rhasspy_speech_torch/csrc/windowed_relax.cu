@@ -12,9 +12,10 @@
 // 1.8 MB, far more than a Hopper block's 227 KB of shared memory, so here
 // one CTA owns one stream.
 //
-// Design (one of the two simple ones): the wrapper regroups the steps by
-// destination block once, on the device (ops/windowed_relax_cuda.py,
-// group_by_destination). A 128-thread group owns a destination block at a
+// Design (one of the two simple ones): the steps are regrouped by
+// destination block on the device once per set of tables, before any
+// launch (ops/windowed_relax_cuda.py, prepare_steps), and every launch
+// reuses the grouping. A 128-thread group owns a destination block at a
 // time; lane j merges every step of that block in registers with the
 // TPU kernel's strict-< rule and writes the next alpha into a second
 // shared buffer. No two threads ever write one destination, so there are

@@ -20,15 +20,18 @@ Tables are shared by every stream (``dbase``/``sbase`` [NSTEP], ``idx``/
 leading batch dimension. ``dbase`` and ``sbase`` are multiples of 128
 below ``s_pad``; ``idx`` lies in [0, 128).
 
-``windowed_relax`` launches the kernel for tables on a CUDA device and
-runs ``windowed_relax_torch`` for tables on the CPU; it never falls back
-from one to the other. ``windowed_relax.launches`` counts kernel launches.
+``prepare_steps`` checks the tables and regroups them by destination
+block once; ``windowed_relax`` then launches the kernel for tables on a
+CUDA device and runs ``windowed_relax_torch`` for tables on the CPU, and
+never falls back from one to the other. ``windowed_relax.launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -118,45 +121,46 @@ def group_by_destination(dbase, sbase, idx, w, arc, s_pad: int):
     )
 
 
-def windowed_relax(
+class StepTables(NamedTuple):
+    """Step tables checked and regrouped once by ``prepare_steps``, for any
+    number of ``windowed_relax`` calls: ``tables`` as given (for the plain
+    version) and the ``group_by_destination`` tensors (for the kernel)."""
+
+    tables: Tuple[torch.Tensor, ...]
+    blk_ptr: torch.Tensor
+    sbase: torch.Tensor
+    idx: torch.Tensor
+    w: torch.Tensor
+    arc: torch.Tensor
+    s_pad: int
+    per_stream: bool
+
+
+def prepare_steps(
     dbase: torch.Tensor,
     sbase: torch.Tensor,
     idx: torch.Tensor,
     w: torch.Tensor,
     arc: torch.Tensor,
-    num_frames: int,
-    batch: int,
     s_pad: int,
-    alpha0: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Windowed relaxation of ``batch`` streams over ``num_frames`` frames:
-    (alpha [B, s_pad] f32, bp [T, B, s_pad] uint16), bit-identical to
-    ``windowed_relax_torch``."""
+) -> StepTables:
+    """Check the tables (one wait for the device) and regroup them by
+    destination block, on their device."""
     dev = dbase.device
-    if dev.type == "cpu":
-        return windowed_relax_torch(dbase, sbase, idx, w, arc, num_frames, batch, s_pad, alpha0)
-    if dev.type != "cuda":
-        raise ValueError(f"windowed_relax: unsupported device {dev}")
+    if dbase.dim() not in (1, 2):
+        raise ValueError(f"windowed_relax: dbase must be [NSTEP] or [B, NSTEP], got "
+                         f"{tuple(dbase.shape)}")
     per_stream = dbase.dim() == 2
-    lead = (batch,) if per_stream else ()
-    nstep = dbase.shape[-1]
+    lead, nstep = tuple(dbase.shape[:-1]), dbase.shape[-1]
     for name, x, shape in (
-        ("dbase", dbase, lead + (nstep,)), ("sbase", sbase, lead + (nstep,)),
-        ("idx", idx, lead + (nstep, LANES)), ("w", w, lead + (nstep, LANES)),
-        ("arc", arc, lead + (nstep, LANES)),
+        ("sbase", sbase, lead + (nstep,)), ("idx", idx, lead + (nstep, LANES)),
+        ("w", w, lead + (nstep, LANES)), ("arc", arc, lead + (nstep, LANES)),
     ):
         if tuple(x.shape) != shape or x.device != dev:
             raise ValueError(f"windowed_relax: {name} must be {shape} on {dev}, got "
                              f"{tuple(x.shape)} on {x.device}")
     if s_pad % LANES or s_pad <= 0:
         raise ValueError(f"windowed_relax: s_pad {s_pad} is not a positive multiple of {LANES}")
-    lib = _lib()
-    max_states = lib.rss_windowed_relax_max_states(dev.index)
-    if s_pad > max_states:
-        raise ValueError(
-            f"windowed_relax keeps alpha in shared memory: s_pad {s_pad} exceeds "
-            f"the {max_states} this card holds"
-        )
     bad = (
         (dbase % LANES != 0) | (dbase < 0) | (dbase >= s_pad)
         | (sbase % LANES != 0) | (sbase < 0) | (sbase >= s_pad)
@@ -164,16 +168,50 @@ def windowed_relax(
     if bool(bad):
         raise ValueError("windowed_relax: dbase/sbase must be multiples of 128 below s_pad "
                          "and idx must lie in [0, 128)")
-    blk_ptr, sb, ix, wg, ag = group_by_destination(dbase, sbase, idx, w, arc, s_pad)
+    grouped = group_by_destination(dbase, sbase, idx, w, arc, s_pad)
+    return StepTables((dbase, sbase, idx, w, arc), *grouped, s_pad, per_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def _max_states(device_index: int) -> int:
+    return _lib().rss_windowed_relax_max_states(device_index)
+
+
+def windowed_relax(
+    steps: StepTables,
+    num_frames: int,
+    batch: int,
+    alpha0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Windowed relaxation of ``batch`` streams over ``num_frames`` frames
+    on the tables of ``prepare_steps``: (alpha [B, s_pad] f32, bp [T, B,
+    s_pad] uint16), bit-identical to ``windowed_relax_torch``. Waits for the
+    device nowhere."""
+    dev, s_pad = steps.blk_ptr.device, steps.s_pad
+    if dev.type == "cpu":
+        return windowed_relax_torch(*steps.tables, num_frames, batch, s_pad, alpha0)
+    if dev.type != "cuda":
+        raise ValueError(f"windowed_relax: unsupported device {dev}")
+    if steps.per_stream and steps.blk_ptr.shape[0] != batch:
+        raise ValueError(f"windowed_relax: tables for {steps.blk_ptr.shape[0]} streams, "
+                         f"batch {batch}")
+    max_states = _max_states(dev.index)
+    if s_pad > max_states:
+        raise ValueError(
+            f"windowed_relax keeps alpha in shared memory: s_pad {s_pad} exceeds "
+            f"the {max_states} this card holds"
+        )
     if alpha0 is not None:
         alpha0 = alpha0.to(device=dev, dtype=torch.float32).reshape(batch, s_pad).contiguous()
     alpha = torch.empty((batch, s_pad), dtype=torch.float32, device=dev)
     bp = torch.empty((num_frames, batch, s_pad), dtype=torch.uint16, device=dev)
     if batch:
+        lib = _lib()
         err = lib.rss_windowed_relax_launch(
-            blk_ptr.data_ptr(), sb.data_ptr(), ix.data_ptr(), wg.data_ptr(), ag.data_ptr(),
+            steps.blk_ptr.data_ptr(), steps.sbase.data_ptr(), steps.idx.data_ptr(),
+            steps.w.data_ptr(), steps.arc.data_ptr(),
             None if alpha0 is None else alpha0.data_ptr(),
-            batch, num_frames, s_pad, nstep, int(per_stream),
+            batch, num_frames, s_pad, steps.sbase.shape[1], int(steps.per_stream),
             alpha.data_ptr(), bp.data_ptr(),
             1024, dev.index, torch.cuda.current_stream(dev).cuda_stream,
         )

@@ -27,7 +27,11 @@ from rhasspy_speech_torch.ops.frontend import (
 )
 from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch
 from rhasspy_speech_torch.ops.viterbi_cuda import viterbi_decode
-from rhasspy_speech_torch.ops.windowed_relax_cuda import windowed_relax, windowed_relax_torch
+from rhasspy_speech_torch.ops.windowed_relax_cuda import (
+    prepare_steps,
+    windowed_relax,
+    windowed_relax_torch,
+)
 from rhasspy_speech_torch.examples.windowed_cost import make_step_tables
 
 MFCC_RTOL, MFCC_ATOL = 2e-3, 3e-2
@@ -173,7 +177,8 @@ def assert_relax_bit_exact(tables, T, B, s_pad, device, alpha0=None):
     a0 = None if alpha0 is None else torch.as_tensor(alpha0, device=device)
     want = windowed_relax_torch(*tables, T, B, s_pad, alpha0=a0)
     before = windowed_relax.launches
-    got = windowed_relax(*tables, T, B, s_pad, alpha0=a0)
+    steps = prepare_steps(*tables, s_pad)
+    got = windowed_relax(steps, T, B, alpha0=a0)
     torch.cuda.synchronize()
     assert windowed_relax.launches == before + 1
     assert got[1].dtype == torch.uint16

@@ -23,6 +23,7 @@ import torch
 from rhasspy_speech_torch.examples import windowed_cost
 from rhasspy_speech_torch.ops.windowed_relax_cuda import (
     group_by_destination,
+    prepare_steps,
     windowed_relax,
     windowed_relax_torch,
 )
@@ -147,18 +148,34 @@ def test_group_by_destination_block_pointers():
 
 def test_wrapper_runs_plain_version_on_cpu():
     tables = [torch.as_tensor(x) for x in windowed_cost.make_step_tables(6, 256)]
+    steps = prepare_steps(*tables, 256)
+    assert all(a is b for a, b in zip(steps.tables, tables))
     before = windowed_relax.launches
-    got = windowed_relax(*tables, 2, 3, 256)
+    got = windowed_relax(steps, 2, 3)
     assert windowed_relax.launches == before
     want = windowed_relax_torch(*tables, 2, 3, 256)
     for a, b in zip(got, want):
         assert torch.equal(a.to(torch.float32), b.to(torch.float32))
-
-
-def test_example_main_on_cpu(capsys):
-    out = windowed_cost.main(["8", "2"], device="cpu", batch=4, frames=2, s_pad=256)
-    assert out["alpha"].shape == (4, 256) and out["bp"].shape == (2, 4, 256)
-    assert out["ms"] is None  # no device time from a CPU run
-    assert "no device time" in capsys.readouterr().out
     # every stream equal on the example's shared tables, all computed
-    assert torch.equal(out["bp"][:, 0], out["bp"][:, 3])
+    assert torch.equal(got[1][:, 0], got[1][:, 2])
+
+
+@pytest.mark.parametrize("which,value,match", [
+    ("dbase", 1, "multiples of 128"),
+    ("sbase", 256, "below s_pad"),
+    ("idx", 128, r"\[0, 128\)"),
+    ("w", None, "must be"),
+])
+def test_prepare_steps_rejects_bad_tables(which, value, match):
+    """Tables are checked once, before any launch: block bases off the
+    128 grid or past s_pad, lane indices past 128, and shapes that do not
+    match."""
+    tables = dict(zip(("dbase", "sbase", "idx", "w", "arc"),
+                      (torch.as_tensor(x) for x in windowed_cost.make_step_tables(4, 256))))
+    if value is None:
+        tables[which] = tables[which][:, :64]
+    else:
+        tables[which] = tables[which].clone()
+        tables[which].view(-1)[0] = value
+    with pytest.raises(ValueError, match=match):
+        prepare_steps(*tables.values(), 256)
