@@ -68,10 +68,9 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from rhasspy_speech_torch import Nnet3WavTranscriber  # noqa: E402
-from rhasspy_speech_torch.host import (  # noqa: E402
-    NEG_INF_F32,
-    DenseGraph,
-    LangArtifacts,
+from rhasspy_speech_torch.graph.dense import NEG_INF_F32, DenseGraph  # noqa: E402
+from rhasspy_speech_torch.pipeline.artifacts import LangArtifacts  # noqa: E402
+from rhasspy_speech_torch.testing.flagship import (  # noqa: E402
     build_flagship_graph,
     write_flagship_model_dir,
 )

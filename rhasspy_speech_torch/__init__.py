@@ -4,16 +4,18 @@ Batch WAV transcription (PCM -> MFCC -> i-vector -> TDNN-F -> dense 1-best
 Viterbi -> words -> fuzzy match) runs on one CUDA device through two
 hand-written Hopper kernels (``csrc/mfcc.cu``, ``csrc/viterbi.cu``); every
 kernel has a plain PyTorch twin that runs for CPU tensors. The host layers
-(grammar, lang, graph, io, training) come from ``rhasspy_speech_tpu``
-through ``host.py``, without importing JAX.
+(grammar, FST, lang, lexicon, graph, io, native, training) are the port's
+own copies of the JAX package's host modules, which hold no JAX code; the
+port imports nothing of the JAX package.
 """
 
-from .host import LangSuffix, train_model, train_model_sync
+from .const import LangSuffix
 from .pipeline import (
     AcousticModel,
     KaldiNnet3WavTranscriber,
     Nnet3WavTranscriber,
 )
+from .pipeline.train import train_model, train_model_sync
 
 __all__ = [
     "AcousticModel",

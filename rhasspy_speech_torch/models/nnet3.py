@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..host import ComponentSpec, Descriptor, Nnet3Spec, NodeSpec
+from ..io.nnet3_file import ComponentSpec, Descriptor, Nnet3Spec, NodeSpec
 
 _AFFINE = ("AffineComponent", "NaturalGradientAffineComponent", "FixedAffineComponent")
 _NOOP = (

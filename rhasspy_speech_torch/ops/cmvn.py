@@ -3,7 +3,9 @@
 Counterpart of ``rhasspy_speech_tpu/ops/cmvn.py:online_cmvn`` (Kaldi
 OnlineCmvn): frame t is normalized with the stats of the window
 [t - cmn_window, t], the deficit filled from global stats capped at
-global_frames. Global stats use Kaldi's [2, D+1] matrix convention.
+global_frames. Global stats use Kaldi's [2, D+1] matrix convention
+(``stats_from_matrix``, and ``matrix_from_stats``, copied from the JAX
+module, which imports JAX).
 """
 
 from __future__ import annotations
@@ -29,6 +31,16 @@ def stats_from_matrix(stats: np.ndarray) -> Tuple[np.ndarray, np.ndarray, float]
     """Kaldi [2, D+1] stats matrix -> (sum [D], sumsq [D], count)."""
     stats = np.asarray(stats)
     return stats[0, :-1].copy(), stats[1, :-1].copy(), float(stats[0, -1])
+
+
+def matrix_from_stats(total: np.ndarray, total_sq: np.ndarray, count: float) -> np.ndarray:
+    """(sum [D], sumsq [D], count) -> Kaldi [2, D+1] stats matrix."""
+    d = total.shape[0]
+    out = np.zeros((2, d + 1), dtype=np.float64)
+    out[0, :d] = total
+    out[0, d] = count
+    out[1, :d] = total_sq
+    return out
 
 
 def online_cmvn(

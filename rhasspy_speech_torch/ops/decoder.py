@@ -34,7 +34,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..host import NEG_INF_F32, DenseGraph
+from ..graph.dense import NEG_INF_F32, DenseGraph
 
 # Backpointer sentinel for masked (past-end) frames: "stay in state"
 STAY = -2

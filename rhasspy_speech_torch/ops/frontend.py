@@ -17,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..host import parse_conf
+from ..io.ivector import parse_conf
 
 EPS_F32 = float(np.finfo(np.float32).eps)
 

@@ -16,7 +16,7 @@ from typing import Any, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..host import DiagGmm, IvectorExtractor, OnlineIvectorConfig
+from ..io.ivector import DiagGmm, IvectorExtractor, OnlineIvectorConfig
 
 
 @dataclass(frozen=True)

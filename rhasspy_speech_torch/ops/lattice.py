@@ -23,7 +23,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..host import EPS_ID, NEG_INF_F32, DenseGraph, Fst, determinize, rmepsilon, shortest_path
+from ..fst.core import EPS_ID, Fst
+from ..fst.determinize import determinize
+from ..fst.ops import rmepsilon, shortest_path
+from ..graph.dense import NEG_INF_F32, DenseGraph
 from .decoder import DecodeGraph, _inf
 
 

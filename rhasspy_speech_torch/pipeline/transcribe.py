@@ -34,25 +34,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..host import (
-    DiagGmm,
-    IvectorExtractor,
-    LangArtifacts,
-    OnlineIvectorConfig,
-    SymbolTable,
-    compact_lattice_from_decode,
-    decode_meta,
-    determinize_lattice_phone_pruned,
-    get_fuzzy_text,
-    is_gmm_model,
-    parse_conf,
-    read_am_nnet3,
-    read_kaldi_object,
-    rescore_lattice,
-    rescore_nbest,
-    rescore_tail,
-    silence_pdfs_from_model,
-)
+from ..fst.core import SymbolTable
+from ..grammar.fst import decode_meta
+from ..io.gmm_am import is_gmm_model
+from ..io.ivector import DiagGmm, IvectorExtractor, OnlineIvectorConfig, parse_conf
+from ..io.kaldi_io import read_kaldi_object
+from ..io.lattice_io import compact_lattice_from_decode, determinize_lattice_phone_pruned
+from ..io.nnet3_file import read_am_nnet3
 from ..models.nnet3 import CompiledNnet3, compile_nnet3
 from ..ops.cmvn import online_cmvn
 from ..ops.decoder import (
@@ -72,6 +60,10 @@ from ..ops.ivector import extract_ivectors, make_ivector_params
 from ..ops.lattice import Lattice, build_lattice, forward_backward
 from ..ops.mfcc_cuda import mfcc_batch
 from ..ops.viterbi_cuda import viterbi_decode
+from .artifacts import LangArtifacts
+from .endpoint import silence_pdfs_from_model
+from .fuzzy import get_fuzzy_text, rescore_nbest
+from .rescore import rescore_lattice, rescore_tail
 
 _LOGGER = logging.getLogger(__name__)
 
@@ -90,7 +82,7 @@ def read_wav(path: Union[str, Path]) -> np.ndarray:
             raise ValueError(f"{path}: expected 16-bit PCM, got {w.getsampwidth() * 8}-bit")
         if w.getframerate() == 16000 and w.getnchannels() == 1:
             return np.frombuffer(w.readframes(w.getnframes()), dtype=np.int16).astype(np.float32)
-    from rhasspy_speech_tpu.native import load_wav
+    from ..native import load_wav
 
     return load_wav(str(path), target_rate=16000)
 

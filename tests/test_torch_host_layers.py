@@ -1,0 +1,245 @@
+"""The port's own copies of the JAX package's host layers.
+
+``rhasspy_speech_torch`` carries copies of the host modules it reaches
+(grammar, FST, lang, lexicon, graph, io, native, the training pipeline and
+the flagship fixtures), so it imports nothing of ``rhasspy_speech_tpu``.
+These tests hold each copy to its original, apart from the edits listed
+here, and drive the port end to end in a process where importing JAX or
+the JAX package raises.
+"""
+
+import json
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from rhasspy_speech_tpu.ops.cmvn import matrix_from_stats as jax_matrix_from_stats
+from rhasspy_speech_tpu.pipeline import Nnet3WavTranscriber as JaxTranscriber
+
+from rhasspy_speech_torch.ops.cmvn import matrix_from_stats
+
+REPO = Path(__file__).resolve().parent.parent
+ORIGINAL = REPO / "rhasspy_speech_tpu"
+COPY = REPO / "rhasspy_speech_torch"
+
+COPIED = [
+    "const.py",
+    *(f"fst/{m}.py" for m in ("__init__", "core", "determinize", "ops")),
+    *(f"grammar/{m}.py" for m in (
+        "__init__", "compile", "expression", "fst", "intents", "numbers", "parser")),
+    *(f"graph/{m}.py" for m in (
+        "__init__", "context", "dense", "from_kaldi", "hclg", "topology", "transitions")),
+    *(f"io/{m}.py" for m in (
+        "__init__", "gmm_am", "ivector", "kaldi_io", "lattice_io", "nnet3_file", "openfst",
+        "transition_model", "tree")),
+    *(f"lang/{m}.py" for m in ("__init__", "graphs", "lexicon_fst", "ngram")),
+    *(f"lexicon/{m}.py" for m in ("__init__", "g2p", "g2p_decoder")),
+    "native/__init__.py",
+    "native/runtime.py",
+    *(f"pipeline/{m}.py" for m in ("artifacts", "endpoint", "fuzzy", "rescore", "train")),
+    "testing/flagship.py",
+    "testing/tdnnf.py",
+]
+
+# Docstrings of the originals cite the upstream sources by the absolute
+# path of a local checkout; the copies cite them relative to it.
+_CHECKOUT_PREFIX = re.compile(r'(?<=[\s("])/\w+/reference/')
+
+# The copies' only other edits, as (original, copy) snippets. The four
+# lazy branches into JAX modules raise or reach the port's own module
+# (the flagship's CMVN branch imports ``..ops.cmvn`` unchanged), the first
+# g++ attempt of the native build also catches a missing compiler (ROADMAP
+# Queue 3, R2), and the flagship graph builds its fallback grammar without
+# looking for the upstream checkout's test_en.yaml.
+EDITS = {
+    "pipeline/train.py": [(
+        """        # CTC backend (train.py:85-88): compile the grammar and build the
+        # token->sentence decode cascade; no lexicon/lang step.
+        from ..lexicon.g2p import LexiconDatabase as _LexDb
+        from .coqui import CoquiSttTrainer
+
+        intents_obj = _load_intents(intents)
+        ctx = compile_intents(
+            intents_obj,
+            io.StringIO(),
+            _LexDb(),
+            number_language=language,
+            word_casing=word_casing,
+        )
+        CoquiSttTrainer(model_dir).train(ctx, train_dir)
+        return
+""",
+        """        raise NotImplementedError(
+            "Coqui CTC models are not ported yet (ROADMAP Queue 1, item 15)"
+        )
+""",
+    )],
+    "native/runtime.py": [
+        (
+            """    except subprocess.CalledProcessError:
+        cmd.remove("-march=native")""",
+            """    except (subprocess.CalledProcessError, FileNotFoundError):
+        cmd.remove("-march=native")""",
+        ),
+        (
+            """    from ..ops.adpcm import encode_blocks
+
+    encode_blocks(samples, lens, block, out)
+""",
+            """    raise NotImplementedError(
+        "the NumPy ADPCM wire encoder is not ported yet (ROADMAP Queue 1, item 16)"
+    )
+""",
+        ),
+        (
+            """            # stale native build / NumPy fallback: drain f32 then encode
+            from ..ops.mulaw import encode_f32
+
+            for i in range(self.num_slots):
+                n = int(counts[i])
+                if n <= 0:
+                    continue
+                pcm = self.read(i, n)
+                out[i, int(offs[i]) : int(offs[i]) + n] = encode_f32(pcm)
+            return
+""",
+            """            # stale native build / no native library
+            raise NotImplementedError(
+                "the NumPy mu-law wire encoder is not ported yet "
+                "(ROADMAP Queue 1, item 16)"
+            )
+""",
+        ),
+    ],
+    "testing/flagship.py": [
+        (
+            """    import io as _io
+    import os as _os
+    import re as _re
+
+    import yaml as _yaml
+
+""",
+            """    import io as _io
+    import re as _re
+
+""",
+        ),
+        (
+            """    yaml_path = "tests/test_en.yaml"
+    if _os.path.exists(yaml_path):
+        raw = _yaml.safe_load(open(yaml_path, encoding="utf-8"))
+        sentences, lists = raw["sentences"], raw.get("lists", {})
+    else:  # fallback grammar (environment without the reference checkout)
+        sentences = ["turn (on|off) [the] (light|fan)", "never mind"]
+        lists = {}
+""",
+            """    # test_en.yaml lives in the upstream checkout, which the repository
+    # does not carry: the port builds the fallback grammar (ROADMAP Queue 3, R1)
+    sentences = ["turn (on|off) [the] (light|fan)", "never mind"]
+    lists = {}
+""",
+        ),
+    ],
+}
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copy_equals_original(rel):
+    want = _CHECKOUT_PREFIX.sub("", (ORIGINAL / rel).read_text(encoding="utf-8"))
+    for old, new in EDITS.get(rel, []):
+        assert want.count(old) == 1, f"{rel}: the original changed around an edit"
+        want = want.replace(old, new)
+    assert (COPY / rel).read_text(encoding="utf-8") == want
+
+
+def test_copies_import_no_jax_module():
+    """No copied module names JAX or a JAX module of the original package
+    in an import, top level or lazy."""
+    imports = re.compile(r"^\s*(?:from|import)\s+(\S+)", re.M)
+    for rel in COPIED:
+        for name in imports.findall((COPY / rel).read_text(encoding="utf-8")):
+            assert name.partition(".")[0] not in ("jax", "jaxlib", "rhasspy_speech_tpu"), (rel, name)
+            assert not re.match(r"\.+(ops\.(adpcm|mulaw|frontend)|models|pipeline\.coqui)", name), (
+                rel, name)
+
+
+def test_matrix_from_stats_equals_original():
+    rng = np.random.RandomState(0)
+    args = (rng.rand(13) * 500.0, rng.rand(13) * 2600.0, 100.0)
+    got, want = matrix_from_stats(*args), jax_matrix_from_stats(*args)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+_DRIVE = textwrap.dedent(
+    """
+    import importlib.abc
+    import json
+    import sys
+    from pathlib import Path
+
+
+    class _Blocked(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.partition(".")[0] in ("jax", "rhasspy_speech_tpu"):
+                raise ImportError(f"{name} is blocked in this process")
+
+
+    sys.meta_path.insert(0, _Blocked())
+    sys.path.insert(0, sys.argv[1])
+
+    import numpy as np
+
+    from rhasspy_speech_torch import LangSuffix, Nnet3WavTranscriber, train_model_sync
+    from rhasspy_speech_torch.pipeline.artifacts import lang_dir_name
+    from rhasspy_speech_torch.testing.flagship import build_flagship_graph, write_flagship_model_dir
+
+    root = Path(sys.argv[2])
+    graph, _, lang = build_flagship_graph(order=2, with_fuzzy=False)
+    max_phone = max(pid for (p, pid) in lang.phones if pid != 0 and not p.startswith("#"))
+    model_dir = write_flagship_model_dir(
+        root / "model", num_pdfs=graph.num_pdfs, max_phone=max_phone, hidden_dim=32,
+        num_tdnnf_layers=2, ivector_dim=8, ubm_gauss=4, seed=3,
+    )
+    with open(model_dir / "model" / "phones.txt", "w", encoding="utf-8") as f:
+        lang.phones.write_text(f)
+    vocab = "turn on off the light fan never mind".split()
+    intents = {"language": "en", "intents": {"All": {"data": [
+        {"sentences": ["turn (on|off) [the] (light|fan)", "never mind"]}]}}}
+    train_model_sync("en", intents, root / "train", model_dir,
+                     words={w: "/" + " ".join(w) + "/" for w in vocab},
+                     lang_suffixes=[LangSuffix.GRAMMAR])
+    graph_dir = root / "train" / lang_dir_name(LangSuffix.GRAMMAR)
+    t = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu")
+    pcm = np.load(root / "pcm.npy")
+    texts = t.transcribe_pcm_batch([pcm], max_fuzzy_cost=1e9)
+    loaded = [m for m in sys.modules if m.partition(".")[0] in ("jax", "rhasspy_speech_tpu")]
+    assert not loaded, loaded
+    print(json.dumps({"model_dir": str(model_dir), "graph_dir": str(graph_dir), "texts": texts}))
+    """
+)
+
+
+def test_port_trains_and_transcribes_with_jax_package_blocked(tmp_path):
+    """In a process where importing ``jax`` or ``rhasspy_speech_tpu``
+    raises: the port's flagship fixtures write a narrow random model,
+    the port trains a grammar graph for it and transcribes seeded noise on
+    the CPU. The JAX package's transcriber, reading the same files here,
+    gives the same transcript."""
+    pcm = (1000.0 * np.random.RandomState(0).randn(16000)).astype(np.float32)
+    np.save(tmp_path / "pcm.npy", pcm)
+    proc = subprocess.run(
+        [sys.executable, "-c", _DRIVE, str(REPO), str(tmp_path)],
+        capture_output=True, text=True, timeout=300, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(out["texts"]) == 1 and len(out["texts"][0]) == 1 and out["texts"][0][0]
+    jt = JaxTranscriber(out["model_dir"], out["graph_dir"])
+    assert jt.transcribe_pcm_batch([pcm], max_fuzzy_cost=1e9) == out["texts"]

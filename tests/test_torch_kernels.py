@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from rhasspy_speech_torch.host import NEG_INF_F32, DenseGraph
+from rhasspy_speech_torch.graph.dense import NEG_INF_F32, DenseGraph
 from rhasspy_speech_torch.ops.decoder import DecodeGraph, viterbi, backtrace
 from rhasspy_speech_torch.ops.frontend import (
     FrontendConfig,
