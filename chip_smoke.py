@@ -17,9 +17,10 @@ three hand-written kernels against their plain PyTorch twins:
    requires equal transcripts;
 4. compares the MFCC kernel with its twin (rtol 2e-3 / atol 3e-2, the JAX
    package's tolerance for its own DFT-as-matmul kernel against rfft) and
-   the Viterbi kernel with its twin bit for bit, on the main path's shapes
-   and on a seeded folded graph of ~14,200 states / 38,000 arcs / 3,072
-   pdfs (alpha beyond 48 KB of shared memory);
+   the Viterbi kernel with its twin bit for bit, at B=32 and B=1, on the
+   flagship graph and on a seeded folded graph of 14,200 states / 38,400
+   arcs / 3,072 pdfs (``testing/decode_graphs.py``), and times the Viterbi
+   kernel at each cluster size that fits;
 5. checks the card's log-probs against the CPU twins on 2 utterances
    (rtol 1e-3 / atol 1e-2: f32 sums ordered differently through eleven
    768-wide layers), times each kernel beside its twin with CUDA events,
@@ -43,7 +44,14 @@ three hand-written kernels against their plain PyTorch twins:
    S_pad=14,208, NSTEP=1,280) through
    ``rhasspy_speech_torch.examples.windowed_cost.main``, counted, bit-equal
    to its plain version on every stream; and bit-equal again on small
-   tables and initial alphas that differ per stream.
+   tables and initial alphas that differ per stream;
+10. checks that no module of ``jax`` or ``rhasspy_speech_tpu`` was imported
+   (the card's machine has JAX installed; the port must not reach it).
+
+Each kernel's entry in the ``kernels`` line carries ``bound_ms``, the least
+time the card could take for the same work: the larger of its bytes (each
+input read once, each output written once) at 3.35 TB/s and its f32
+operations at 67 TFLOP/s, NVIDIA's H100 SXM peaks at 700 W.
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and exits non-zero.
@@ -68,8 +76,8 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from rhasspy_speech_torch import Nnet3WavTranscriber  # noqa: E402
-from rhasspy_speech_torch.graph.dense import NEG_INF_F32, DenseGraph  # noqa: E402
 from rhasspy_speech_torch.pipeline.artifacts import LangArtifacts  # noqa: E402
+from rhasspy_speech_torch.testing.decode_graphs import random_decode_graph  # noqa: E402
 from rhasspy_speech_torch.testing.flagship import (  # noqa: E402
     build_flagship_graph,
     write_flagship_model_dir,
@@ -80,8 +88,17 @@ from rhasspy_speech_torch.examples import windowed_cost  # noqa: E402
 from rhasspy_speech_torch.ops.frontend import mfcc_batch_torch  # noqa: E402
 from rhasspy_speech_torch.ops.ivector import extract_ivectors  # noqa: E402
 from rhasspy_speech_torch.ops.lattice import forward_backward  # noqa: E402
-from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch  # noqa: E402
-from rhasspy_speech_torch.ops.viterbi_cuda import viterbi_decode  # noqa: E402
+from rhasspy_speech_torch.ops.mfcc_cuda import mel_bands, mfcc_batch  # noqa: E402
+from rhasspy_speech_torch.ops.viterbi_cuda import (  # noqa: E402
+    CLUSTER_SIZES,
+    MAX_SLICE_STATES,
+    launch,
+    max_clusters,
+    plan_viterbi,
+    select_plan,
+    smem_layout,
+    viterbi_decode,
+)
 from rhasspy_speech_torch.ops.windowed_relax_cuda import (  # noqa: E402
     prepare_steps,
     windowed_relax,
@@ -99,6 +116,7 @@ SILENCE_WEIGHT = 0.01
 CONF_ATOL = 1e-2
 LATTICE_BEAM = 4.0
 KERNELS = ("mfcc", "viterbi", "windowed_relax")
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM, 700 W
 
 
 def check(cond, what):
@@ -120,27 +138,44 @@ def cuda_ms(fn, iters=10):
     return start.elapsed_time(stop) / iters
 
 
-def big_folded_graph(rng, num_states=14200, extra_arcs=9600, num_pdfs=NUM_PDFS):
-    """Chain + self-loops + random arcs (~38,000), pdf a function of the
-    source state, two hub states: the BENCH_r05 graph's size class."""
-    S = num_states
-    src = np.concatenate([np.arange(S), np.arange(S), rng.randint(S, size=extra_arcs)])
-    dst = np.concatenate([(np.arange(S) + 1) % S, np.arange(S), rng.randint(S, size=extra_arcs)])
-    hub_src = rng.randint(S, size=400)
-    src = np.concatenate([src, hub_src])
-    dst = np.concatenate([dst, np.where(np.arange(400) % 2, S - 1, S // 2)])
-    A = src.size
-    init = np.full(S, NEG_INF_F32, np.float32)
-    init[0] = 0.0
-    final = np.full(S, NEG_INF_F32, np.float32)
-    final[S - 1] = 0.0
-    return DenseGraph(
-        num_states=S, arc_src=src.astype(np.int32), arc_dst=dst.astype(np.int32),
-        arc_pdf=rng.randint(num_pdfs, size=S)[src].astype(np.int32),
-        arc_wseq=np.zeros(A, np.int32), arc_weight=rng.rand(A).astype(np.float32),
-        final_weight=final, final_wseq=np.zeros(S, np.int32), init_weight=init,
-        init_wseq=np.zeros(S, np.int32), word_seqs=[()], num_pdfs=num_pdfs,
+def bound(nbytes, nops):
+    """(bound_ms, bound_by): the larger of the bytes' time at the card's
+    memory rate and the f32 operations' time at its peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mfcc_work(cfg, B, S, T):
+    """(bytes, f32 operations) of the MFCC kernel's function: PCM in,
+    cepstra out; per frame the DC removal, pre-emphasis and window (and
+    energy), the real FFT as an N/2-point complex FFT (10 operations a
+    radix-2 butterfly) and its split, the mel bands, log, DCT and lifter."""
+    L, H, M, C = cfg.frame_length, cfg.padded_window_size // 2, cfg.num_mel_bins, cfg.num_ceps
+    per_frame = (
+        5 * L + (2 * L if cfg.use_energy else 0)
+        + 10 * (H // 2) * (H.bit_length() - 1) + 14 * (H + 1)
+        + 2 * int(mel_bands(cfg)[0][-1]) + M + 2 * M * C + C
     )
+    return 4 * B * S + 4 * B * T * C, B * T * per_frame
+
+
+def viterbi_work(graph, B, T, P, lengths):
+    """(bytes, f32 operations) of one decode: log-probs and the graph's
+    tables in; backpointers, final alpha and traces out; per active frame
+    an add, a min and a compare per arc and the fold per state."""
+    S, A = graph.num_states, graph.num_arcs
+    bp_bytes = 2 if A <= twin_decoder._COMPACT_BP_MAX_ARC else 4
+    tables = 8 * A + 8 * S + 4
+    frames = int(lengths.clamp(max=T).sum())
+    nbytes = 4 * B * T * P + tables + bp_bytes * T * B * S + 4 * B * S + 4 * B * T + 8 * B
+    return nbytes, frames * (3 * A + 2 * S)
+
+
+def windowed_relax_work(T, B, S, nstep):
+    """(bytes, f32 operations) of the windowed relaxation: step tables in,
+    uint16 backpointers and alpha out; 3 operations a lane a step."""
+    nbytes = 8 * nstep + 12 * nstep * 128 + 2 * T * B * S + 4 * B * S
+    return nbytes, 3 * T * B * nstep * 128
 
 
 def decode_outputs_equal(a, b):
@@ -210,6 +245,55 @@ def zero_counts():
 def read_counts():
     return {"mfcc": mfcc_batch.launches, "viterbi": viterbi_decode.launches,
             "windowed_relax": windowed_relax.launches}
+
+
+def viterbi_phase(t, lp_k, lengths, dev):
+    """K2 against its twin, bit for bit, on the flagship graph (the main
+    path's log-probs) and on the 14,200-state graph (seeded log-probs), at
+    B=32 and B=1; times the kernel as ``viterbi_decode`` runs it and at
+    every cluster size that fits. Returns the main path shape's numbers."""
+    big = twin_decoder.DecodeGraph.from_dense(random_decode_graph(np.random.RandomState(SEED + 1)), dev)
+    lp_big = torch.as_tensor(
+        np.random.RandomState(SEED + 2).randn(*lp_k.shape).astype(np.float32), device=dev)
+    max_smem = _build.load("viterbi").rss_viterbi_max_smem(dev.index)
+    out = {}
+    for name, g, lp, scale in (("flagship", t.device_graph, lp_k, t.acoustic_scale),
+                               ("14200", big, lp_big, 1.0)):
+        compact = g.num_arcs <= twin_decoder._COMPACT_BP_MAX_ARC
+
+        def twin(lp_b, lens):
+            alpha, bps = twin_decoder.viterbi(g, lp_b, scale, lens, compact_bp=compact)
+            return twin_decoder.backtrace(g, alpha, bps) + (alpha, bps)
+
+        for B in (BATCH, 1):
+            lp_b, lens = lp[:B].contiguous(), lengths[:B].contiguous()
+            got = viterbi_decode(g, lp_b, scale, lens, return_forward=True)
+            want = twin(lp_b, lens)
+            torch.cuda.synchronize()
+            check(decode_outputs_equal(got, want),
+                  f"viterbi kernel differs from its twin ({name} graph, B={B})")
+            plan, resident = select_plan(g, B)
+            ms = cuda_ms(lambda: viterbi_decode(g, lp_b, scale, lens))
+            plain_ms = cuda_ms(lambda: twin(lp_b, lens), iters=3)
+            sweep = {}
+            for c in CLUSTER_SIZES:
+                p = plan_viterbi(g, c)
+                if p.max_states > MAX_SLICE_STATES:
+                    continue
+                res = smem_layout(g.num_states, p, g.folded, True)[1] <= max_smem
+                sweep[f"C={c}{'' if res else ' L2 tables'} x{max_clusters(g, p, res)}"] = round(
+                    cuda_ms(lambda: launch(g, p, res, lp_b, scale, lens)), 4)
+            nbytes, nops = viterbi_work(g, B, lp_b.shape[1], lp_b.shape[2], lens)
+            bound_ms, bound_by = bound(nbytes, nops)
+            print(f"K2 viterbi {tuple(lp_b.shape)} on {name} graph ({g.num_states} states, "
+                  f"{g.num_arcs} arcs): bit-exact; cluster {plan.cluster} (tables "
+                  f"{'in shared memory' if resident else 'in L2'}); kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); by cluster size "
+                  f"(x clusters the card runs at once) {sweep}")
+            out[(name, B)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by,
+                              "max_abs_err": float((got[3] - want[3]).abs().max())}
+    return out[("flagship", BATCH)]
 
 
 def nbest_phase(t, tc, pcms, fuzzy):
@@ -369,7 +453,9 @@ def windowed_relax_phase(dev):
           "windowed_relax differs from its plain version on per-stream tables")
     check(not torch.equal(got[1][:, 0], got[1][:, 1]), "per-stream case: streams should differ")
     print(f"K3 windowed_relax per-stream tables [{Bs}, {nstep}, 128], S_pad={s_pad}: bit-equal")
-    return launches, err, out["ms"], plain_ms
+    k3_bound = bound(*windowed_relax_work(T, B, S, tables[0].shape[0]))
+    print(f"K3 bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
+    return launches, err, out["ms"], plain_ms, k3_bound
 
 
 def main():
@@ -441,45 +527,14 @@ def main():
               f"mfcc kernel vs twin: max |d| {k1_err}")
         k1_ms = cuda_ms(lambda: mfcc_batch(t.am.frontend_params, pcm))
         k1_plain_ms = cuda_ms(lambda: mfcc_batch_torch(t.am.frontend_params, pcm))
+        k1_bound = bound(*mfcc_work(t.am.frontend_config, BATCH, pcm.shape[1], feats_k.shape[1]))
         print(f"K1 mfcc [{BATCH}, {pcm.shape[1]}] -> {tuple(feats_k.shape)}: max |d| {k1_err:.3e}; "
-              f"kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms")
+              f"kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound {k1_bound[0]:.4f} ms "
+              f"({k1_bound[1]})")
 
         # -- K2: Viterbi kernel vs twin, bit for bit ---------------------------
         lp_k = t.am.log_probs(feats_k, n_out, feat_lengths=feat_lengths)
-        g = t.device_graph
-        compact = g.num_arcs <= twin_decoder._COMPACT_BP_MAX_ARC
-
-        def twin(graph, lp, lens):
-            alpha, bps = twin_decoder.viterbi(graph, lp, t.acoustic_scale, lens, compact_bp=compact)
-            return twin_decoder.backtrace(graph, alpha, bps) + (alpha, bps)
-
-        got = viterbi_decode(g, lp_k, t.acoustic_scale, lengths, return_forward=True)
-        want = twin(g, lp_k, lengths)
-        torch.cuda.synchronize()
-        check(decode_outputs_equal(got, want), "viterbi kernel differs from its twin (flagship graph)")
-        k2_err = float((got[3] - want[3]).abs().max())
-        k2_ms = cuda_ms(lambda: viterbi_decode(g, lp_k, t.acoustic_scale, lengths))
-        k2_plain_ms = cuda_ms(lambda: twin(g, lp_k, lengths), iters=3)
-        print(f"K2 viterbi {tuple(lp_k.shape)} on {g.num_states} states: bit-exact; "
-              f"kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms")
-
-        big = twin_decoder.DecodeGraph.from_dense(big_folded_graph(np.random.RandomState(SEED + 1)), dev)
-        lp_big = torch.as_tensor(
-            np.random.RandomState(SEED + 2).randn(BATCH, n_out, NUM_PDFS).astype(np.float32), device=dev
-        )
-        big_compact = big.num_arcs <= twin_decoder._COMPACT_BP_MAX_ARC
-        got = viterbi_decode(big, lp_big, 1.0, lengths, return_forward=True)
-        alpha, bps = twin_decoder.viterbi(big, lp_big, 1.0, lengths, compact_bp=big_compact)
-        want = twin_decoder.backtrace(big, alpha, bps) + (alpha, bps)
-        torch.cuda.synchronize()
-        check(decode_outputs_equal(got, want), "viterbi kernel differs from its twin (large graph)")
-        big_ms = cuda_ms(lambda: viterbi_decode(big, lp_big, 1.0, lengths))
-        big_plain_ms = cuda_ms(
-            lambda: twin_decoder.backtrace(big, *twin_decoder.viterbi(
-                big, lp_big, 1.0, lengths, compact_bp=big_compact)), iters=3)
-        print(f"K2 viterbi {tuple(lp_big.shape)} on {big.num_states} states / {big.num_arcs} arcs "
-              f"(alpha {2 * 4 * big.num_states} B of shared memory): bit-exact; "
-              f"kernel {big_ms:.4f} ms, plain {big_plain_ms:.4f} ms")
+        k2 = viterbi_phase(t, lp_k, lengths, dev)
 
         # -- the card against the CPU twins on a small input -------------------
         tc = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", lattice_beam=LATTICE_BEAM)
@@ -498,19 +553,28 @@ def main():
         lattice_phase(t, tc, pcms)
 
     # -- K3: the windowed relaxation's entry point ----------------------------
-    k3_launches, k3_err, k3_ms, k3_plain_ms = windowed_relax_phase(dev)
+    k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = windowed_relax_phase(dev)
 
+    # no single PyTorch call computes Kaldi's MFCC, a Viterbi pass or the
+    # windowed relaxation: library_ms is null for all three
     kernels = [
         {"name": "mfcc", "route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
          "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122",
-         "launches": launches["mfcc"], "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "launches": launches["mfcc"], "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "viterbi", "route": "cuda", "source": "rhasspy_speech_torch/csrc/viterbi.cu",
          "replaces": "rhasspy_speech_tpu/ops/pallas_decoder.py:370",
-         "launches": launches["viterbi"], "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "launches": launches["viterbi"], "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": None},
         {"name": "windowed_relax", "route": "cuda", "source": "rhasspy_speech_torch/csrc/windowed_relax.cu",
          "replaces": "examples/pallas_windowed_cost.py:59",
-         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
     ]
+    loaded = sorted(m for m in sys.modules if m.partition(".")[0] in ("jax", "jaxlib", "rhasspy_speech_tpu"))
+    check(not loaded, f"the port imported JAX or the JAX package: {loaded[:5]}")
+    print("no module of jax or rhasspy_speech_tpu was imported")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

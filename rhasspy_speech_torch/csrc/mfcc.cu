@@ -10,25 +10,37 @@
 // rule, including the reflection of snip_edges=False; the TPU kernel framed
 // outside only because Mosaic cannot regroup lanes.
 //
-// What bounds it on this card: arithmetic. The power spectrum is a direct
-// DFT of the frame_length non-zero samples (400 x 257 bins x 2 FMAs per
-// frame) against a shared-memory twiddle table; mel and DCT are small
-// dense products. All of it is f32 FMA on the CUDA cores -- no tensor
-// cores, since TF32 loses the feature precision (ARCHITECTURE.md, "MXU
-// precision": max |d| 3.7 against 4e-4). The design keeps a tile of
-// kFrames frames, their spectra and log-mel energies in shared memory, so
-// only PCM enters and cepstra leave device memory, and each twiddle read
-// serves the whole tile.
+// What bounds it on this card: neither bytes nor operations at the main
+// path's shape (6.1 MB of PCM in, 1.5 MB of cepstra out: ~2.3 us; ~16
+// kFLOP a frame once the spectrum is an FFT). The first version computed
+// the spectrum as a direct DFT (400 x 257 x 2 FMAs a frame, 17x an FFT's
+// work) with 257 bins over 256 threads, so one thread did two bins and
+// doubled the block's DFT time. This design:
+//
+// - One warp per frame, kFrames frames per block; every step of a frame is
+//   the warp's own (only __syncwarp between steps), and the block shares
+//   the twiddle table in shared memory.
+// - The power spectrum is a real N-point FFT (N = padded window, a power of
+//   two <= 512) computed as an N/2-point complex FFT of the packed pairs
+//   z[n] = x[2n] + i x[2n+1]: bit-reversed load, log2(N/2) radix-2 DIT
+//   stages in shared memory (N/4 butterflies a stage over 32 lanes, the
+//   same count on every lane), then the split X[k] = E[k] + W^k O[k] for
+//   k = 0..N/2. f32 on the CUDA cores; no tensor cores, since TF32 loses
+//   the feature precision (ARCHITECTURE.md, "MXU precision").
+// - The mel filterbank walks each filter's nonzero band only (the wrapper
+//   passes the bands; adding the dense product's zeros changes no bit), and
+//   the DCT is a [M, C] product, both per warp from L1-cached tables.
+// - Only PCM enters and cepstra leave device memory.
 
 #include <cuda_runtime.h>
 #include <float.h>
 
 namespace {
 
-constexpr int kFrames = 8;    // frames per block (one warp each for prep)
-constexpr int kThreads = 256; // 8 warps
-constexpr int kMaxN = 512;    // padded window
-constexpr int kMaxBins = kMaxN / 2 + 1;
+constexpr int kFrames = 8;              // frames per block, one warp each
+constexpr int kThreads = 32 * kFrames;
+constexpr int kMaxN = 512;              // padded window
+constexpr int kMaxHalf = kMaxN / 2;     // complex FFT size
 constexpr int kMaxMel = 128;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -48,119 +60,143 @@ __device__ __forceinline__ int sample_index(int f, int j, int S, int shift,
 }
 
 __global__ void __launch_bounds__(kThreads) mfcc_kernel(
-    const float* __restrict__ pcm,      // [B, S]
-    const float* __restrict__ window,   // [L]
-    const float* __restrict__ twiddle,  // [2, N]: cos, sin of 2*pi*i/N
-    const float* __restrict__ mel_w,    // [N/2 + 1, M]
-    const float* __restrict__ dct,      // [M, C]
-    const float* __restrict__ lifter,   // [C] or null
-    float* __restrict__ out,            // [B, T, C]
-    int S, int T, int L, int shift, int N, int M, int C, int snip_edges,
-    int remove_dc, float preemph, int use_energy, int raw_energy,
+    const float* __restrict__ pcm,       // [B, S]
+    const float* __restrict__ window,    // [L]
+    const float* __restrict__ twiddle,   // [2, N/2]: cos, sin of 2*pi*k/N
+    const int* __restrict__ mel_ptr,     // [M + 1] offsets into mel_val
+    const int* __restrict__ mel_bin0,    // [M] first bin of each band
+    const float* __restrict__ mel_val,   // band weights, concatenated
+    const float* __restrict__ dct,       // [M, C]
+    const float* __restrict__ lifter,    // [C] or null
+    float* __restrict__ out,             // [B, T, C]
+    int S, int T, int L, int shift, int N, int log2_half, int M, int C,
+    int snip_edges, int remove_dc, float preemph, int use_energy, int raw_energy,
     int energy_floored, float log_energy_floor) {
-  __shared__ float xs[kFrames][kMaxN];
-  __shared__ float tw[2][kMaxN];
-  __shared__ float pw[kFrames][kMaxBins];
+  __shared__ float xs[kFrames][kMaxN];  // the frame, then its power spectrum
+  __shared__ float zr[kFrames][kMaxHalf];
+  __shared__ float zi[kFrames][kMaxHalf];
+  __shared__ float twc[kMaxHalf];
+  __shared__ float tws[kMaxHalf];
   __shared__ float lm[kFrames][kMaxMel];
-  __shared__ float energy[kFrames];
 
   const int b = blockIdx.y;
-  const int f0 = blockIdx.x * kFrames;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int nbins = N / 2 + 1;
+  const int f = blockIdx.x * kFrames + warp;
+  const int H = N >> 1;
   const float eps = FLT_EPSILON;
+
+  for (int k = tid; k < H; k += kThreads) {
+    twc[k] = twiddle[k];
+    tws[k] = twiddle[H + k];
+  }
+  __syncthreads();
+  if (f >= T) return;  // no block barrier below: each warp is on its own
+
   const float* x = pcm + (size_t)b * S;
+  float* fr = xs[warp];
+  float* re = zr[warp];
+  float* im = zi[warp];
+  for (int k = lane; k < N; k += 32)
+    fr[k] = k < L ? x[sample_index(f, k, S, shift, L, snip_edges)] : 0.0f;
+  __syncwarp();
 
-  for (int i = tid; i < 2 * N; i += kThreads) tw[i / N][i % N] = twiddle[i];
-  for (int i = tid; i < kFrames * L; i += kThreads) {
-    const int j = i / L, k = i % L, f = f0 + j;
-    xs[j][k] = f < T ? x[sample_index(f, k, S, shift, L, snip_edges)] : 0.0f;
-  }
-  __syncthreads();
-
-  // per-frame time-domain steps: warp w owns frame w of the tile
-  {
-    float* fr = xs[warp];
-    if (remove_dc) {
-      float s = 0.0f;
-      for (int k = lane; k < L; k += 32) s += fr[k];
-      const float mean = __fdiv_rn(warp_sum(s), (float)L);
-      for (int k = lane; k < L; k += 32) fr[k] = __fsub_rn(fr[k], mean);
-      __syncwarp();
-    }
-    float e = 0.0f;
-    if (use_energy && raw_energy) {
-      for (int k = lane; k < L; k += 32) e = __fmaf_rn(fr[k], fr[k], e);
-      e = warp_sum(e);
-    }
-    // pre-emphasis (y[k] = x[k] - c*x[k-1], y[0] = x[0] - c*x[0]) and the
-    // window, in place, chunk by chunk; `carry` is the last raw sample of
-    // the previous chunk
-    float carry = fr[0];
-    for (int base = 0; base < L; base += 32) {
-      const int k = base + lane;
-      const float v = k < L ? fr[k] : 0.0f;
-      float prev = __shfl_up_sync(0xffffffffu, v, 1);
-      if (lane == 0) prev = carry;
-      carry = __shfl_sync(0xffffffffu, v, 31);
-      __syncwarp();
-      if (k < L) {
-        const float y = preemph != 0.0f ? __fsub_rn(v, __fmul_rn(preemph, prev)) : v;
-        fr[k] = __fmul_rn(y, window[k]);
-      }
-      __syncwarp();
-    }
-    if (use_energy && !raw_energy) {
-      for (int k = lane; k < L; k += 32) e = __fmaf_rn(fr[k], fr[k], e);
-      e = warp_sum(e);
-    }
-    if (lane == 0) {
-      float le = logf(fmaxf(e, eps));
-      if (energy_floored) le = fmaxf(le, log_energy_floor);
-      energy[warp] = le;
-    }
-  }
-  __syncthreads();
-
-  // power spectrum of the zero-padded frame: bin f = sum_k x[k] e^{-2 pi i k f / N}
-  for (int bin = tid; bin < nbins; bin += kThreads) {
-    float re[kFrames], im[kFrames];
-#pragma unroll
-    for (int j = 0; j < kFrames; ++j) re[j] = im[j] = 0.0f;
-    int idx = 0;  // (k * bin) mod N
-    for (int k = 0; k < L; ++k) {
-      const float c = tw[0][idx], s = tw[1][idx];
-#pragma unroll
-      for (int j = 0; j < kFrames; ++j) {
-        re[j] = __fmaf_rn(xs[j][k], c, re[j]);
-        im[j] = __fmaf_rn(xs[j][k], s, im[j]);
-      }
-      idx += bin;
-      if (idx >= N) idx -= N;
-    }
-#pragma unroll
-    for (int j = 0; j < kFrames; ++j)
-      pw[j][bin] = __fmaf_rn(re[j], re[j], __fmul_rn(im[j], im[j]));
-  }
-  __syncthreads();
-
-  for (int p = tid; p < kFrames * M; p += kThreads) {
-    const int j = p / M, m = p % M;
+  // time-domain steps
+  if (remove_dc) {
     float s = 0.0f;
-    for (int bin = 0; bin < nbins; ++bin) s = __fmaf_rn(pw[j][bin], mel_w[bin * M + m], s);
-    lm[j][m] = logf(fmaxf(s, eps));
+    for (int k = lane; k < L; k += 32) s += fr[k];
+    const float mean = __fdiv_rn(warp_sum(s), (float)L);
+    for (int k = lane; k < L; k += 32) fr[k] = __fsub_rn(fr[k], mean);
+    __syncwarp();
   }
-  __syncthreads();
+  float e = 0.0f;
+  if (use_energy && raw_energy) {
+    for (int k = lane; k < L; k += 32) e = __fmaf_rn(fr[k], fr[k], e);
+    e = warp_sum(e);
+  }
+  // pre-emphasis (y[k] = x[k] - c*x[k-1], y[0] = x[0] - c*x[0]) and the
+  // window, in place, chunk by chunk; `carry` is the last raw sample of the
+  // previous chunk
+  float carry = fr[0];
+  for (int base = 0; base < L; base += 32) {
+    const int k = base + lane;
+    const float v = k < L ? fr[k] : 0.0f;
+    float prev = __shfl_up_sync(0xffffffffu, v, 1);
+    if (lane == 0) prev = carry;
+    carry = __shfl_sync(0xffffffffu, v, 31);
+    __syncwarp();
+    if (k < L) {
+      const float y = preemph != 0.0f ? __fsub_rn(v, __fmul_rn(preemph, prev)) : v;
+      fr[k] = __fmul_rn(y, window[k]);
+    }
+    __syncwarp();
+  }
+  if (use_energy && !raw_energy) {
+    for (int k = lane; k < L; k += 32) e = __fmaf_rn(fr[k], fr[k], e);
+    e = warp_sum(e);
+  }
+  float log_energy = logf(fmaxf(e, eps));
+  if (energy_floored) log_energy = fmaxf(log_energy, log_energy_floor);
 
-  for (int p = tid; p < kFrames * C; p += kThreads) {
-    const int j = p / C, c = p % C, f = f0 + j;
-    if (f >= T) continue;
+  // pack z[n] = x[2n] + i x[2n+1] in bit-reversed order
+  for (int n = lane; n < H; n += 32) {
+    const int j = (int)(__brev((unsigned)n) >> (32 - log2_half));
+    re[j] = fr[2 * n];
+    im[j] = fr[2 * n + 1];
+  }
+  __syncwarp();
+  // radix-2 DIT: butterflies of span 2m, twiddle W_N^(p * H / m)
+  for (int lm2 = 0, m = 1; m < H; ++lm2, m <<= 1) {
+    for (int q = lane; q < (H >> 1); q += 32) {
+      const int p = q & (m - 1);
+      const int i0 = ((q >> lm2) << (lm2 + 1)) + p;
+      const int i1 = i0 + m;
+      const int k = p * (H >> lm2);
+      const float c = twc[k], s = tws[k];
+      const float br = re[i1], bi = im[i1];
+      const float tr = fmaf(c, br, s * bi);
+      const float ti = fmaf(c, bi, -s * br);
+      const float ar = re[i0], ai = im[i0];
+      re[i0] = ar + tr;
+      im[i0] = ai + ti;
+      re[i1] = ar - tr;
+      im[i1] = ai - ti;
+    }
+    __syncwarp();
+  }
+  // split into the real FFT's bins 0..H: power spectrum over fr
+  for (int k = lane; k <= H; k += 32) {
+    float xr, xi;
+    if (k == 0 || k == H) {
+      xr = k == 0 ? re[0] + im[0] : re[0] - im[0];
+      xi = 0.0f;
+    } else {
+      const float ar = re[k], ai = im[k], br = re[H - k], bi = im[H - k];
+      const float er = 0.5f * (ar + br), ei = 0.5f * (ai - bi);
+      const float or_ = 0.5f * (ai + bi), oi = -0.5f * (ar - br);
+      const float c = twc[k], s = tws[k];
+      xr = er + fmaf(or_, c, oi * s);
+      xi = ei + fmaf(oi, c, -or_ * s);
+    }
+    fr[k] = fmaf(xr, xr, xi * xi);
+  }
+  __syncwarp();
+
+  float* lmf = lm[warp];
+  for (int m = lane; m < M; m += 32) {
+    const int j0 = mel_ptr[m], j1 = mel_ptr[m + 1];
+    const float* pw = fr + mel_bin0[m] - j0;
     float s = 0.0f;
-    for (int m = 0; m < M; ++m) s = __fmaf_rn(lm[j][m], dct[m * C + c], s);
+    for (int j = j0; j < j1; ++j) s = __fmaf_rn(pw[j], mel_val[j], s);
+    lmf[m] = logf(fmaxf(s, eps));
+  }
+  __syncwarp();
+  for (int c = lane; c < C; c += 32) {
+    float s = 0.0f;
+    for (int m = 0; m < M; ++m) s = __fmaf_rn(lmf[m], dct[m * C + c], s);
     if (lifter) s = __fmul_rn(s, lifter[c]);
-    if (use_energy && c == 0) s = energy[j];
+    if (use_energy && c == 0) s = log_energy;
     out[((size_t)b * T + f) * C + c] = s;
   }
 }
@@ -178,18 +214,19 @@ int rss_mfcc_max_window() { return kMaxN; }
 int rss_mfcc_max_mel() { return kMaxMel; }
 
 int rss_mfcc_launch(const float* pcm, const float* window, const float* twiddle,
-                    const float* mel_w, const float* dct, const float* lifter,
-                    float* out, int B, int S, int T, int L, int shift, int N,
-                    int M, int C, int snip_edges, int remove_dc, float preemph,
-                    int use_energy, int raw_energy, int energy_floored,
-                    float log_energy_floor, int device, void* stream) {
+                    const int* mel_ptr, const int* mel_bin0, const float* mel_val,
+                    const float* dct, const float* lifter, float* out, int B, int S,
+                    int T, int L, int shift, int N, int log2_half, int M, int C,
+                    int snip_edges, int remove_dc, float preemph, int use_energy,
+                    int raw_energy, int energy_floored, float log_energy_floor,
+                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + kFrames - 1) / kFrames, B);
   mfcc_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      pcm, window, twiddle, mel_w, dct, lifter, out, S, T, L, shift, N, M, C,
-      snip_edges, remove_dc, preemph, use_energy, raw_energy, energy_floored,
-      log_energy_floor);
+      pcm, window, twiddle, mel_ptr, mel_bin0, mel_val, dct, lifter, out, S, T, L,
+      shift, N, log2_half, M, C, snip_edges, remove_dc, preemph, use_energy,
+      raw_energy, energy_floored, log_energy_floor);
   return (int)cudaGetLastError();
 }
 

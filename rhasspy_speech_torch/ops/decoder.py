@@ -28,8 +28,8 @@ copied from the JAX module, which imports JAX.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,7 +65,9 @@ class DecodeGraph:
 
     The flat arc table drives the scatter twin; ``in_ptr``/``in_src``/
     ``in_weight``/``in_arc``/``in_pdf`` are the CSR of each state's in-arcs
-    in ascending arc id, which the kernel walks."""
+    in ascending arc id, which the kernel walks. ``kernel_cache`` holds what
+    a kernel wrapper derives from the graph once (``ops/viterbi_cuda.py``
+    plans)."""
 
     num_states: int
     num_pdfs: int
@@ -83,9 +85,7 @@ class DecodeGraph:
     in_weight: torch.Tensor  # f32 [A]
     in_arc: torch.Tensor  # int32 [A]
     in_pdf: torch.Tensor  # int32 [A]
-    # int32 copies for the kernel (src_pdf is zeros without the fold)
-    src_pdf_i32: torch.Tensor  # int32 [S]
-    arc_src_i32: torch.Tensor  # int32 [A]
+    kernel_cache: Dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -123,8 +123,6 @@ class DecodeGraph:
             in_weight=t(g.arc_weight[order], torch.float32),
             in_arc=t(order, torch.int32),
             in_pdf=t(g.arc_pdf[order], torch.int32),
-            src_pdf_i32=t(np.zeros(S, np.int32) if sp is None else sp, torch.int32),
-            arc_src_i32=t(g.arc_src, torch.int32),
         )
 
 

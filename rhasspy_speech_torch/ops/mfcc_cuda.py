@@ -5,6 +5,11 @@
 the plain twin ``ops.frontend.mfcc_batch_torch`` for samples on the CPU;
 it never falls back from one to the other. ``mfcc_batch.launches`` counts
 kernel launches.
+
+The kernel's power spectrum is a real FFT of the padded window, computed
+as a half-size complex FFT; ``fft_twiddles`` is its table and
+``mel_bands`` the mel filterbank cut to each filter's nonzero band, both
+made here once per configuration so the CPU tests reach them.
 """
 
 from __future__ import annotations
@@ -16,7 +21,14 @@ import numpy as np
 import torch
 
 from . import _build
-from .frontend import FrontendParams, check_supported, mfcc_batch_torch, num_frames
+from .frontend import (
+    FrontendConfig,
+    FrontendParams,
+    check_supported,
+    make_mel_matrix,
+    mfcc_batch_torch,
+    num_frames,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -27,7 +39,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("mfcc")
     if lib.rss_mfcc_launch.argtypes is None:
         lib.rss_mfcc_launch.argtypes = (
-            [_P] * 7 + [_I] * 10 + [_F] + [_I] * 3 + [_F, _I, _P]
+            [_P] * 9 + [_I] * 11 + [_F] + [_I] * 3 + [_F, _I, _P]
         )
         lib.rss_mfcc_launch.restype = _I
         lib.rss_mfcc_max_window.restype = _I
@@ -35,12 +47,36 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def fft_twiddles(n: int) -> np.ndarray:
+    """[2, n/2] f32 cos / sin of 2*pi*k/n, k < n/2, computed in float64 and
+    rounded once: W_n^k = cos - i sin for the n/2-point complex FFT's
+    butterflies (W_{n/2}^p = W_n^{2p}) and the real split."""
+    ang = 2.0 * np.pi * np.arange(n // 2, dtype=np.float64) / n
+    return np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32)
+
+
+def mel_bands(cfg: FrontendConfig):
+    """The mel matrix as bands: (ptr [M + 1], first bin [M], weights) with
+    filter m's nonzero weights ``weights[ptr[m]:ptr[m + 1]]`` on bins
+    ``first[m]..``, f32 as ``make_frontend_params`` rounds them."""
+    mel = make_mel_matrix(cfg).astype(np.float32)
+    ptr, first, vals = [0], [], []
+    for col in mel.T:
+        nz = np.flatnonzero(col)
+        lo, hi = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
+        first.append(lo)
+        vals.append(col[lo:hi])
+        ptr.append(ptr[-1] + hi - lo)
+    return np.asarray(ptr, np.int32), np.asarray(first, np.int32), np.concatenate(vals)
+
+
 @lru_cache(maxsize=16)
-def _twiddle(n: int, device: torch.device) -> torch.Tensor:
-    """[2, n] cos / sin of 2*pi*i/n, computed in float64 and rounded once."""
-    ang = 2.0 * np.pi * np.arange(n, dtype=np.float64) / n
-    tab = np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32)
-    return torch.as_tensor(tab, device=device)
+def _tables(cfg: FrontendConfig, device: torch.device):
+    ptr, first, vals = mel_bands(cfg)
+    return tuple(
+        torch.as_tensor(a, device=device)
+        for a in (fft_twiddles(cfg.padded_window_size), ptr, first, vals)
+    )
 
 
 def mfcc_batch(params: FrontendParams, samples: torch.Tensor) -> torch.Tensor:
@@ -66,12 +102,16 @@ def mfcc_batch(params: FrontendParams, samples: torch.Tensor) -> torch.Tensor:
         return out
     lib = _lib()
     N, L, M = cfg.padded_window_size, cfg.frame_length, cfg.num_mel_bins
-    if N > lib.rss_mfcc_max_window() or L > N or M > lib.rss_mfcc_max_mel():
+    if (
+        N & (N - 1) or not 4 <= N <= lib.rss_mfcc_max_window() or L > N
+        or M > lib.rss_mfcc_max_mel()
+    ):
         raise ValueError(
-            f"mfcc kernel takes padded window <= {lib.rss_mfcc_max_window()} "
-            f"and <= {lib.rss_mfcc_max_mel()} mel bins; got N={N}, L={L}, M={M}"
+            f"mfcc kernel takes a power-of-two padded window in [4, "
+            f"{lib.rss_mfcc_max_window()}] and <= {lib.rss_mfcc_max_mel()} mel bins; "
+            f"got N={N}, L={L}, M={M}"
         )
-    tw = _twiddle(N, samples.device)
+    tw, mel_ptr, mel_first, mel_val = _tables(cfg, samples.device)
     lifter = params.lifter if cfg.cepstral_lifter != 0.0 else None
     floored = cfg.use_energy and cfg.energy_floor > 0.0
     log_floor = float(np.log(np.float32(cfg.energy_floor))) if floored else 0.0
@@ -79,11 +119,13 @@ def mfcc_batch(params: FrontendParams, samples: torch.Tensor) -> torch.Tensor:
         samples.data_ptr(),
         params.window.data_ptr(),
         tw.data_ptr(),
-        params.mel_weights.data_ptr(),
+        mel_ptr.data_ptr(),
+        mel_first.data_ptr(),
+        mel_val.data_ptr(),
         params.dct.data_ptr(),
         None if lifter is None else lifter.data_ptr(),
         out.data_ptr(),
-        B, S, T, L, cfg.frame_shift, N, M, cfg.num_ceps,
+        B, S, T, L, cfg.frame_shift, N, N.bit_length() - 2, M, cfg.num_ceps,
         int(cfg.snip_edges), int(cfg.remove_dc_offset), cfg.preemph_coeff,
         int(cfg.use_energy), int(cfg.raw_energy), int(floored), log_floor,
         samples.device.index,

@@ -8,10 +8,10 @@ the file still collects on the CPU. Run on the card with::
 
 Tolerances: the decode and windowed-relaxation kernels must be bit-identical to the scatter twin
 (its arithmetic is mins and adds in the reference's order). The MFCC
-kernel computes a direct DFT with FMAs where the twin calls rfft and
-cuBLAS, so it is held to rtol 2e-3 / atol 3e-2 -- the tolerance the JAX
-package holds its own DFT-as-matmul kernel to against rfft
-(tests/test_pallas_mfcc.py).
+kernel computes its own f32 FFT and sums the mel bands in another order
+than the twin's rfft and cuBLAS, so it is held to rtol 2e-3 / atol 3e-2 --
+the tolerance the JAX package holds its own DFT-as-matmul kernel to
+against rfft (tests/test_pallas_mfcc.py).
 """
 
 import numpy as np
@@ -26,7 +26,14 @@ from rhasspy_speech_torch.ops.frontend import (
     mfcc_batch_torch,
 )
 from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch
-from rhasspy_speech_torch.ops.viterbi_cuda import viterbi_decode
+from rhasspy_speech_torch.ops.viterbi_cuda import (
+    CLUSTER_SIZES,
+    launch,
+    plan_viterbi,
+    smem_layout,
+    viterbi_decode,
+)
+from rhasspy_speech_torch.testing.decode_graphs import random_decode_graph
 from rhasspy_speech_torch.ops.windowed_relax_cuda import (
     prepare_steps,
     windowed_relax,
@@ -55,7 +62,8 @@ def speech_like(rng, n):
 
 def random_graph(rng, num_states, extra_arcs, num_pdfs=40, folded=True, hubs=0):
     """Chain + self-loops + random extra arcs (+ optional hub states with
-    in-degree num_states/2), pdfs a function of the source when folded."""
+    in-degree num_states/2), pdfs a function of the source when folded;
+    two final states, so the final argmin crosses slices."""
     S = num_states
     src = np.concatenate([np.arange(S), np.arange(S), rng.randint(S, size=extra_arcs)])
     dst = np.concatenate([(np.arange(S) + 1) % S, np.arange(S), rng.randint(S, size=extra_arcs)])
@@ -89,16 +97,23 @@ def random_graph(rng, num_states, extra_arcs, num_pdfs=40, folded=True, hubs=0):
     )
 
 
-def assert_decode_bit_exact(dense, device, B=5, T=11, lengths=None, scale=0.7, seed=0):
+def assert_decode_bit_exact(dense, device, B=5, T=11, lengths=None, scale=0.7, seed=0,
+                            cluster=None, resident=True):
+    """The kernel (through viterbi_decode, or one launch with a forced
+    cluster size) bit-equal to the plain twin on all five outputs."""
     rng = np.random.RandomState(seed)
     lp = torch.as_tensor(rng.randn(B, T, dense.num_pdfs).astype(np.float32), device=device)
-    lens = None if lengths is None else torch.as_tensor(lengths, dtype=torch.int32, device=device)
+    lens = torch.as_tensor(T if lengths is None else lengths, dtype=torch.int32, device=device)
+    lens = lens.expand(B).contiguous()
     g = DecodeGraph.from_dense(dense, device)
     compact = dense.num_arcs <= 65533
     want_alpha, want_bps = viterbi(g, lp, scale, lens, compact_bp=compact)
     want = backtrace(g, want_alpha, want_bps)
     before = viterbi_decode.launches
-    got = viterbi_decode(g, lp, scale, lens, return_forward=True)
+    if cluster is None:
+        got = viterbi_decode(g, lp, scale, lens, return_forward=True)
+    else:
+        got = launch(g, plan_viterbi(g, cluster), resident, lp, scale, lens)
     torch.cuda.synchronize()
     assert viterbi_decode.launches == before + 1
     assert got[4].dtype == want_bps.dtype
@@ -118,8 +133,9 @@ def assert_decode_bit_exact(dense, device, B=5, T=11, lengths=None, scale=0.7, s
         FrontendConfig(use_energy=True),
         FrontendConfig(use_energy=True, raw_energy=False, energy_floor=1.0),
         FrontendConfig(snip_edges=False),
+        FrontendConfig(samp_freq=8000.0, num_mel_bins=23, num_ceps=13, high_freq=-200.0),
     ],
-    ids=["hires", "20x20", "energy_raw", "energy_windowed", "no_snip"],
+    ids=["hires", "20x20", "energy_raw", "energy_windowed", "no_snip", "8k_n256"],
 )
 def test_mfcc_kernel_matches_plain(cuda, cfg):
     rng = np.random.RandomState(1)
@@ -136,7 +152,8 @@ def test_mfcc_kernel_matches_plain(cuda, cfg):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "kind", ["folded", "hubs", "unfolded", "lengths", "int32_bp"]
+    "kind", ["folded", "hubs", "unfolded", "lengths", "int32_bp", "batch1", "ragged_zero",
+             "hub_256"]
 )
 def test_viterbi_kernel_bit_exact(cuda, kind):
     rng = np.random.RandomState(7)
@@ -150,8 +167,53 @@ def test_viterbi_kernel_bit_exact(cuda, kind):
         assert_decode_bit_exact(
             random_graph(rng, 41, 90), cuda, B=6, lengths=[11, 0, 4, 7, 1, 11], seed=3
         )
-    else:  # > 65533 arcs: int32 backpointers
+    elif kind == "int32_bp":  # > 65533 arcs: int32 backpointers
         assert_decode_bit_exact(random_graph(rng, 3000, 66000), cuda, B=2, T=6, seed=4)
+    elif kind == "batch1":
+        assert_decode_bit_exact(random_decode_graph(rng, 5000, 3000, 300), cuda, B=1, T=20, seed=6)
+    elif kind == "ragged_zero":
+        assert_decode_bit_exact(random_decode_graph(rng, 3000, 2000, 200), cuda, B=7, T=13,
+                                lengths=[13, 0, 5, 1, 12, 0, 9], seed=8)
+    else:  # hubs of 300 in-arcs: the warp path with ~10 arcs a lane
+        assert_decode_bit_exact(random_decode_graph(rng, 2500, 1500, 100, hubs=3, hub_arcs=300),
+                                cuda, B=3, T=9, seed=9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", CLUSTER_SIZES)
+@pytest.mark.parametrize("resident", [True, False], ids=["smem_tables", "l2_tables"])
+def test_viterbi_kernel_every_cluster_size(cuda, cluster, resident):
+    """Each cluster size, tables in shared memory and in global memory, on
+    a graph whose 8-lane-group states and final states fall in different
+    slices."""
+    dense = random_decode_graph(np.random.RandomState(13), 4000, 2500, 500, hubs=3, hub_arcs=40)
+    assert_decode_bit_exact(dense, cuda, B=4, T=10, lengths=[10, 3, 0, 10], seed=14,
+                            cluster=cluster, resident=resident)
+
+
+@pytest.mark.cuda
+def test_viterbi_kernel_deployment_size_batch32(cuda):
+    """14,200 states / 38,400 arcs at the main path's batch: C = 4, tables
+    resident (113.6 KB of alpha + the slice's tables)."""
+    dense = random_decode_graph(np.random.RandomState(15))
+    g = DecodeGraph.from_dense(dense, cuda)
+    assert smem_layout(g.num_states, plan_viterbi(g, 4), True, True)[1] <= 227 * 1024
+    assert_decode_bit_exact(dense, cuda, B=32, T=40, seed=16)
+
+
+@pytest.mark.cuda
+def test_mfcc_kernel_main_path_shape_and_window_limit(cuda):
+    """[32, 48000] as the main path frames it; a window that is not a power
+    of two raises instead of running."""
+    rng = np.random.RandomState(2)
+    pcm = torch.as_tensor(np.stack([speech_like(rng, 48000) for _ in range(32)]), device=cuda)
+    params = make_frontend_params(FrontendConfig(), cuda)
+    got = mfcc_batch(params, pcm)
+    want = mfcc_batch_torch(params, pcm)
+    assert got.shape == (32, 298, 40)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=MFCC_RTOL, atol=MFCC_ATOL)
+    with pytest.raises(ValueError, match="power-of-two"):
+        mfcc_batch(make_frontend_params(FrontendConfig(round_to_power_of_two=False), cuda), pcm)
 
 
 @pytest.mark.cuda
