@@ -11,8 +11,8 @@
 // outside only because Mosaic cannot regroup lanes.
 //
 // What bounds it on this card: neither bytes nor operations at the main
-// path's shape (6.1 MB of PCM in, 1.5 MB of cepstra out: ~2.3 us; ~16
-// kFLOP a frame once the spectrum is an FFT). The first version computed
+// path's shape (6.1 MB of PCM in, 1.5 MB of cepstra out: ~2.3 us; ~20
+// kFLOP a frame once the spectrum is an FFT: ~2.9 us). The first version computed
 // the spectrum as a direct DFT (400 x 257 x 2 FMAs a frame, 17x an FFT's
 // work) with 257 bins over 256 threads, so one thread did two bins and
 // doubled the block's DFT time. This design:
@@ -31,6 +31,12 @@
 //   passes the bands; adding the dense product's zeros changes no bit), and
 //   the DCT is a [M, C] product, both per warp from L1-cached tables.
 // - Only PCM enters and cepstra leave device memory.
+//
+// Measured on the card (clock64() per step, one warp, PERF.md): every step
+// of a frame, the FFT's stages most, waits on shared memory that the ~40
+// resident warps of an SM share, so a frame takes ~24 us of one warp's time
+// for ~20 kFLOP. Keeping the butterflies in registers (8 points a lane, the
+// first stages without shared memory) is the next step.
 
 #include <cuda_runtime.h>
 #include <float.h>

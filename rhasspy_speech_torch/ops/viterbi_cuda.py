@@ -36,8 +36,9 @@ _F = ctypes.c_float
 THREAD_DEG = 8
 GROUP_DEG = 64
 CLUSTER_SIZES = (1, 2, 4, 8)
-# Slices are not cut below this many states to fill more SMs: below it a
-# frame's cluster barrier and push cost more than the relaxation they split.
+# Slices are not cut below this many states to fill more SMs: on the
+# 803-state flagship graph clusters of 1 to 8 decode within a few percent of
+# each other, while a cluster of 8 ties up eight SMs (PERF.md, K2 sweep).
 MIN_SLICE_STATES = 1024
 MAX_THREADS = 1024
 MAX_SLICE_STATES = 4 * MAX_THREADS  # csrc/viterbi.cu kStatesPerThread x threads
