@@ -32,11 +32,11 @@
 //   the DCT is a [M, C] product, both per warp from L1-cached tables.
 // - Only PCM enters and cepstra leave device memory.
 //
-// Measured on the card (clock64() per step, one warp, PERF.md): every step
-// of a frame, the FFT's stages most, waits on shared memory that the ~40
-// resident warps of an SM share, so a frame takes ~24 us of one warp's time
-// for ~20 kFLOP. Keeping the butterflies in registers (8 points a lane, the
-// first stages without shared memory) is the next step.
+// Measured on the card (step-by-step timings of one warp, PERF.md): every
+// step of a frame, the FFT's stages most, waits on the shared memory that
+// the ~40 resident warps of an SM share, so a warp spends far longer on a
+// frame than its ~20 kFLOP need. Keeping the butterflies in registers (8
+// points a lane, the first stages without shared memory) is the next step.
 
 #include <cuda_runtime.h>
 #include <float.h>

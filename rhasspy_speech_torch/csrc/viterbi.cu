@@ -55,13 +55,14 @@
 //   the backtrace stay in the launch; only [B, T] traces, the backpointers
 //   and the final alpha leave it.
 //
-// Measured on the card (clock64() per step, PERF.md): a frame still costs
-// ~2 us on the 803-state graph and ~4.5 us on the 14,200-state one at C = 8.
-// Shared-memory traffic, not latency, sets the relaxation (half the threads
-// take the same time), and at C = 8 the pushes (each state to 8 CTAs) take
-// about a third of a frame; one thread's backtrace adds ~30 us a launch.
-// Clusters of 4 with this much shared memory run 30 at a time on an H100,
-// so 32 streams take two waves.
+// Measured on the card (chip_smoke.py, PERF.md): a launch still costs ~2 us
+// a frame on the 803-state graph and ~5 us on the 14,200-state one at C = 8.
+// In step-by-step timings of variants, shared-memory traffic rather than
+// latency set the relaxation, the pushes (each state to C CTAs) were a
+// large share of a frame at C = 8, and one thread's backtrace (a chain of
+// T dependent L2 loads) was a fixed cost of every launch. Clusters of 4
+// with this much shared memory run 30 at a time on an H100, so 32 streams
+// take two waves.
 //
 // Arithmetic is the reference's, operation for operation, so the result is
 // bit-identical to ops/decoder.py's scatter step: am = (-scale) * lp with
