@@ -51,7 +51,9 @@ three hand-written kernels against their plain PyTorch twins:
 Each kernel's entry in the ``kernels`` line carries ``bound_ms``, the least
 time the card could take for the same work: the larger of its bytes (each
 input read once, each output written once) at 3.35 TB/s and its f32
-operations at 67 TFLOP/s, NVIDIA's H100 SXM peaks at 700 W.
+operations at 67 TFLOP/s, NVIDIA's H100 SXM peaks at 700 W. The Viterbi
+kernel's log-probs count only where this run's decode reads them: the
+32-byte sectors of the graph's pdfs in each stream's active frames.
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and exits non-zero.
@@ -145,30 +147,46 @@ def bound(nbytes, nops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mfcc_work(cfg, B, S, T):
-    """(bytes, f32 operations) of the MFCC kernel's function: PCM in,
-    cepstra out; per frame the DC removal, pre-emphasis and window (and
-    energy), the real FFT as an N/2-point complex FFT (10 operations a
-    radix-2 butterfly) and its split, the mel bands, log, DCT and lifter."""
+def mfcc_work(params, B, S, T):
+    """(bytes, f32 operations) of the MFCC kernel's function at a
+    power-of-two window: PCM in, cepstra out; per frame the DC removal,
+    pre-emphasis and window (and energy), the real FFT as an N/2-point
+    complex FFT (10 operations a radix-2 butterfly) and its split, the mel
+    bands, log, DCT and lifter."""
+    cfg = params.cfg
     L, H, M, C = cfg.frame_length, cfg.padded_window_size // 2, cfg.num_mel_bins, cfg.num_ceps
+    check(H & (H - 1) == 0, f"mfcc_work counts a power-of-two window, got N={2 * H}")
+    mel_terms = int(mel_bands(params.mel_weights.cpu().numpy())[0][-1])
     per_frame = (
         5 * L + (2 * L if cfg.use_energy else 0)
         + 10 * (H // 2) * (H.bit_length() - 1) + 14 * (H + 1)
-        + 2 * int(mel_bands(cfg)[0][-1]) + M + 2 * M * C + C
+        + 2 * mel_terms + M + 2 * M * C + C
     )
     return 4 * B * S + 4 * B * T * C, B * T * per_frame
 
 
 def viterbi_work(graph, B, T, P, lengths):
-    """(bytes, f32 operations) of one decode: log-probs and the graph's
-    tables in; backpointers, final alpha and traces out; per active frame
-    an add, a min and a compare per arc and the fold per state."""
+    """(bytes, f32 operations) of one decode. In: the lengths, the graph's
+    tables (packed source, arc id and weight per arc, row pointers, initial
+    and final weights, and the per-state pdf when folded or the per-arc pdf
+    when not), and of each stream's active frames only the log-probs at the
+    pdfs the graph reads, counted as the 32-byte sectors that hold them
+    (the card reads no less). Out: backpointers for every frame (STAY past
+    a stream's end), final alpha, traces, final state and cost. Operations:
+    per active frame an add, a min and a compare per arc and the fold per
+    state."""
     S, A = graph.num_states, graph.num_arcs
+    pdfs = (graph.src_pdf if graph.folded else graph.in_pdf).long()
+    # sectors a row touches, by the row's start offset in floats mod 8
+    # (torch allocations start on a sector)
+    sectors = [int(torch.unique((pdfs + o) // 8).numel()) for o in range(8)]
+    lens = lengths.clamp(max=T).tolist()
+    lp_bytes = 32 * sum(sectors[((b * T + t) * P) % 8] for b in range(B) for t in range(lens[b]))
     bp_bytes = 2 if A <= twin_decoder._COMPACT_BP_MAX_ARC else 4
-    tables = 8 * A + 8 * S + 4
-    frames = int(lengths.clamp(max=T).sum())
-    nbytes = 4 * B * T * P + tables + bp_bytes * T * B * S + 4 * B * S + 4 * B * T + 8 * B
-    return nbytes, frames * (3 * A + 2 * S)
+    tables = 8 * A + 4 * (S + 1) + 8 * S + (2 * S if graph.folded else 4 * A)
+    nbytes = (4 * B + tables + lp_bytes + bp_bytes * T * B * S + 4 * B * S + 4 * B * T
+              + 8 * B)
+    return nbytes, sum(lens) * (3 * A + 2 * S)
 
 
 def windowed_relax_work(T, B, S, nstep):
@@ -527,7 +545,7 @@ def main():
               f"mfcc kernel vs twin: max |d| {k1_err}")
         k1_ms = cuda_ms(lambda: mfcc_batch(t.am.frontend_params, pcm))
         k1_plain_ms = cuda_ms(lambda: mfcc_batch_torch(t.am.frontend_params, pcm))
-        k1_bound = bound(*mfcc_work(t.am.frontend_config, BATCH, pcm.shape[1], feats_k.shape[1]))
+        k1_bound = bound(*mfcc_work(t.am.frontend_params, BATCH, pcm.shape[1], feats_k.shape[1]))
         print(f"K1 mfcc [{BATCH}, {pcm.shape[1]}] -> {tuple(feats_k.shape)}: max |d| {k1_err:.3e}; "
               f"kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound {k1_bound[0]:.4f} ms "
               f"({k1_bound[1]})")

@@ -20,13 +20,17 @@
 // - One warp per frame, kFrames frames per block; every step of a frame is
 //   the warp's own (only __syncwarp between steps), and the block shares
 //   the twiddle table in shared memory.
-// - The power spectrum is a real N-point FFT (N = padded window, a power of
-//   two <= 512) computed as an N/2-point complex FFT of the packed pairs
-//   z[n] = x[2n] + i x[2n+1]: bit-reversed load, log2(N/2) radix-2 DIT
-//   stages in shared memory (N/4 butterflies a stage over 32 lanes, the
-//   same count on every lane), then the split X[k] = E[k] + W^k O[k] for
-//   k = 0..N/2. f32 on the CUDA cores; no tensor cores, since TF32 loses
-//   the feature precision (ARCHITECTURE.md, "MXU precision").
+// - The power spectrum is a real N-point FFT (N = padded window, even and
+//   <= 512) computed as an N/2-point complex FFT of the packed pairs
+//   z[n] = x[2n] + i x[2n+1], then the split X[k] = E[k] + W^k O[k] for
+//   k = 0..N/2. For a power of two (Kaldi's default, the main path):
+//   bit-reversed load, log2(N/2) radix-2 DIT stages in place in shared
+//   memory (N/4 butterflies a stage over 32 lanes, the same count on every
+//   lane). Otherwise (--round-to-power-of-two=false, e.g. N = 400): one
+//   Stockham stage per prime factor R of N/2 (200 = 2^3 5^2), each output a
+//   direct R-point sum, ping-ponging between the pair buffers and the frame
+//   buffer. f32 on the CUDA cores; no tensor cores, since TF32 loses the
+//   feature precision (ARCHITECTURE.md, "MXU precision").
 // - The mel filterbank walks each filter's nonzero band only (the wrapper
 //   passes the bands; adding the dense product's zeros changes no bit), and
 //   the DCT is a [M, C] product, both per warp from L1-cached tables.
@@ -68,21 +72,22 @@ __device__ __forceinline__ int sample_index(int f, int j, int S, int shift,
 __global__ void __launch_bounds__(kThreads) mfcc_kernel(
     const float* __restrict__ pcm,       // [B, S]
     const float* __restrict__ window,    // [L]
-    const float* __restrict__ twiddle,   // [2, N/2]: cos, sin of 2*pi*k/N
+    const float* __restrict__ twiddle,   // [2, N]: cos, sin of 2*pi*k/N
     const int* __restrict__ mel_ptr,     // [M + 1] offsets into mel_val
     const int* __restrict__ mel_bin0,    // [M] first bin of each band
     const float* __restrict__ mel_val,   // band weights, concatenated
     const float* __restrict__ dct,       // [M, C]
     const float* __restrict__ lifter,    // [C] or null
     float* __restrict__ out,             // [B, T, C]
-    int S, int T, int L, int shift, int N, int log2_half, int M, int C,
+    int S, int T, int L, int shift, int N, int M, int C,
     int snip_edges, int remove_dc, float preemph, int use_energy, int raw_energy,
     int energy_floored, float log_energy_floor) {
-  __shared__ float xs[kFrames][kMaxN];  // the frame, then its power spectrum
+  // the frame; then a Stockham stage's buffer or the power spectrum
+  __shared__ float xs[kFrames][kMaxN];
   __shared__ float zr[kFrames][kMaxHalf];
   __shared__ float zi[kFrames][kMaxHalf];
-  __shared__ float twc[kMaxHalf];
-  __shared__ float tws[kMaxHalf];
+  __shared__ float twc[kMaxN];
+  __shared__ float tws[kMaxN];
   __shared__ float lm[kFrames][kMaxMel];
 
   const int b = blockIdx.y;
@@ -93,9 +98,10 @@ __global__ void __launch_bounds__(kThreads) mfcc_kernel(
   const int H = N >> 1;
   const float eps = FLT_EPSILON;
 
-  for (int k = tid; k < H; k += kThreads) {
+  const bool pow2 = (H & (H - 1)) == 0;
+  for (int k = tid; k < N; k += kThreads) {
     twc[k] = twiddle[k];
-    tws[k] = twiddle[H + k];
+    tws[k] = twiddle[N + k];
   }
   __syncthreads();
   if (f >= T) return;  // no block barrier below: each warp is on its own
@@ -145,54 +151,105 @@ __global__ void __launch_bounds__(kThreads) mfcc_kernel(
   float log_energy = logf(fmaxf(e, eps));
   if (energy_floored) log_energy = fmaxf(log_energy, log_energy_floor);
 
-  // pack z[n] = x[2n] + i x[2n+1] in bit-reversed order
-  for (int n = lane; n < H; n += 32) {
-    const int j = (int)(__brev((unsigned)n) >> (32 - log2_half));
-    re[j] = fr[2 * n];
-    im[j] = fr[2 * n + 1];
-  }
-  __syncwarp();
-  // radix-2 DIT: butterflies of span 2m, twiddle W_N^(p * H / m)
-  for (int lm2 = 0, m = 1; m < H; ++lm2, m <<= 1) {
-    for (int q = lane; q < (H >> 1); q += 32) {
-      const int p = q & (m - 1);
-      const int i0 = ((q >> lm2) << (lm2 + 1)) + p;
-      const int i1 = i0 + m;
-      const int k = p * (H >> lm2);
-      const float c = twc[k], s = tws[k];
-      const float br = re[i1], bi = im[i1];
-      const float tr = fmaf(c, br, s * bi);
-      const float ti = fmaf(c, bi, -s * br);
-      const float ar = re[i0], ai = im[i0];
-      re[i0] = ar + tr;
-      im[i0] = ai + ti;
-      re[i1] = ar - tr;
-      im[i1] = ai - ti;
+  // z[n] = x[2n] + i x[2n+1]: Z[k] lands in (zre, zim) in natural order
+  float* zre = re;
+  float* zim = im;
+  if (pow2) {
+    // bit-reversed load, then radix-2 DIT in place: butterflies of span 2m,
+    // twiddle W_N^(p * H / m)
+    const int log2_half = __ffs(H) - 1;
+    for (int n = lane; n < H; n += 32) {
+      const int j = (int)(__brev((unsigned)n) >> (32 - log2_half));
+      re[j] = fr[2 * n];
+      im[j] = fr[2 * n + 1];
     }
     __syncwarp();
+    for (int lm2 = 0, m = 1; m < H; ++lm2, m <<= 1) {
+      for (int q = lane; q < (H >> 1); q += 32) {
+        const int p = q & (m - 1);
+        const int i0 = ((q >> lm2) << (lm2 + 1)) + p;
+        const int i1 = i0 + m;
+        const int k = p * (H >> lm2);
+        const float c = twc[k], s = tws[k];
+        const float br = re[i1], bi = im[i1];
+        const float tr = fmaf(c, br, s * bi);
+        const float ti = fmaf(c, bi, -s * br);
+        const float ar = re[i0], ai = im[i0];
+        re[i0] = ar + tr;
+        im[i0] = ai + ti;
+        re[i1] = ar - tr;
+        im[i1] = ai - ti;
+      }
+      __syncwarp();
+    }
+  } else {
+    // natural-order load, then one Stockham stage per prime factor R of H
+    // (ns = the factors done so far): output o = (j - j % ns) * R + j % ns
+    // + u * ns is sum_t in[j + t * H/R] * W_H^(t * (j % ns + u * ns) * H/(ns * R)),
+    // with W_H^e = W_N^(2e) from the table. Ping-pong with the frame buffer,
+    // free once packed (H <= 255 here, so 2H <= kMaxN).
+    for (int n = lane; n < H; n += 32) {
+      re[n] = fr[2 * n];
+      im[n] = fr[2 * n + 1];
+    }
+    __syncwarp();
+    float* dre = fr;
+    float* dim = fr + H;
+    for (int ns = 1, rest = H; rest > 1;) {
+      int R = 2;
+      while (rest % R) ++R;
+      const int hr = H / R, tstep = hr / ns;
+      for (int q = lane; q < H; q += 32) {
+        const int u = q / hr, j = q - u * hr, k = j % ns;
+        const int step = k * tstep + u * hr;  // < H
+        float ar = 0.0f, ai = 0.0f;
+        for (int t = 0, e = 0; t < R; ++t) {
+          const float xr = zre[j + t * hr], xi = zim[j + t * hr];
+          const float c = twc[2 * e], s = tws[2 * e];
+          ar += fmaf(xr, c, xi * s);
+          ai += fmaf(xi, c, -xr * s);
+          e += step;
+          if (e >= H) e -= H;
+        }
+        const int o = (j - k) * R + k + u * ns;
+        dre[o] = ar;
+        dim[o] = ai;
+      }
+      __syncwarp();
+      float* t0 = zre;
+      float* t1 = zim;
+      zre = dre;
+      zim = dim;
+      dre = t0;
+      dim = t1;
+      ns *= R;
+      rest /= R;
+    }
   }
-  // split into the real FFT's bins 0..H: power spectrum over fr
+  // split into the real FFT's bins 0..H: power spectrum into whichever of
+  // the frame buffer and the pair buffer does not hold Z
+  float* spec = zre == re ? fr : re;
   for (int k = lane; k <= H; k += 32) {
     float xr, xi;
     if (k == 0 || k == H) {
-      xr = k == 0 ? re[0] + im[0] : re[0] - im[0];
+      xr = k == 0 ? zre[0] + zim[0] : zre[0] - zim[0];
       xi = 0.0f;
     } else {
-      const float ar = re[k], ai = im[k], br = re[H - k], bi = im[H - k];
+      const float ar = zre[k], ai = zim[k], br = zre[H - k], bi = zim[H - k];
       const float er = 0.5f * (ar + br), ei = 0.5f * (ai - bi);
       const float or_ = 0.5f * (ai + bi), oi = -0.5f * (ar - br);
       const float c = twc[k], s = tws[k];
       xr = er + fmaf(or_, c, oi * s);
       xi = ei + fmaf(oi, c, -or_ * s);
     }
-    fr[k] = fmaf(xr, xr, xi * xi);
+    spec[k] = fmaf(xr, xr, xi * xi);
   }
   __syncwarp();
 
   float* lmf = lm[warp];
   for (int m = lane; m < M; m += 32) {
     const int j0 = mel_ptr[m], j1 = mel_ptr[m + 1];
-    const float* pw = fr + mel_bin0[m] - j0;
+    const float* pw = spec + mel_bin0[m] - j0;
     float s = 0.0f;
     for (int j = j0; j < j1; ++j) s = __fmaf_rn(pw[j], mel_val[j], s);
     lmf[m] = logf(fmaxf(s, eps));
@@ -222,7 +279,7 @@ int rss_mfcc_max_mel() { return kMaxMel; }
 int rss_mfcc_launch(const float* pcm, const float* window, const float* twiddle,
                     const int* mel_ptr, const int* mel_bin0, const float* mel_val,
                     const float* dct, const float* lifter, float* out, int B, int S,
-                    int T, int L, int shift, int N, int log2_half, int M, int C,
+                    int T, int L, int shift, int N, int M, int C,
                     int snip_edges, int remove_dc, float preemph, int use_energy,
                     int raw_energy, int energy_floored, float log_energy_floor,
                     int device, void* stream) {
@@ -231,7 +288,7 @@ int rss_mfcc_launch(const float* pcm, const float* window, const float* twiddle,
   const dim3 grid((T + kFrames - 1) / kFrames, B);
   mfcc_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       pcm, window, twiddle, mel_ptr, mel_bin0, mel_val, dct, lifter, out, S, T, L,
-      shift, N, log2_half, M, C, snip_edges, remove_dc, preemph, use_energy,
+      shift, N, M, C, snip_edges, remove_dc, preemph, use_energy,
       raw_energy, energy_floored, log_energy_floor);
   return (int)cudaGetLastError();
 }

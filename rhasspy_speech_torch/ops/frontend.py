@@ -12,7 +12,8 @@ kernel is checked against on the card.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Dict
 
 import numpy as np
 import torch
@@ -200,13 +201,16 @@ def make_lifter_coeffs(q: float, num_ceps: int) -> np.ndarray:
 
 @dataclass(frozen=True)
 class FrontendParams:
-    """Constant f32 tensors of one FrontendConfig on one device."""
+    """Constant f32 tensors of one FrontendConfig on one device.
+    ``kernel_cache`` holds what the kernel wrapper derives from them once
+    (``ops/mfcc_cuda.py`` tables)."""
 
     cfg: FrontendConfig
     window: torch.Tensor  # [frame_length]
     mel_weights: torch.Tensor  # [padded//2 + 1, num_mel_bins]
     dct: torch.Tensor  # [num_mel_bins, num_ceps]
     lifter: torch.Tensor  # [num_ceps]
+    kernel_cache: Dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:

@@ -7,28 +7,22 @@ it never falls back from one to the other. ``mfcc_batch.launches`` counts
 kernel launches.
 
 The kernel's power spectrum is a real FFT of the padded window, computed
-as a half-size complex FFT; ``fft_twiddles`` is its table and
-``mel_bands`` the mel filterbank cut to each filter's nonzero band, both
-made here once per configuration so the CPU tests reach them.
+as a half-size complex FFT: radix-2 stages when the window is a power of
+two, mixed-radix (Stockham) stages otherwise. ``fft_twiddles`` is its
+table and ``mel_bands`` cuts ``FrontendParams.mel_weights`` to each
+filter's nonzero band; both are made once per ``FrontendParams`` (cached
+on it) and are reached by the CPU tests.
 """
 
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import numpy as np
 import torch
 
 from . import _build
-from .frontend import (
-    FrontendConfig,
-    FrontendParams,
-    check_supported,
-    make_mel_matrix,
-    mfcc_batch_torch,
-    num_frames,
-)
+from .frontend import FrontendParams, check_supported, mfcc_batch_torch, num_frames
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,7 +33,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("mfcc")
     if lib.rss_mfcc_launch.argtypes is None:
         lib.rss_mfcc_launch.argtypes = (
-            [_P] * 9 + [_I] * 11 + [_F] + [_I] * 3 + [_F, _I, _P]
+            [_P] * 9 + [_I] * 10 + [_F] + [_I] * 3 + [_F, _I, _P]
         )
         lib.rss_mfcc_launch.restype = _I
         lib.rss_mfcc_max_window.restype = _I
@@ -48,20 +42,19 @@ def _lib() -> ctypes.CDLL:
 
 
 def fft_twiddles(n: int) -> np.ndarray:
-    """[2, n/2] f32 cos / sin of 2*pi*k/n, k < n/2, computed in float64 and
-    rounded once: W_n^k = cos - i sin for the n/2-point complex FFT's
-    butterflies (W_{n/2}^p = W_n^{2p}) and the real split."""
-    ang = 2.0 * np.pi * np.arange(n // 2, dtype=np.float64) / n
+    """[2, n] f32 cos / sin of 2*pi*k/n, computed in float64 and rounded
+    once: W_n^k = cos - i sin for the n/2-point complex FFT's butterflies
+    (W_{n/2}^p = W_n^{2p}) and the real split."""
+    ang = 2.0 * np.pi * np.arange(n, dtype=np.float64) / n
     return np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32)
 
 
-def mel_bands(cfg: FrontendConfig):
-    """The mel matrix as bands: (ptr [M + 1], first bin [M], weights) with
-    filter m's nonzero weights ``weights[ptr[m]:ptr[m + 1]]`` on bins
-    ``first[m]..``, f32 as ``make_frontend_params`` rounds them."""
-    mel = make_mel_matrix(cfg).astype(np.float32)
+def mel_bands(mel_weights: np.ndarray):
+    """The dense f32 mel matrix [bins, M] as bands: (ptr [M + 1], first bin
+    [M], weights) with filter m's nonzero weights ``weights[ptr[m]:ptr[m +
+    1]]`` on bins ``first[m]..``."""
     ptr, first, vals = [0], [], []
-    for col in mel.T:
+    for col in np.asarray(mel_weights, np.float32).T:
         nz = np.flatnonzero(col)
         lo, hi = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
         first.append(lo)
@@ -70,13 +63,16 @@ def mel_bands(cfg: FrontendConfig):
     return np.asarray(ptr, np.int32), np.asarray(first, np.int32), np.concatenate(vals)
 
 
-@lru_cache(maxsize=16)
-def _tables(cfg: FrontendConfig, device: torch.device):
-    ptr, first, vals = mel_bands(cfg)
-    return tuple(
-        torch.as_tensor(a, device=device)
-        for a in (fft_twiddles(cfg.padded_window_size), ptr, first, vals)
-    )
+def _tables(params: FrontendParams):
+    tables = params.kernel_cache.get("mfcc")
+    if tables is None:
+        ptr, first, vals = mel_bands(params.mel_weights.cpu().numpy())
+        tables = tuple(
+            torch.as_tensor(a, device=params.device)
+            for a in (fft_twiddles(params.cfg.padded_window_size), ptr, first, vals)
+        )
+        params.kernel_cache["mfcc"] = tables
+    return tables
 
 
 def mfcc_batch(params: FrontendParams, samples: torch.Tensor) -> torch.Tensor:
@@ -102,16 +98,17 @@ def mfcc_batch(params: FrontendParams, samples: torch.Tensor) -> torch.Tensor:
         return out
     lib = _lib()
     N, L, M = cfg.padded_window_size, cfg.frame_length, cfg.num_mel_bins
-    if (
-        N & (N - 1) or not 4 <= N <= lib.rss_mfcc_max_window() or L > N
-        or M > lib.rss_mfcc_max_mel()
-    ):
-        raise ValueError(
-            f"mfcc kernel takes a power-of-two padded window in [4, "
-            f"{lib.rss_mfcc_max_window()}] and <= {lib.rss_mfcc_max_mel()} mel bins; "
-            f"got N={N}, L={L}, M={M}"
+    if N % 2:
+        raise NotImplementedError(
+            f"mfcc kernel: an odd padded window (N={N}) is not ported "
+            "(ROADMAP Queue 1, odd MFCC window)"
         )
-    tw, mel_ptr, mel_first, mel_val = _tables(cfg, samples.device)
+    if not 4 <= N <= lib.rss_mfcc_max_window() or L > N or M > lib.rss_mfcc_max_mel():
+        raise ValueError(
+            f"mfcc kernel takes a padded window in [4, {lib.rss_mfcc_max_window()}] "
+            f"and <= {lib.rss_mfcc_max_mel()} mel bins; got N={N}, L={L}, M={M}"
+        )
+    tw, mel_ptr, mel_first, mel_val = _tables(params)
     lifter = params.lifter if cfg.cepstral_lifter != 0.0 else None
     floored = cfg.use_energy and cfg.energy_floor > 0.0
     log_floor = float(np.log(np.float32(cfg.energy_floor))) if floored else 0.0
@@ -125,7 +122,7 @@ def mfcc_batch(params: FrontendParams, samples: torch.Tensor) -> torch.Tensor:
         params.dct.data_ptr(),
         None if lifter is None else lifter.data_ptr(),
         out.data_ptr(),
-        B, S, T, L, cfg.frame_shift, N, N.bit_length() - 2, M, cfg.num_ceps,
+        B, S, T, L, cfg.frame_shift, N, M, cfg.num_ceps,
         int(cfg.snip_edges), int(cfg.remove_dc_offset), cfg.preemph_coeff,
         int(cfg.use_energy), int(cfg.raw_energy), int(floored), log_floor,
         samples.device.index,

@@ -134,8 +134,12 @@ def assert_decode_bit_exact(dense, device, B=5, T=11, lengths=None, scale=0.7, s
         FrontendConfig(use_energy=True, raw_energy=False, energy_floor=1.0),
         FrontendConfig(snip_edges=False),
         FrontendConfig(samp_freq=8000.0, num_mel_bins=23, num_ceps=13, high_freq=-200.0),
+        FrontendConfig(round_to_power_of_two=False),
+        FrontendConfig(samp_freq=8000.0, num_mel_bins=23, num_ceps=13, high_freq=-200.0,
+                       round_to_power_of_two=False, use_energy=True),
     ],
-    ids=["hires", "20x20", "energy_raw", "energy_windowed", "no_snip", "8k_n256"],
+    ids=["hires", "20x20", "energy_raw", "energy_windowed", "no_snip", "8k_n256", "n400",
+         "8k_n200_energy"],
 )
 def test_mfcc_kernel_matches_plain(cuda, cfg):
     rng = np.random.RandomState(1)
@@ -203,8 +207,8 @@ def test_viterbi_kernel_deployment_size_batch32(cuda):
 
 @pytest.mark.cuda
 def test_mfcc_kernel_main_path_shape_and_window_limit(cuda):
-    """[32, 48000] as the main path frames it; a window that is not a power
-    of two raises instead of running."""
+    """[32, 48000] as the main path frames it; an odd window (not ported)
+    raises instead of running."""
     rng = np.random.RandomState(2)
     pcm = torch.as_tensor(np.stack([speech_like(rng, 48000) for _ in range(32)]), device=cuda)
     params = make_frontend_params(FrontendConfig(), cuda)
@@ -212,8 +216,10 @@ def test_mfcc_kernel_main_path_shape_and_window_limit(cuda):
     want = mfcc_batch_torch(params, pcm)
     assert got.shape == (32, 298, 40)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=MFCC_RTOL, atol=MFCC_ATOL)
-    with pytest.raises(ValueError, match="power-of-two"):
-        mfcc_batch(make_frontend_params(FrontendConfig(round_to_power_of_two=False), cuda), pcm)
+    odd = FrontendConfig(frame_length_ms=25.0625, round_to_power_of_two=False)
+    assert odd.padded_window_size == 401
+    with pytest.raises(NotImplementedError, match="odd MFCC window"):
+        mfcc_batch(make_frontend_params(odd, cuda), pcm)
 
 
 @pytest.mark.cuda
