@@ -43,8 +43,11 @@ three hand-written kernels against their plain PyTorch twins:
 9. the windowed relaxation at the example's shape (B=512, T=116,
    S_pad=14,208, NSTEP=1,280) through
    ``rhasspy_speech_torch.examples.windowed_cost.main``, counted, bit-equal
-   to its plain version on every stream; and bit-equal again on small
-   tables and initial alphas that differ per stream;
+   to its plain version on every stream; then timed and held bit-equal at
+   every thread-block cluster size the card accepts, at the example's
+   shape and at a batch (13) that no cluster size divides; timed once more
+   with indices that cause no shared-memory bank conflicts; and bit-equal
+   again on small tables and initial alphas that differ per stream;
 10. checks that no module of ``jax`` or ``rhasspy_speech_tpu`` was imported
    (the card's machine has JAX installed; the port must not reach it).
 
@@ -86,6 +89,7 @@ from rhasspy_speech_torch.testing.flagship import (  # noqa: E402
 )
 from rhasspy_speech_torch.ops import _build  # noqa: E402
 from rhasspy_speech_torch.ops import decoder as twin_decoder  # noqa: E402
+from rhasspy_speech_torch.ops import windowed_relax_cuda as k3  # noqa: E402
 from rhasspy_speech_torch.examples import windowed_cost  # noqa: E402
 from rhasspy_speech_torch.ops.frontend import mfcc_batch_torch  # noqa: E402
 from rhasspy_speech_torch.ops.ivector import extract_ivectors  # noqa: E402
@@ -106,6 +110,8 @@ from rhasspy_speech_torch.ops.windowed_relax_cuda import (  # noqa: E402
     windowed_relax,
     windowed_relax_torch,
 )
+
+K3_ODD_BATCH = 13  # no cluster size above 1 divides it
 
 SEED = 0
 BATCH = 32
@@ -433,28 +439,73 @@ def lattice_phase(t, tc, pcms):
               f"the CPU's, {fb_ms:.4f} ms on the card; confidence {conf:.6f} (CPU {conf_cpu:.6f})")
 
 
+def relax_outputs_equal(got, want):
+    """alpha and the uint16 backpointers identical."""
+    return torch.equal(got[0], want[0]) and torch.equal(got[1].to(torch.int32), want[1].to(torch.int32))
+
+
 def windowed_relax_phase(dev):
     """K3 through its entry point at the example's shape, then against its
-    plain version; returns (launches, max |d|, kernel ms, plain ms)."""
+    plain version at every cluster size; returns (launches, max |d|, kernel
+    ms, plain ms, (bound ms, bound by))."""
     zero_counts()
     out = windowed_cost.main([])
     torch.cuda.synchronize()
     launches = read_counts()["windowed_relax"]
     check(launches > 0, "windowed_cost.main did not launch the windowed_relax kernel")
-    tables = out["tables"]
+    tables, steps = out["tables"], out["steps"]
     B, S = out["alpha"].shape
     T = out["bp"].shape[0]
-    want_alpha, want_bp = windowed_relax_torch(*tables, T, B, S)
+    want = windowed_relax_torch(*tables, T, B, S)
     torch.cuda.synchronize()
-    check(torch.equal(out["alpha"], want_alpha), "windowed_relax alpha differs from its plain version")
-    check(torch.equal(out["bp"].to(torch.int32), want_bp.to(torch.int32)),
-          "windowed_relax bp differs from its plain version")
-    err = float((out["alpha"] - want_alpha).abs().max())
-    del want_alpha, want_bp
+    check(relax_outputs_equal((out["alpha"], out["bp"]), want),
+          "windowed_relax differs from its plain version")
+    err = float((out["alpha"] - want[0]).abs().max())
     plain_ms = cuda_ms(lambda: windowed_relax_torch(*tables, T, B, S), iters=2)
-    print(f"K3 windowed_relax B={B} T={T} S_pad={S} NSTEP={tables[0].shape[0]}: bit-equal on every "
-          f"stream; kernel {out['ms']:.4f} ms ({out['us_per_step']:.6f} us/step), plain "
-          f"{plain_ms:.4f} ms")
+    chosen = k3.select_cluster(steps, B)
+    check(chosen == out["cluster"], f"entry point reported cluster {out['cluster']}, not {chosen}")
+    print(f"K3 windowed_relax B={B} T={T} S_pad={S} NSTEP={tables[0].shape[0]} "
+          f"({steps.num_rounds} rounds): bit-equal on every stream; kernel {out['ms']:.4f} ms "
+          f"({out['us_per_step']:.6f} us/step) in clusters of {chosen}, plain {plain_ms:.4f} ms")
+
+    # every cluster size the card accepts: the example's shape, timed, and
+    # a batch the cluster size does not divide, on tables with exact ties
+    dbase, sbase, idx, w, arc = windowed_cost.make_step_tables(100, 1024, seed=3)
+    odd = [torch.as_tensor(x, device=dev) for x in
+           (dbase, sbase, idx, (np.round(w * 4) / 4).astype(np.float32), (arc % 300).astype(np.int32))]
+    odd_a0 = torch.as_tensor(
+        (np.round(np.random.RandomState(4).rand(K3_ODD_BATCH, 1024) * 8) / 8).astype(np.float32),
+        device=dev)
+    odd_steps = prepare_steps(*odd, 1024)
+    odd_want = windowed_relax_torch(*odd, 5, K3_ODD_BATCH, 1024, alpha0=odd_a0)
+    sizes = [c for c in k3.CLUSTER_SIZES if k3.max_clusters(steps, c) > 0]
+    check(chosen in sizes, f"chosen cluster size {chosen} not among the accepted {sizes}")
+    for c in sizes:
+        before = windowed_relax.launches
+        got = k3.launch(steps, T, B, None, c)
+        got_odd = k3.launch(odd_steps, 5, K3_ODD_BATCH, odd_a0, c)
+        torch.cuda.synchronize()
+        check(windowed_relax.launches == before + 2, "windowed_relax launch count")
+        check(relax_outputs_equal(got, want),
+              f"windowed_relax differs from its plain version in clusters of {c}")
+        check(relax_outputs_equal(got_odd, odd_want),
+              f"windowed_relax differs from its plain version in clusters of {c}, B={K3_ODD_BATCH}")
+        del got
+        ms = cuda_ms(lambda: k3.launch(steps, T, B, None, c), iters=5)
+        print(f"K3 windowed_relax C={c} x{k3.max_clusters(steps, c)} (clusters the card runs at "
+              f"once): bit-equal at B={B} and at B={K3_ODD_BATCH}; {ms:.4f} ms"
+              f"{' (chosen)' if c == chosen else ''}")
+    del want
+
+    # the same tables with idx[i, j] = j: every lane of a warp gathers from
+    # its own shared-memory bank, where random idx collide about 3.5-fold
+    idx_lane = torch.arange(k3.LANES, dtype=tables[2].dtype, device=dev).expand_as(tables[2]).contiguous()
+    lane_steps = prepare_steps(tables[0], tables[1], idx_lane, tables[3], tables[4], S)
+    random_ms = cuda_ms(lambda: k3.launch(steps, T, B, None, chosen), iters=5)
+    lane_ms = cuda_ms(lambda: k3.launch(lane_steps, T, B, None, chosen), iters=5)
+    print(f"K3 windowed_relax C={chosen}: {random_ms:.4f} ms with the example's random idx, "
+          f"{lane_ms:.4f} ms with bank-conflict-free idx (idx[i, j] = j)")
+    del lane_steps, idx_lane
 
     # tables and initial alphas that differ per stream, with exact ties
     Bs, s_pad, nstep = 8, 1024, 100
@@ -465,9 +516,11 @@ def windowed_relax_phase(dev):
     alpha0 = (np.round(np.random.RandomState(9).rand(Bs, s_pad) * 8) / 8).astype(np.float32)
     small = [torch.as_tensor(x, device=dev) for x in (dbase, sbase, idx, w, arc)]
     a0 = torch.as_tensor(alpha0, device=dev)
+    before = windowed_relax.launches
     got = windowed_relax(prepare_steps(*small, s_pad), 4, Bs, alpha0=a0)
+    check(windowed_relax.launches == before + 1, "windowed_relax launch count (per-stream tables)")
     ref = windowed_relax_torch(*small, 4, Bs, s_pad, alpha0=a0)
-    check(torch.equal(got[0], ref[0]) and torch.equal(got[1].to(torch.int32), ref[1].to(torch.int32)),
+    check(relax_outputs_equal(got, ref),
           "windowed_relax differs from its plain version on per-stream tables")
     check(not torch.equal(got[1][:, 0], got[1][:, 1]), "per-stream case: streams should differ")
     print(f"K3 windowed_relax per-stream tables [{Bs}, {nstep}, 128], S_pad={s_pad}: bit-equal")

@@ -6,8 +6,11 @@ source 128-window) step; per frame and step, 128 candidates gathered from
 the source window of alpha merge (cost, arc id)-lexicographically into the
 destination block (``ops/windowed_relax_cuda.py``, kernel
 ``csrc/windowed_relax.cu``). The step tables are random, drawn as the
-example draws them, because the per-step cost is what is measured and it
-does not depend on the indices' content.
+example draws them. On a GPU the per-step cost does depend on the indices:
+lanes of a warp whose ``idx`` fall into one shared-memory bank serialise.
+Uniformly random indices are about the worst a graph's arcs give; at this
+shape they cost about 4% over conflict-free ones (``chip_smoke.py`` times
+both).
 
 Usage (on a CUDA card)::
 
@@ -16,13 +19,15 @@ Usage (on a CUDA card)::
 Shapes are the example's: B=512 streams, T=116 frames, S_pad=14,208
 states, P=3,072 pdfs (the example's unread ``am`` block; no input here),
 NSTEP=1,280 steps and BT=32 by default. The kernel runs one CTA per
-stream, so BT only sets the accounting unit of the "us/step" figure, as in
-the example: the time of one step over BT streams, ms / T / (B / BT) /
-NSTEP * 1e3. The example multiplies the same quotient by 1e6, so the
-figure it prints under "us/step" is in ns.
+stream and shares each read of the step tables among the C CTAs of a
+thread-block cluster; ``windowed_relax`` chooses C from the batch and the
+card, and the run prints it. BT does not set C: it remains the accounting
+unit of the "us/step" figure, as in the example: the time of one step over
+BT streams, ms / T / (B / BT) / NSTEP * 1e3. The example multiplies the
+same quotient by 1e6, so the figure it prints under "us/step" is in ns.
 
-The tables are checked and regrouped once, before the clock starts; the
-CUDA events time the kernel launches alone.
+The tables are checked and laid out as the kernel's schedule once, before
+the clock starts; the CUDA events time the kernel launches alone.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.windowed_relax_cuda import prepare_steps, windowed_relax
+from ..ops.windowed_relax_cuda import prepare_steps, select_cluster, windowed_relax
 
 S_PAD = 14208
 P = 3072
@@ -45,6 +50,7 @@ B = 512
 NSTEP = 1280
 BT = 32
 DEVICE = "cuda"
+WARMUP_RUNS = 3  # the card's clocks ramp up over the first tens of ms of load
 TIMED_RUNS = 5
 NUM_ARCS = 37658  # the flagship graph's arc count: the arc ids' range
 
@@ -70,8 +76,8 @@ def card_line() -> str:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
-    """Run the relaxation once, then time ``TIMED_RUNS`` more runs with CUDA
-    events; return {"alpha", "bp", "tables", "ms", "us_per_step"}."""
+    """Run the relaxation once and ``WARMUP_RUNS`` times more, then time
+    ``TIMED_RUNS`` runs with CUDA events; return {"alpha", "bp", "tables", "steps", "cluster", "ms", "us_per_step"}."""
     argv = sys.argv[1:] if argv is None else list(argv)
     nstep = int(argv[0]) if len(argv) > 0 else NSTEP
     bt = int(argv[1]) if len(argv) > 1 else BT
@@ -85,6 +91,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     alpha, bp = windowed_relax(steps, T, B)
     torch.cuda.synchronize(dev)
     print(f"build+run {time.time() - t0:.1f}s")
+    for _ in range(WARMUP_RUNS):
+        windowed_relax(steps, T, B)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -94,9 +102,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     torch.cuda.synchronize(dev)
     ms = start.elapsed_time(stop) / TIMED_RUNS
     us = ms / T / (B // bt) / nstep * 1e3
+    cluster = select_cluster(steps, B)
     print(f"NSTEP={nstep} B={B} BT={bt} T={T}: {ms:.3f} ms "
-          f"({us:.4f} us/step) on {card_line()}")
-    return {"alpha": alpha, "bp": bp, "tables": tables, "ms": ms, "us_per_step": us}
+          f"({us:.4f} us/step), clusters of {cluster} CTAs, on {card_line()}")
+    return {"alpha": alpha, "bp": bp, "tables": tables, "steps": steps, "cluster": cluster,
+            "ms": ms, "us_per_step": us}
 
 
 if __name__ == "__main__":

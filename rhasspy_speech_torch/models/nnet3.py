@@ -20,12 +20,13 @@ types raise ``NotImplementedError`` (ROADMAP Queue 1, item 4).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from ..io.nnet3_file import ComponentSpec, Descriptor, Nnet3Spec, NodeSpec
 
 _AFFINE = ("AffineComponent", "NaturalGradientAffineComponent", "FixedAffineComponent")
@@ -343,11 +344,12 @@ def plan_nnet3(
 
 
 def params_from_numpy(
-    params: Dict[str, Dict[str, np.ndarray]], device: torch.device = torch.device("cpu")
+    params: Dict[str, Dict[str, np.ndarray]], device: Union[str, torch.device] = "cuda"
 ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Component name -> {parameter name -> f32 tensor}; takes a plan's
-    NumPy parameters or the JAX package's ``CompiledNnet3.params`` through
-    ``np.asarray``."""
+    """Component name -> {parameter name -> f32 tensor} on ``device`` (the
+    card by default; ``"cpu"`` when asked); takes a plan's NumPy parameters
+    or the JAX package's ``CompiledNnet3.params`` through ``np.asarray``."""
+    device = resolve_device(device)
     return {
         name: {
             k: torch.as_tensor(np.array(v, dtype=np.float32), device=device)
@@ -563,7 +565,7 @@ def compile_nnet3(
     output_name: str = "output",
     ivector_period: int = 0,
     collapse: bool = True,
-    device: torch.device = torch.device("cpu"),
+    device: Union[str, torch.device] = "cuda",
 ) -> CompiledNnet3:
     """Plan ``spec`` for ``num_out_frames`` outputs and build its module on
     ``device`` with the plan's own parameters."""

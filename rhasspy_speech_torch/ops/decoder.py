@@ -29,11 +29,12 @@ copied from the JAX module, which imports JAX.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..graph.dense import NEG_INF_F32, DenseGraph
 
 # Backpointer sentinel for masked (past-end) frames: "stay in state"
@@ -96,7 +97,8 @@ class DecodeGraph:
         return self.src_pdf is not None
 
     @staticmethod
-    def from_dense(g: DenseGraph, device: torch.device = torch.device("cpu")) -> "DecodeGraph":
+    def from_dense(g: DenseGraph, device: Union[str, torch.device] = "cuda") -> "DecodeGraph":
+        device = resolve_device(device)
         S, A = g.num_states, g.num_arcs
         sp = _state_pdf(g)
         order = np.argsort(g.arc_dst, kind="stable")  # ascending arc id per dst

@@ -13,11 +13,12 @@ kernel is checked against on the card.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..io.ivector import parse_conf
 
 EPS_F32 = float(np.finfo(np.float32).eps)
@@ -218,8 +219,10 @@ class FrontendParams:
 
 
 def make_frontend_params(
-    cfg: FrontendConfig, device: torch.device = torch.device("cpu")
+    cfg: FrontendConfig, device: Union[str, torch.device] = "cuda"
 ) -> FrontendParams:
+    device = resolve_device(device)
+
     def f32(a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=device)
 

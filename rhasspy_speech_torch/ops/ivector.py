@@ -11,11 +11,12 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..io.ivector import DiagGmm, IvectorExtractor, OnlineIvectorConfig
 
 
@@ -47,11 +48,13 @@ _TENSOR_FIELDS = ("gconsts", "means_invvars", "inv_vars", "sigma_inv_m", "U", "l
 
 
 def ivector_params_from_numpy(
-    values: Mapping[str, Any], device: torch.device = torch.device("cpu")
+    values: Mapping[str, Any], device: Union[str, torch.device] = "cuda"
 ) -> IvectorParams:
-    """IvectorParams from a mapping of its field names to NumPy arrays and
-    scalars -- e.g. the JAX package's IvectorParams fields through
-    ``np.asarray`` -- so both packages compute with identical constants."""
+    """IvectorParams on ``device`` from a mapping of its field names to
+    NumPy arrays and scalars -- e.g. the JAX package's IvectorParams fields
+    through ``np.asarray`` -- so both packages compute with identical
+    constants."""
+    device = resolve_device(device)
     kwargs = {}
     for f in dataclasses.fields(IvectorParams):
         v = values[f.name]
@@ -66,7 +69,7 @@ def make_ivector_params(
     extractor: IvectorExtractor,
     lda_mat: np.ndarray,
     cfg: Optional[OnlineIvectorConfig] = None,
-    device: torch.device = torch.device("cpu"),
+    device: Union[str, torch.device] = "cuda",
 ) -> IvectorParams:
     cfg = cfg or OnlineIvectorConfig()
     sigma_inv_m = np.einsum("ide,iek->idk", extractor.sigma_inv, extractor.M)

@@ -65,7 +65,7 @@ def test_viterbi_bit_exact(name, compact, masked):
     jl = jnp.asarray(lens) if masked else None
     tl = torch.as_tensor(lens) if masked else None
     ref_alpha, ref_bps = jd.viterbi(jd.make_decode_graph(g), jnp.asarray(lp), 0.7, jl, compact_bp=compact)
-    alpha, bps = td.viterbi(td.DecodeGraph.from_dense(g), torch.as_tensor(lp), 0.7, tl, compact_bp=compact)
+    alpha, bps = td.viterbi(td.DecodeGraph.from_dense(g, "cpu"), torch.as_tensor(lp), 0.7, tl, compact_bp=compact)
     assert bps.dtype == (torch.uint16 if compact else torch.int32)
     np.testing.assert_array_equal(alpha.numpy(), np.asarray(ref_alpha))
     _eq(np.asarray(ref_bps), bps.to(torch.int64).numpy())
@@ -75,7 +75,7 @@ def test_viterbi_bit_exact(name, compact, masked):
 def test_viterbi_decode_bit_exact(name):
     g, lp, lens = _case(name, seed=1)
     ref = jd.viterbi_decode(jd.make_decode_graph(g), jnp.asarray(lp), 0.9, jnp.asarray(lens))
-    tg = td.DecodeGraph.from_dense(g)
+    tg = td.DecodeGraph.from_dense(g, "cpu")
     got = td.viterbi_decode(tg, torch.as_tensor(lp), 0.9, torch.as_tensor(lens))
     for r, o in zip(ref, got):
         np.testing.assert_array_equal(o.numpy(), np.asarray(r))
@@ -100,7 +100,7 @@ def test_viterbi_matches_pallas_interpret_prefix(name, compact):
         PallasDecodeGraph.from_dense(g, width=2), jnp.asarray(lp), 0.7,
         lengths=jnp.asarray(lens), compact_bp=compact, interpret=True,
     )
-    alpha, bps = td.viterbi(td.DecodeGraph.from_dense(g), torch.as_tensor(lp), 0.7,
+    alpha, bps = td.viterbi(td.DecodeGraph.from_dense(g, "cpu"), torch.as_tensor(lp), 0.7,
                             torch.as_tensor(lens), compact_bp=compact)
     S = g.num_states
     np.testing.assert_array_equal(alpha.numpy(), np.asarray(alpha_p)[:, :S])
@@ -119,7 +119,7 @@ def test_copied_helpers_equal_original():
 
 def test_csr_lists_in_arcs_in_ascending_id():
     g = _hubby_graph(np.random.RandomState(6))
-    dg = td.DecodeGraph.from_dense(g)
+    dg = td.DecodeGraph.from_dense(g, "cpu")
     ptr, arcs = dg.in_ptr.numpy(), dg.in_arc.numpy()
     for s in range(g.num_states):
         mine = arcs[ptr[s]:ptr[s + 1]]

@@ -50,7 +50,7 @@ def test_mfcc_twin_matches_jax(name):
     rng = np.random.RandomState(3)
     pcm = np.stack([speech_like(rng, 6000), speech_like(rng, 6000)])
     want = np.asarray(jf.mfcc_batch(jf.make_frontend_params(jf.FrontendConfig(**kw)), jnp.asarray(pcm)))
-    params = tf.make_frontend_params(tf.FrontendConfig(**kw))
+    params = tf.make_frontend_params(tf.FrontendConfig(**kw), "cpu")
     got = tf.mfcc_batch_torch(params, torch.as_tensor(pcm)).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-3)
@@ -70,18 +70,18 @@ def test_mfcc_twin_matches_pallas_interpret(name):
     rng = np.random.RandomState(4)
     pcm = np.stack([speech_like(rng, 5000) for _ in range(2)])
     want = np.asarray(mfcc_pallas(jf.FrontendConfig(**kw), jnp.asarray(pcm), interpret=True))
-    got = tf.mfcc_batch_torch(tf.make_frontend_params(tf.FrontendConfig(**kw)), torch.as_tensor(pcm))
+    got = tf.mfcc_batch_torch(tf.make_frontend_params(tf.FrontendConfig(**kw), "cpu"), torch.as_tensor(pcm))
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=3e-2)
 
 
 def test_mfcc_short_input_gives_no_frames():
-    params = tf.make_frontend_params(tf.FrontendConfig())
+    params = tf.make_frontend_params(tf.FrontendConfig(), "cpu")
     out = tf.mfcc_batch_torch(params, torch.zeros((2, 300)))
     assert out.shape == (2, 0, 40)
 
 
 def test_dither_raises():
-    params = tf.make_frontend_params(tf.FrontendConfig(dither=1.0))
+    params = tf.make_frontend_params(tf.FrontendConfig(dither=1.0), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tf.mfcc_batch_torch(params, torch.zeros((1, 800)))
 

@@ -66,8 +66,8 @@ def _numpy_fields(jp):
 
 def test_make_ivector_params_equals_carry_over():
     _, dubm, extractor, lda, cfg, jp = _params(0)
-    ours = ti.make_ivector_params(dubm, extractor, lda, cfg)
-    carried = ti.ivector_params_from_numpy(_numpy_fields(jp))
+    ours = ti.make_ivector_params(dubm, extractor, lda, cfg, "cpu")
+    carried = ti.ivector_params_from_numpy(_numpy_fields(jp), "cpu")
     for f in dataclasses.fields(ours):
         a, b = getattr(ours, f.name), getattr(carried, f.name)
         if isinstance(a, torch.Tensor):
@@ -79,7 +79,7 @@ def test_make_ivector_params_equals_carry_over():
 @pytest.mark.parametrize("masked", [False, True])
 def test_extract_ivectors_matches_jax(masked):
     rng, *_, jp = _params(1)
-    tp = ti.ivector_params_from_numpy(_numpy_fields(jp))
+    tp = ti.ivector_params_from_numpy(_numpy_fields(jp), "cpu")
     feats = rng.randn(4, 40, 6).astype(np.float32)
     lengths = np.array([40, 17, 1, 33], np.int32) if masked else None
     weights = rng.rand(4, 40).astype(np.float32) if masked else None
@@ -99,7 +99,7 @@ def test_extract_ivectors_matches_jax(masked):
 
 def test_gselect_posteriors_match_jax_with_ties():
     rng, *_, jp = _params(2)
-    tp = ti.ivector_params_from_numpy(_numpy_fields(jp))
+    tp = ti.ivector_params_from_numpy(_numpy_fields(jp), "cpu")
     ll = np.round(rng.randn(2, 9, 16) * 2).astype(np.float32)  # many exact ties
     want = np.asarray(ji.gselect_posteriors(jnp.asarray(ll), jp))
     got = ti.gselect_posteriors(torch.as_tensor(ll), tp).numpy()

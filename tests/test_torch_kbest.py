@@ -68,7 +68,7 @@ def test_viterbi_kbest_bit_exact(name, masked, k):
     g, lp, lens = _case(name)
     jl = jnp.asarray(lens) if masked else None
     tl = torch.as_tensor(lens) if masked else None
-    tg = td.DecodeGraph.from_dense(g)
+    tg = td.DecodeGraph.from_dense(g, "cpu")
     assert tg.folded == (name != "unfolded")
     ref_alpha, ref_bps = jd.viterbi_kbest(jd.make_decode_graph(g), jnp.asarray(lp), k, 0.8, jl)
     alpha, bps = td.viterbi_kbest(tg, torch.as_tensor(lp), k, 0.8, tl)
@@ -87,7 +87,7 @@ def test_kbest_rank0_equals_1best():
     """tests/test_decoder.py's case: rank 0 of the k-best equals the
     1-best, bit for bit in the port."""
     g, lp, _ = _case("unfolded", B=2, T=10, seed=2)
-    tg = td.DecodeGraph.from_dense(g)
+    tg = td.DecodeGraph.from_dense(g, "cpu")
     alpha1, _ = td.viterbi(tg, torch.as_tensor(lp))
     alphak, bpk = td.viterbi_kbest(tg, torch.as_tensor(lp), 4)
     np.testing.assert_array_equal(alphak[:, :, 0].numpy(), alpha1.numpy())
@@ -103,7 +103,7 @@ def test_kbest_rank0_equals_1best():
 def test_kbest_two_path_graph():
     g = two_path_graph()
     lp = np.log(np.array([[[0.5, 0.5]]], dtype=np.float32))
-    got = td.viterbi_kbest_decode(td.DecodeGraph.from_dense(g), torch.as_tensor(lp), 3)
+    got = td.viterbi_kbest_decode(td.DecodeGraph.from_dense(g, "cpu"), torch.as_tensor(lp), 3)
     ref = jd.viterbi_kbest_decode(jd.DeviceGraph.from_dense(g), jnp.asarray(lp), 3)
     for r, o in zip(ref, got):
         np.testing.assert_array_equal(o.numpy(), np.asarray(r))
@@ -128,7 +128,7 @@ def test_copied_nbest_helpers_equal_original(name):
     reference case)."""
     g, lp, _ = _reference_case() if name == "reference" else _case(name, B=3, T=12, seed=23)
     K = 4
-    tg = td.DecodeGraph.from_dense(g)
+    tg = td.DecodeGraph.from_dense(g, "cpu")
     alphak, bpk = (x.numpy() for x in td.viterbi_kbest(tg, torch.as_tensor(lp), K))
     traces, seeds, costs = (
         x.numpy() for x in td.viterbi_kbest_decode(tg, torch.as_tensor(lp), K)
@@ -164,7 +164,7 @@ def test_dead_states_tie_in_xla_order():
     )
     lp = np.log(np.full((2, 1, 3), 1 / 3, np.float32))
     ref = jd.viterbi_kbest_decode(jd.DeviceGraph.from_dense(g), jnp.asarray(lp), 4)
-    got = td.viterbi_kbest_decode(td.DecodeGraph.from_dense(g), torch.as_tensor(lp), 4)
+    got = td.viterbi_kbest_decode(td.DecodeGraph.from_dense(g, "cpu"), torch.as_tensor(lp), 4)
     assert (np.asarray(ref[2])[:, 2:] == NEG_INF_F32).all()  # ties at 1e30
     for r, o in zip(ref, got):
         np.testing.assert_array_equal(o.numpy(), np.asarray(r))

@@ -34,6 +34,7 @@ from rhasspy_speech_torch.ops.viterbi_cuda import (
     viterbi_decode,
 )
 from rhasspy_speech_torch.testing.decode_graphs import random_decode_graph
+from rhasspy_speech_torch.ops import windowed_relax_cuda
 from rhasspy_speech_torch.ops.windowed_relax_cuda import (
     prepare_steps,
     windowed_relax,
@@ -240,13 +241,18 @@ def test_viterbi_kernel_rejects_oversized_graph(cuda):
         viterbi_decode(g, lp)
 
 
-def assert_relax_bit_exact(tables, T, B, s_pad, device, alpha0=None):
+def assert_relax_bit_exact(tables, T, B, s_pad, device, alpha0=None, cluster=None):
+    """The kernel (through windowed_relax, or one launch with a forced
+    cluster size) bit-equal to the plain version."""
     tables = [torch.as_tensor(x, device=device) for x in tables]
     a0 = None if alpha0 is None else torch.as_tensor(alpha0, device=device)
     want = windowed_relax_torch(*tables, T, B, s_pad, alpha0=a0)
     before = windowed_relax.launches
     steps = prepare_steps(*tables, s_pad)
-    got = windowed_relax(steps, T, B, alpha0=a0)
+    if cluster is None:
+        got = windowed_relax(steps, T, B, alpha0=a0)
+    else:
+        got = windowed_relax_cuda.launch(steps, T, B, a0, cluster)
     torch.cuda.synchronize()
     assert windowed_relax.launches == before + 1
     assert got[1].dtype == torch.uint16
@@ -277,3 +283,33 @@ def test_windowed_relax_kernel_per_stream(cuda):
     alpha0 = (np.round(rng.rand(B, s_pad) * 8) / 8).astype(np.float32)
     _, bp = assert_relax_bit_exact((dbase, sbase, idx, w, arc), 4, B, s_pad, cuda, alpha0)
     assert not torch.equal(bp[:, 0], bp[:, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", windowed_relax_cuda.CLUSTER_SIZES)
+@pytest.mark.parametrize("s_pad,nstep,B", [(1024, 100, 13), (14208, 300, 5)])
+def test_windowed_relax_kernel_every_cluster_size(cuda, cluster, s_pad, nstep, B):
+    """Each cluster size at a batch that is no multiple of it (the last
+    cluster has CTAs without a stream), with initial alphas that differ per
+    stream, many exact ties and a ring that wraps many times a frame."""
+    dbase, sbase, idx, w, arc = make_step_tables(nstep, s_pad, seed=3)
+    w = (np.round(w * 4) / 4).astype(np.float32)
+    arc = (arc % 300).astype(np.int32)
+    alpha0 = (np.round(np.random.RandomState(4).rand(B, s_pad) * 8) / 8).astype(np.float32)
+    _, bp = assert_relax_bit_exact((dbase, sbase, idx, w, arc), 5, B, s_pad, cuda, alpha0,
+                                   cluster=cluster)
+    assert not torch.equal(bp[:, 0], bp[:, B - 1])
+
+
+@pytest.mark.cuda
+def test_windowed_relax_kernel_refuses_what_it_cannot_run(cuda):
+    """Per-stream tables in a cluster, and an s_pad whose alpha leaves no
+    room for the ring: errors, not another path."""
+    per = [make_step_tables(10, 256, seed=i) for i in range(2)]
+    steps = prepare_steps(*(torch.as_tensor(np.stack(x), device=cuda) for x in zip(*per)), 256)
+    with pytest.raises(ValueError, match="cluster size"):
+        windowed_relax_cuda.launch(steps, 2, 2, None, 2)
+    big = prepare_steps(*(torch.as_tensor(x, device=cuda) for x in make_step_tables(10, 16768)),
+                        16768)
+    with pytest.raises(ValueError, match="shared memory"):
+        windowed_relax(big, 2, 2)

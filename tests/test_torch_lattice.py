@@ -43,7 +43,7 @@ def _setup(name="unfolded", seed=61, B=2, T=10):
 
 def _both(fn_j, fn_t, g, lp, scale=1.0):
     ref = [np.asarray(x) for x in fn_j(jd.make_decode_graph(g), jnp.asarray(lp), scale)]
-    got = [x.numpy() for x in fn_t(td.DecodeGraph.from_dense(g), torch.as_tensor(lp), scale)]
+    got = [x.numpy() for x in fn_t(td.DecodeGraph.from_dense(g, "cpu"), torch.as_tensor(lp), scale)]
     return ref, got
 
 
@@ -51,7 +51,7 @@ def _both(fn_j, fn_t, g, lp, scale=1.0):
 @pytest.mark.parametrize("scale", [1.0, 0.3])
 def test_forward_backward_bit_exact(name, scale):
     g, lp = _setup(name, B=3, T=9)
-    assert td.DecodeGraph.from_dense(g).folded == (name != "unfolded")
+    assert td.DecodeGraph.from_dense(g, "cpu").folded == (name != "unfolded")
     (ra, rb), (ga, gb) = _both(jl.forward_backward, tl.forward_backward, g, lp, scale)
     assert ga.shape == (10, 3, g.num_states) and ga.dtype == np.float32
     np.testing.assert_array_equal(ga, ra)
@@ -92,7 +92,7 @@ def test_copied_lattice_equals_original(beam):
 
 def test_lattice_best_path_matches_viterbi():
     g, lp = _setup()
-    tg = td.DecodeGraph.from_dense(g)
+    tg = td.DecodeGraph.from_dense(g, "cpu")
     alphas, betas = (x.numpy() for x in tl.forward_backward(tg, torch.as_tensor(lp)))
     plain = [x.numpy() for x in td.viterbi_decode(tg, torch.as_tensor(lp))]
     for b in range(lp.shape[0]):

@@ -123,7 +123,7 @@ def test_twiddle_table():
     "cfg", [FrontendConfig(), FrontendConfig(num_mel_bins=23, low_freq=64.0, high_freq=-200.0)]
 )
 def test_mel_bands_rebuild_the_dense_matrix(cfg):
-    dense = make_frontend_params(cfg).mel_weights.numpy()
+    dense = make_frontend_params(cfg, "cpu").mel_weights.numpy()
     ptr, first, vals = mel_bands(dense)
     rebuilt = np.zeros_like(dense)
     for m in range(cfg.num_mel_bins):
@@ -140,7 +140,7 @@ def test_mel_bands_rebuild_the_dense_matrix(cfg):
 def test_kernel_tables_come_from_the_params():
     """The kernel's mel bands are cut from the same ``mel_weights`` the
     plain version multiplies by, and are made once per params."""
-    params = make_frontend_params(FrontendConfig())
+    params = make_frontend_params(FrontendConfig(), "cpu")
     mel = params.mel_weights.clone()
     mel[:, 3] *= 2.0
     other = dataclasses.replace(params, mel_weights=mel, kernel_cache={})

@@ -27,7 +27,7 @@ def _compare(spec, n_out, sub, ivec_dim=0, seed=0):
     assert plan.ranges == jm.ranges
     assert [n.name for n in plan.order] == [n.name for n in jm.order]
     tm = tn.CompiledNnet3(plan, tn.params_from_numpy(
-        {k: {p: np.asarray(v) for p, v in d.items()} for k, d in jm.params.items()}
+        {k: {p: np.asarray(v) for p, v in d.items()} for k, d in jm.params.items()}, "cpu"
     ))
     rng = np.random.RandomState(seed)
     feats = rng.randn(2, jm.num_input_frames, spec.input_dim).astype(np.float32)
@@ -37,7 +37,7 @@ def _compare(spec, n_out, sub, ivec_dim=0, seed=0):
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
     # the port's own parameter extraction matches the carried-over one
-    own = tn.compile_nnet3(spec, n_out, subsampling=sub)(
+    own = tn.compile_nnet3(spec, n_out, subsampling=sub, device="cpu")(
         torch.as_tensor(feats), None if ivec is None else torch.as_tensor(ivec)
     ).numpy()
     np.testing.assert_array_equal(own, got)

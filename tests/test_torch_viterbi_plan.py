@@ -144,7 +144,7 @@ def emulate_kernel(graph, plan, lp, scale, lengths):
 
 @pytest.mark.parametrize("cluster", CLUSTER_SIZES)
 def test_slices_partition_the_arcs(cluster):
-    g = DecodeGraph.from_dense(random_decode_graph(np.random.RandomState(3), 500, 900, 40))
+    g = DecodeGraph.from_dense(random_decode_graph(np.random.RandomState(3), 500, 900, 40), "cpu")
     plan = plan_viterbi(g, cluster)
     bounds = plan.slice_state.numpy()
     in_ptr = g.in_ptr.numpy()
@@ -171,7 +171,7 @@ def test_slices_partition_the_arcs(cluster):
 
 def test_tables_keep_ascending_arc_ids_and_narrow_exactly():
     dense = hubby_graph(0)
-    g = DecodeGraph.from_dense(dense)
+    g = DecodeGraph.from_dense(dense, "cpu")
     tab = plan_viterbi(g, 2).tables
     in_ptr = g.in_ptr.numpy()
     word = tab.in_sw.numpy()[:, 0].view(np.uint32).astype(np.int64)
@@ -183,7 +183,7 @@ def test_tables_keep_ascending_arc_ids_and_narrow_exactly():
     np.testing.assert_array_equal(tab.in_sw.numpy()[:, 1].view(np.float32), g.in_weight.numpy())
     np.testing.assert_array_equal(u16(tab.arc_src), dense.arc_src)
     np.testing.assert_array_equal(u16(tab.src_pdf), g.src_pdf.numpy())
-    bad = DecodeGraph.from_dense(dense)
+    bad = DecodeGraph.from_dense(dense, "cpu")
     bad.in_arc[[0, 1]] = bad.in_arc[[1, 0]].clone()
     if bad.in_ptr[1] >= 2:
         with pytest.raises(ValueError, match="ascending"):
@@ -194,7 +194,7 @@ def test_deployment_size_graph_fits_shared_memory():
     """14,200 states / 38,400 arcs: alpha (2 x 56.8 KB) and a slice's tables
     fit one block's 227 KB at C = 4 and C = 8; with one block per SM on 132
     SMs, B = 32 takes C = 4 (one wave of 128 CTAs), B = 1 takes C = 8."""
-    g = DecodeGraph.from_dense(random_decode_graph(np.random.RandomState(1)))
+    g = DecodeGraph.from_dense(random_decode_graph(np.random.RandomState(1)), "cpu")
     assert (g.num_states, g.num_arcs) == (14200, 38400)
     for c in (4, 8):
         plan = plan_viterbi(g, c)
@@ -207,13 +207,13 @@ def test_deployment_size_graph_fits_shared_memory():
     assert (plan32.cluster, resident32, plan1.cluster, resident1) == (4, True, 8, True)
     with pytest.raises(ValueError, match="shared memory"):
         choose_cluster(DecodeGraph.from_dense(random_decode_graph(
-            np.random.RandomState(2), 40000, 10, 40, hubs=0)), 1, H100_MAX_SMEM, h100_clusters)
+            np.random.RandomState(2), 40000, 10, 40, hubs=0), "cpu"), 1, H100_MAX_SMEM, h100_clusters)
 
 
 @pytest.mark.parametrize("cluster", CLUSTER_SIZES)
 def test_sliced_relaxation_emulation_equals_plain(cluster):
     dense = hubby_graph(5)
-    g = DecodeGraph.from_dense(dense)
+    g = DecodeGraph.from_dense(dense, "cpu")
     plan = plan_viterbi(g, cluster)
     assert plan.group_ptr[-1] >= 1 and plan.hub_ptr[-1] >= 1  # every path runs
     rng = np.random.RandomState(6)

@@ -164,12 +164,14 @@ def test_wrapper_runs_plain_version_on_cpu():
     ("dbase", 1, "multiples of 128"),
     ("sbase", 256, "below s_pad"),
     ("idx", 128, r"\[0, 128\)"),
+    ("arc", -1, r"arc in \[0, 33554432\)"),
+    ("arc", 1 << 25, r"arc in \[0, 33554432\)"),
     ("w", None, "must be"),
 ])
 def test_prepare_steps_rejects_bad_tables(which, value, match):
     """Tables are checked once, before any launch: block bases off the
-    128 grid or past s_pad, lane indices past 128, and shapes that do not
-    match."""
+    128 grid or past s_pad, lane indices past 128, arc ids that do not fit
+    the 25 bits beside a lane index, and shapes that do not match."""
     tables = dict(zip(("dbase", "sbase", "idx", "w", "arc"),
                       (torch.as_tensor(x) for x in windowed_cost.make_step_tables(4, 256))))
     if value is None:
