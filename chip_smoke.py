@@ -48,7 +48,38 @@ three hand-written kernels against their plain PyTorch twins:
    shape and at a batch (13) that no cluster size divides; timed once more
    with indices that cause no shared-memory bank conflicts; and bit-equal
    again on small tables and initial alphas that differ per stream;
-10. checks that no module of ``jax`` or ``rhasspy_speech_tpu`` was imported
+10. the big-graph decoders: trains a generated template grammar
+   (``testing/big_grammar.py``, more than 7,000 states) against a full-width
+   model, transcribes the 32 utterances with ``decode_memory_budget`` values
+   that route to the checkpointed decoder (1-best; transcripts and costs
+   equal to the dense run's) and to the frontier decoder (n-best; at a
+   batch of 32 the budget leaves a few hundred of the graph's states a
+   frame, a beam search: held bit-equal to the same decode on CPU tensors
+   never cheaper than the dense decode, and at least 12 of the 32 must
+   reach a final state; with n-best 12 on 4 utterances a call the same
+   rule leaves every state, and each top hypothesis, its cost and the
+   transcript equal the dense run's). On seeded log-probs ``viterbi_decode_checkpointed`` is
+   bit-equal to the Viterbi kernel, ``viterbi_topk`` with K = S equals the
+   dense decode by both dedup strategies, and a seeded graph of 40,000
+   states (past the kernel's shared memory, where the kernel raises)
+   decodes through the transcriber in ``select_decoder``'s "scan" mode, the
+   per-frame scan, equal to the checkpointed result and to the same decode on CPU tensors. Each decoder
+   is timed at B=32 with CUDA events;
+11. streaming: 8 utterances streamed in 1,024-sample chunks through
+   ``Nnet3StreamTranscriber`` (one with ``silence_weight``, one with
+   ``nbest=3``, two through ``async_transcribe``), the launch counters
+   showing one MFCC launch a push and one Viterbi launch a chunk; streamed
+   feature rows bit-equal to the batch rows; transcripts equal to the same
+   streams on CPU tensors, and, for a copy of the model without its
+   i-vector extractor, to ``transcribe_pcm_batch`` (with the extractor the
+   stream's i-vector is the online estimate from the chunks so far and the
+   batch's the whole utterance's, so on noise through a random model their
+   transcripts may differ: at least 6 of the 8 must agree, and the count
+   is printed); the Viterbi kernel with a
+   carried alpha against ``viterbi(alpha0=...)`` bit for bit at T=7, B=1 and
+   B=32 on both graphs; a chunk's milliseconds stage by stage and the
+   stream's real-time factor;
+12. checks that no module of ``jax`` or ``rhasspy_speech_tpu`` was imported
    (the card's machine has JAX installed; the port must not reach it).
 
 Each kernel's entry in the ``kernels`` line carries ``bound_ms``, the least
@@ -63,8 +94,10 @@ Run from the repository root: ``python3 chip_smoke.py``. The last line is
 Without a CUDA device it exits 2 before printing any result.
 """
 
+import asyncio
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -80,8 +113,12 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from rhasspy_speech_torch import Nnet3WavTranscriber  # noqa: E402
+from rhasspy_speech_torch import Nnet3StreamTranscriber, Nnet3WavTranscriber  # noqa: E402
 from rhasspy_speech_torch.pipeline.artifacts import LangArtifacts  # noqa: E402
+from rhasspy_speech_torch.testing.big_grammar import (  # noqa: E402
+    train_big_grammar,
+    write_big_grammar_model_dir,
+)
 from rhasspy_speech_torch.testing.decode_graphs import random_decode_graph  # noqa: E402
 from rhasspy_speech_torch.testing.flagship import (  # noqa: E402
     build_flagship_graph,
@@ -89,6 +126,7 @@ from rhasspy_speech_torch.testing.flagship import (  # noqa: E402
 )
 from rhasspy_speech_torch.ops import _build  # noqa: E402
 from rhasspy_speech_torch.ops import decoder as twin_decoder  # noqa: E402
+from rhasspy_speech_torch.ops import frontier  # noqa: E402
 from rhasspy_speech_torch.ops import windowed_relax_cuda as k3  # noqa: E402
 from rhasspy_speech_torch.examples import windowed_cost  # noqa: E402
 from rhasspy_speech_torch.ops.frontend import mfcc_batch_torch  # noqa: E402
@@ -98,6 +136,7 @@ from rhasspy_speech_torch.ops.mfcc_cuda import mel_bands, mfcc_batch  # noqa: E4
 from rhasspy_speech_torch.ops.viterbi_cuda import (  # noqa: E402
     CLUSTER_SIZES,
     MAX_SLICE_STATES,
+    kernel_states,
     launch,
     max_clusters,
     plan_viterbi,
@@ -123,6 +162,15 @@ NBEST = 5
 SILENCE_WEIGHT = 0.01
 CONF_ATOL = 1e-2
 LATTICE_BEAM = 4.0
+FRONTIER_NBEST = 3
+FRONTIER_MIN_FINISHED = 12  # of 32 utterances whose beam must reach a final state
+FRONTIER_EXACT_BATCH = 4  # utterances a call in the exact (K = S) frontier run
+STREAMS_MIN_EQUAL = 6  # of 8 streamed transcripts that must equal the batch's
+PAST_KERNEL_STATES = 40000  # alpha's two buffers exceed an SM's shared memory
+STREAMS = 8
+STREAM_CHUNK = 1024  # samples a push
+STREAM_NBEST = 3
+CHUNK_FRAMES = 7
 KERNELS = ("mfcc", "viterbi", "windowed_relax")
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM, 700 W
 
@@ -138,6 +186,26 @@ def cuda_ms(fn, iters=10):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, iters=20):
+    """Mean milliseconds of device time per call for a call so short that
+    the host cannot launch it as fast as the card runs it: the calls are
+    queued behind a long matrix product, so the events around them time the
+    card alone."""
+    fn()
+    blocker = torch.empty((8192, 8192), device="cuda")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    for _ in range(2):  # tens of milliseconds of f32 matmul
+        torch.mm(blocker, blocker)
     start.record()
     for _ in range(iters):
         fn()
@@ -529,6 +597,381 @@ def windowed_relax_phase(dev):
     return launches, err, out["ms"], plain_ms, k3_bound
 
 
+def hyps_text_and_cost(t, hyps):
+    """[(transcript, cost)] of each utterance's best hypothesis (None
+    where the decode found no complete path)."""
+    return [None if not h else (t._ids_to_text(h[0][0]), h[0][1]) for h in hyps]
+
+
+def big_graph_phase(root, dev, pcms):
+    """The checkpointed and frontier decoders and the dense branch past the
+    kernel's reach, on a generated grammar of deployment size."""
+    t0 = time.time()
+    model_dir = write_big_grammar_model_dir(
+        os.path.join(root, "big_model"), num_pdfs=NUM_PDFS, hidden_dim=HIDDEN,
+        num_tdnnf_layers=LAYERS, ivector_dim=IVEC_DIM, ubm_gauss=UBM_GAUSS, seed=SEED + 7)
+    graph_dir = train_big_grammar(os.path.join(root, "big_train"), model_dir, seed=SEED)
+    dense_t = Nnet3WavTranscriber(model_dir, graph_dir, device=dev)
+    g = dense_t.artifacts.graph
+    S, A = g.num_states, g.num_arcs
+    print(f"generated grammar: {S} states, {A} arcs, {int(g.arc_pdf.max()) + 1} pdfs read of "
+          f"{NUM_PDFS}, max out-degree {dense_t._graph_out_degree()}; model and graph built in "
+          f"{time.time() - t0:.1f} s")
+    check(S > 7000, f"the generated grammar compiled to {S} states, expected more than 7,000")
+    check(S <= kernel_states(dev), "the generated graph should be within K2's reach")
+
+    log_probs, lengths = dense_t._acoustic_batch(pcms)
+    N = log_probs.shape[1]
+
+    def run(t, nbest):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        texts = t.transcribe_pcm_batch(pcms, nbest=nbest)
+        torch.cuda.synchronize()
+        return texts, (time.time() - t0) * 1000.0, read_counts(), t.last_decode_plan
+
+    # -- dense (K2), then checkpointed by a budget one dense stream exceeds --
+    dense_texts, dense_ms, counts, plan = run(dense_t, 1)
+    check(plan[0] == "dense" and counts["viterbi"] > 0, f"dense run: plan {plan}, launches {counts}")
+    dense_best = hyps_text_and_cost(dense_t, dense_t._decode_batch(pcms, 1))
+    check(all(h is not None for h in dense_best), "dense decode found no path for an utterance")
+    ckpt_t = Nnet3WavTranscriber(model_dir, graph_dir, device=dev,
+                                 decode_memory_budget=N * S * 2 - 1)
+    ckpt_texts, ckpt_ms, counts, plan = run(ckpt_t, 1)
+    check(plan[0] == "checkpointed", f"expected the checkpointed decoder, got {plan}")
+    check(counts["viterbi"] == 0, f"the checkpointed route launched K2: {counts}")
+    check(ckpt_texts == dense_texts, "checkpointed transcripts differ from the dense run's")
+    ckpt_best = hyps_text_and_cost(ckpt_t, ckpt_t._decode_batch(pcms, 1))
+    check(ckpt_best == dense_best, "checkpointed words or costs differ from the dense run's")
+    print(f"checkpointed route (sub-batches of {plan[1]}): {BATCH} x {SECONDS} s in {ckpt_ms:.1f} ms "
+          f"(dense route {dense_ms:.1f} ms); transcripts and costs equal the dense run's; "
+          f"first: {ckpt_texts[0]}")
+
+    # -- frontier (n-best) at the batch: a beam of K states a frame ---------
+    k = FRONTIER_NBEST
+    budget = N * S * k * 4 + A * k * 4 - 1  # one dense k-best stream exceeds it
+    front_t = Nnet3WavTranscriber(model_dir, graph_dir, device=dev, decode_memory_budget=budget,
+                                  max_active=10**6)
+    front_texts, front_ms, counts, plan = run(front_t, k)
+    check(plan[0] == "frontier", f"expected the frontier decoder, got {plan}")
+    K = plan[1]
+    check(len(front_texts) == BATCH, "frontier route: one n-best list per utterance")
+    hyps = front_t._decode_frontier(log_probs, lengths, k, K)
+    kw = dict(acoustic_scale=front_t.acoustic_scale, scratch_bytes=budget, beam=front_t.beam,
+              min_active=front_t.min_active)
+    tri = frontier.viterbi_topk_cached(front_t._frontier_graph, log_probs[:4], K,
+                                       lengths=lengths[:4], **kw)
+    tri_cpu = frontier.viterbi_topk_cached(
+        frontier.FrontierGraph.from_dense(g, "cpu"), log_probs[:4].cpu(), K,
+        lengths=lengths[:4].cpu(), **kw)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(tri, tri_cpu)),
+          "frontier decode (states, alphas, arcs) differs between the card and CPU tensors")
+    found = [(h[0][1], d[1]) for h, d in zip(hyps, dense_best) if h]
+    check(all(np.float32(c) >= np.float32(d) for c, d in found),
+          "a frontier hypothesis is cheaper than the exact decode's")
+    check(len(found) >= FRONTIER_MIN_FINISHED,
+          f"only {len(found)} of {BATCH} frontier decodes (K={K}) reach a final state, expected "
+          f"at least {FRONTIER_MIN_FINISHED}")
+    regret = [c - d for c, d in found]
+    print(f"frontier route (K={K} of {S} states, beam {front_t.beam}, n-best {k}): {BATCH} x "
+          f"{SECONDS} s in {front_ms:.1f} ms; states, alphas and arcs bit-equal to CPU tensors on 4 "
+          f"utterances; "
+          f"{len(found)} of {BATCH} utterances end in a final state, {sum(r <= 0 for r in regret)} "
+          f"at the exact cost, mean regret {float(np.mean(regret)) if regret else 0.0:.3f}")
+
+    # with n-best >= 3 x the batch the same rule leaves every state (K = S):
+    # the frontier route is then exact, held to the dense k-best's best
+    # hypothesis (words, cost) and transcript, several utterances a call
+    eb = FRONTIER_EXACT_BATCH
+    ek = 3 * eb
+    exact_t = Nnet3WavTranscriber(
+        model_dir, graph_dir, device=dev, max_active=10**6, beam=float("inf"),
+        decode_memory_budget=N * S * ek * 4 + A * ek * 4 - 1)
+    want = dense_t._decode_batch(pcms[:eb], ek)
+    check(dense_t.last_decode_plan[0] == "dense", f"dense k-best plan {dense_t.last_decode_plan}")
+    got = exact_t._decode_batch(pcms[:eb], ek)
+    check(exact_t.last_decode_plan == ("frontier", S),
+          f"exact frontier plan {exact_t.last_decode_plan}, expected K = {S}")
+    for i in range(eb):
+        check(bool(got[i]) and got[i][0] == want[i][0],
+              f"frontier (K = S) top hypothesis {got[i][:1]} differs from the dense k-best's "
+              f"{want[i][:1]} (utterance {i})")
+    exact_texts = exact_t.transcribe_pcm_batch(pcms[:eb], nbest=ek)
+    dense_k_texts = dense_t.transcribe_pcm_batch(pcms[:eb], nbest=ek)
+    check([x[0] for x in exact_texts] == [x[0] for x in dense_k_texts],
+          "frontier (K = S) transcripts differ from the dense run's")
+    check([x[0] for x in exact_texts] == [x[0] for x in dense_texts[:eb]],
+          "frontier (K = S) transcripts differ from the dense 1-best run's")
+    print(f"frontier route, {eb} utterances a call, n-best {ek} (K = S = {S}): top hypothesis, "
+          f"its cost and the transcript equal the dense k-best's on all {eb}")
+
+    # -- the decoders on seeded log-probs, against K2 and the dense decode --
+    dg = dense_t.device_graph
+    rng = np.random.RandomState(SEED + 3)
+    lp = torch.as_tensor(rng.randn(BATCH, N, NUM_PDFS).astype(np.float32), device=dev)
+    lens = torch.as_tensor(rng.randint(N // 2, N + 1, size=BATCH), dtype=torch.int32, device=dev)
+    k2 = [x.cpu().numpy() for x in viterbi_decode(dg, lp, 1.0, lens)]
+    ck = twin_decoder.viterbi_decode_checkpointed(dg, lp, 1.0, lengths=lens)
+    check(all(np.array_equal(a, b) for a, b in zip(ck, k2)),
+          "viterbi_decode_checkpointed differs from the Viterbi kernel")
+    fg = frontier.FrontierGraph.from_dense(g, dev, base=dg)
+    for name, scratch in (("dense dedup", 2 << 30), ("sort dedup", 0)):
+        tri = [x.cpu().numpy() for x in frontier.viterbi_topk(
+            fg, lp[:2], S, 1.0, lens[:2], scratch_bytes=scratch)]
+        for b in range(2):
+            want = twin_decoder.trace_to_words(g, *k2, b)
+            got = frontier.topk_backtrace(g, *tri, b)
+            check(got[0] == want[0] and np.float32(got[1]) == np.float32(want[1]),
+                  f"viterbi_topk (K = S, {name}) differs from the dense decode on stream {b}")
+    ms = {
+        "K2": cuda_ms(lambda: viterbi_decode(dg, lp, 1.0, lens), iters=5),
+        "plain scan": cuda_ms(lambda: twin_decoder.viterbi_decode(dg, lp, 1.0, lens), iters=2),
+        "checkpointed": cuda_ms(
+            lambda: twin_decoder.viterbi_decode_checkpointed(dg, lp, 1.0, lengths=lens), iters=2),
+        f"frontier K={K} dense dedup": cuda_ms(lambda: frontier.viterbi_topk(
+            fg, lp, K, 1.0, lens, beam=24.0, min_active=200), iters=2),
+        f"frontier K={K} sort dedup": cuda_ms(lambda: frontier.viterbi_topk(
+            fg, lp, K, 1.0, lens, scratch_bytes=0, beam=24.0, min_active=200), iters=2),
+        f"frontier K=S={S} B=1 dense dedup": cuda_ms(lambda: frontier.viterbi_topk(
+            fg, lp[:1], S, 1.0, lens[:1]), iters=1),
+    }
+    print(f"decoders on seeded log-probs {tuple(lp.shape)}, {S} states: checkpointed bit-equal to "
+          f"K2; viterbi_topk (K = S) equal to the dense decode by both dedups; ms at B={BATCH} "
+          f"(CUDA events): { {n: round(v, 3) for n, v in ms.items()} }")
+    del lp, fg, dense_t, ckpt_t, front_t, exact_t
+
+    # -- a graph past K2's shared memory: select_decoder names the scan -----
+    dense40 = random_decode_graph(np.random.RandomState(SEED + 4), PAST_KERNEL_STATES,
+                                  num_pdfs=NUM_PDFS)
+    dir40 = os.path.join(root, "graph_past_kernel")
+    LangArtifacts(words=LangArtifacts.load(graph_dir).words, graph=dense40).save(dir40)
+    t40 = Nnet3WavTranscriber(model_dir, dir40, device=dev)
+    check(PAST_KERNEL_STATES > kernel_states(dev),
+          f"{PAST_KERNEL_STATES} states should be past the Viterbi kernel's shared memory")
+    lp = torch.as_tensor(rng.randn(BATCH, N, NUM_PDFS).astype(np.float32), device=dev)
+    try:
+        viterbi_decode(t40.device_graph, lp[:1], t40.acoustic_scale, lens[:1])
+    except ValueError as e:
+        check("shared memory" in str(e), f"K2 past its reach raised another error: {e}")
+    else:
+        check(False, "K2 should raise on a graph past its shared memory")
+    zero_counts()
+    got = t40._decode_traces(lp, lens)
+    torch.cuda.synchronize()
+    check(t40.last_decode_plan == ("scan", BATCH) and read_counts()["viterbi"] == 0,
+          f"past the kernel's reach the plan is the scan: {t40.last_decode_plan}")
+    ck = twin_decoder.viterbi_decode_checkpointed(t40.device_graph, lp, t40.acoustic_scale,
+                                                  lengths=lens)
+    check(all(np.array_equal(a, b) for a, b in zip(got, ck)),
+          "the scan differs from the checkpointed decode on the 40,000-state graph")
+    g40_cpu = twin_decoder.DecodeGraph.from_dense(dense40, "cpu")
+    cpu = twin_decoder.viterbi_decode(g40_cpu, lp[:4].cpu(), t40.acoustic_scale, lens[:4].cpu())
+    check(all(np.array_equal(a[:4], b.numpy()) for a, b in zip(got, cpu)),
+          "the scan differs between the card and CPU tensors")
+    scan_ms = cuda_ms(lambda: twin_decoder.viterbi_decode(
+        t40.device_graph, lp, t40.acoustic_scale, lens), iters=2)
+    print(f"graph past K2's reach ({dense40.num_states} states, {dense40.num_arcs} arcs; the kernel "
+          f"holds {kernel_states(dev)} and raises): select_decoder's \"scan\" mode decoded "
+          f"{tuple(lp.shape)} by the per-frame scan, equal to the checkpointed decode and to CPU "
+          f"tensors (4 streams); scan {scan_ms:.3f} ms (CUDA events)")
+
+
+def carried_alpha_phase(t, lp_k, lengths, dev):
+    """K2 with a carried alpha against ``viterbi(alpha0=...)``, bit for bit
+    (alpha and backpointers), at T=7, B=1 and B=32 on the flagship graph and
+    on the 14,200-state graph; the alpha is one a decode of 20 earlier
+    frames left. Returns the numbers of the stream chunk's shape (flagship
+    graph, B=1)."""
+    big = twin_decoder.DecodeGraph.from_dense(
+        random_decode_graph(np.random.RandomState(SEED + 1), num_pdfs=NUM_PDFS), dev)
+    lp_big = torch.as_tensor(
+        np.random.RandomState(SEED + 5).randn(BATCH, 27, NUM_PDFS).astype(np.float32), device=dev)
+    out = {}
+    for name, g, lp, scale in (("flagship", t.device_graph, lp_k, t.acoustic_scale),
+                               ("14200", big, lp_big, 1.0)):
+        compact = g.num_arcs <= twin_decoder._COMPACT_BP_MAX_ARC
+        for B in (1, BATCH):
+            alpha0 = viterbi_decode(g, lp[:B, :20].contiguous(), scale, return_forward=True)[3]
+            chunk = lp[:B, 20 : 20 + CHUNK_FRAMES].contiguous()
+            lens = torch.full((B,), CHUNK_FRAMES, dtype=torch.int32, device=dev)
+            if B > 1:
+                lens[1::3] = 2
+                lens[2::5] = 0
+            got = viterbi_decode(g, chunk, scale, lens, return_forward=True, alpha0=alpha0)
+            want = twin_decoder.viterbi(g, chunk, scale, lens, compact_bp=compact, alpha0=alpha0)
+            torch.cuda.synchronize()
+            check(decode_outputs_equal(got[3:], want),
+                  f"K2 with a carried alpha differs from viterbi(alpha0=...) ({name} graph, B={B})")
+            check(not torch.equal(got[3], alpha0), "the chunk should move alpha")
+            def call():
+                return viterbi_decode(g, chunk, scale, lens, return_forward=True, alpha0=alpha0)
+
+            ms, call_ms = device_ms(call), cuda_ms(call, iters=20)
+            plain_ms = cuda_ms(lambda: twin_decoder.viterbi(
+                g, chunk, scale, lens, compact_bp=compact, alpha0=alpha0), iters=3)
+            nbytes, nops = viterbi_work(g, B, CHUNK_FRAMES, chunk.shape[2], lens)
+            bound_ms, bound_by = bound(nbytes + 4 * B * g.num_states, nops)  # + the alpha read
+            plan, _ = select_plan(g, B)
+            print(f"K2 carried alpha {tuple(chunk.shape)} on {name} graph ({g.num_states} states): "
+                  f"bit-exact (alpha, bps); cluster {plan.cluster}; kernel {ms:.4f} ms of device "
+                  f"time (queued behind other work; {call_ms:.4f} ms a call launched back to back, "
+                  f"the host's rate), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+            out[(name, B)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by,
+                              "max_abs_err": float((got[3] - want[0]).abs().max())}
+    return out[("flagship", 1)]
+
+
+def timed_stage(fn, seconds, name):
+    """``fn`` wrapped to add its host-clock seconds, ended by a device
+    synchronize, to ``seconds[name]``."""
+    def wrapper(*args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + (time.perf_counter() - t0)
+        return out
+
+    return wrapper
+
+
+def stream_pcm(st, pcm, **kwargs):
+    """One utterance through start_stream / process_chunk / finish_stream;
+    returns (texts, state, pushes)."""
+    state = st.start_stream()
+    pushes = 0
+    for off in range(0, pcm.shape[0], STREAM_CHUNK):
+        st.process_chunk(state, pcm[off : off + STREAM_CHUNK])
+        pushes += 1
+    return st.finish_stream(state, **kwargs), state, pushes
+
+
+async def _audio(pcm):
+    data = np.clip(pcm, -32768, 32767).astype(np.int16)
+    for off in range(0, data.shape[0], STREAM_CHUNK):
+        yield data[off : off + STREAM_CHUNK].tobytes()
+
+
+def stream_phase(root, model_dir, graph_dir, t, dev, pcms, fuzzy):
+    """Single-stream streaming at full width; returns the launch counts of
+    one streamed utterance and the push shape's K1 numbers."""
+    utts = pcms[:STREAMS]
+    st = Nnet3StreamTranscriber(model_dir, graph_dir, device=dev)
+    check(st.chunk_decoder == "dense", "the stream's chunks should decode on the Viterbi kernel")
+    stream_pcm(st, utts[0], **fuzzy)  # warm-up: the chunk plan's first calls
+
+    # -- one utterance, counted: one K1 launch a push, one K2 launch a chunk --
+    zero_counts()
+    texts0, state, pushes = stream_pcm(st, utts[0], **fuzzy)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    chunks = -(-state.feats.shape[0] // st._chunk_in)
+    check(counts["mfcc"] == pushes and counts["viterbi"] == chunks == len(state.bps),
+          f"stream launches {counts}: expected {pushes} MFCC (one a push) and {chunks} Viterbi "
+          f"(one a chunk)")
+    batch_rows = t.am.features(torch.as_tensor(utts[0][None], device=dev))[0]
+    check(torch.equal(torch.as_tensor(state.feats, device=dev), batch_rows),
+          "streamed feature rows differ from the batch rows")
+    print(f"stream: {SECONDS} s in {STREAM_CHUNK}-sample pushes: launches {counts} for {pushes} "
+          f"pushes and {chunks} chunks; {state.feats.shape[0]} streamed feature rows bit-equal to "
+          f"the batch rows; {texts0}")
+
+    # -- 8 utterances: plain, silence_weight, nbest, async --------------------
+    st_sil = Nnet3StreamTranscriber(model_dir, graph_dir, device=dev, silence_weight=SILENCE_WEIGHT)
+    st_nbest = Nnet3StreamTranscriber(model_dir, graph_dir, device=dev, nbest=STREAM_NBEST)
+    streamed = []
+    for i, pcm in enumerate(utts):
+        if i == 1:
+            streamed.append(stream_pcm(st_sil, pcm, **fuzzy)[0])
+        elif i == 2:
+            streamed.append(stream_pcm(st_nbest, pcm, **fuzzy)[0])
+        elif i in (3, 4):
+            streamed.append(asyncio.run(st.async_transcribe(_audio(pcm), **fuzzy)))
+        else:
+            streamed.append(st.transcribe_pcm(pcm, chunk_samples=STREAM_CHUNK, **fuzzy))
+    check(all(len(x) == 1 for x in streamed), f"expected one transcript a stream, got {streamed}")
+    check(streamed[0] == texts0, "the same stream transcribed twice differs")
+    batch_texts = t.transcribe_pcm_batch(utts, **fuzzy)
+    same = sum(a == b for a, b in zip(streamed, batch_texts))
+    check(same >= STREAMS_MIN_EQUAL,
+          f"only {same} of {STREAMS} streamed transcripts equal the batch's, expected at least "
+          f"{STREAMS_MIN_EQUAL}: {streamed} vs {batch_texts}")
+    stc = Nnet3StreamTranscriber(model_dir, graph_dir, device="cpu")
+    for i in (0, 5):
+        check(stc.transcribe_pcm(utts[i], chunk_samples=STREAM_CHUNK, **fuzzy) == streamed[i],
+              f"stream {i} transcribed differently on CPU tensors")
+    print(f"streams: {STREAMS} x {SECONDS} s (1 with silence_weight={SILENCE_WEIGHT}, 1 with "
+          f"nbest={STREAM_NBEST}, 2 through async_transcribe): one transcript each; 2 equal to "
+          f"the same streams on CPU tensors; {same} of {STREAMS} equal to the batch transcripts "
+          f"(online against whole-utterance i-vectors)")
+
+    # without the extractor both paths read a zero i-vector: the stream must
+    # equal the batch
+    bare = os.path.join(root, "model_no_extractor")
+    os.makedirs(bare)
+    os.symlink(os.path.join(model_dir, "model"), os.path.join(bare, "model"))
+    shutil.copy(os.path.join(model_dir, "config.json"), bare)
+    st_bare = Nnet3StreamTranscriber(bare, graph_dir, device=dev)
+    t_bare = Nnet3WavTranscriber(bare, graph_dir, device=dev)
+    check(st_bare.am.ivector_params is None, "the bare model dir should carry no extractor")
+    want = t_bare.transcribe_pcm_batch(utts, **fuzzy)
+    got = [st_bare.transcribe_pcm(p, chunk_samples=STREAM_CHUNK, **fuzzy) for p in utts]
+    check(got == want, f"streamed transcripts differ from the batch transcripts: {got} vs {want}")
+    print(f"streams without the extractor: {STREAMS} streamed transcripts equal "
+          f"transcribe_pcm_batch's; first: {got[0]}")
+    del st_bare, t_bare, st_sil, st_nbest, stc
+
+    # -- what a chunk costs, stage by stage; the stream's real-time factor ----
+    stage_s = {}
+    stage_names = ("_upload", "_fold_ivector", "_acoustic", "_decode_chunk", "_download")
+    for name in stage_names:
+        setattr(st, name, timed_stage(getattr(st, name), stage_s, name.lstrip("_")))
+    _texts, state, pushes = stream_pcm(st, utts[5], **fuzzy)
+    for name in stage_names:
+        delattr(st, name)  # back to the class's methods
+    check(_texts == streamed[5], "the stream timed stage by stage transcribed differently")
+    stages = {k: round(v * 1000.0 / len(state.bps), 4) for k, v in stage_s.items()}
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st.transcribe_pcm(utts[5], chunk_samples=STREAM_CHUNK, **fuzzy)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fs = st._featurizer.new_state()
+    for off in range(0, utts[5].shape[0], STREAM_CHUNK):
+        st._featurizer.push(fs, utts[5][off : off + STREAM_CHUNK])
+    push_ms = (time.perf_counter() - t0) * 1000.0 / pushes
+    print(f"stream chunk ({CHUNK_FRAMES} output frames, 210 ms of audio; ms a chunk, host clock, "
+          f"each stage synchronized): {stages}; a push (upload, K1, download): {push_ms:.4f} ms; "
+          f"one {SECONDS} s stream without the synchronizes: {min(walls) * 1000:.1f} ms "
+          f"(min of 3; real-time factor {min(walls) / SECONDS:.5f})")
+
+    # -- K1 at a push's shape against its plain version ------------------------
+    n = STREAM_CHUNK + 240  # a push plus a carried tail
+    push = torch.as_tensor(utts[0][None, :n], device=dev)
+    params = st._featurizer.stream_params
+    got, want = mfcc_batch(params, push), mfcc_batch_torch(params, push)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=MFCC_RTOL, atol=MFCC_ATOL),
+          f"mfcc kernel vs twin at a push's shape: max |d| {err}")
+    check(torch.equal(got[0], batch_rows[: got.shape[1]]),
+          "a frame's MFCC depends on how many frames the call holds")
+    call_ms = cuda_ms(lambda: mfcc_batch(params, push), iters=20)
+    k1 = {"ms": device_ms(lambda: mfcc_batch(params, push)),
+          "plain_ms": cuda_ms(lambda: mfcc_batch_torch(params, push)), "max_abs_err": err}
+    k1["bound_ms"], k1["bound_by"] = bound(*mfcc_work(params, 1, n, got.shape[1]))
+    print(f"K1 mfcc at a push's shape [1, {n}] -> {tuple(got.shape)}: max |d| {err:.3e}, rows "
+          f"bit-equal to the batch call's; kernel {k1['ms']:.4f} ms of device time ({call_ms:.4f} "
+          f"ms a call launched back to back), plain {k1['plain_ms']:.4f} ms, "
+          f"bound {k1['bound_ms']:.6f} ms ({k1['bound_by']})")
+    return counts, k1
+
+
 def main():
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -623,11 +1066,22 @@ def main():
         silence_phase(model_dir, graph_dir, dev, pcms, fuzzy)
         lattice_phase(t, tc, pcms)
 
+        # -- streaming: K1 a push, K2 with a carried alpha a chunk --------------
+        k2_chunk = carried_alpha_phase(t, lp_k, lengths, dev)
+        stream_counts, k1_push = stream_phase(root, model_dir, graph_dir, t, dev, pcms, fuzzy)
+        del t, tc
+
+        # -- the big-graph decoders ---------------------------------------------
+        big_graph_phase(root, dev, pcms)
+
     # -- K3: the windowed relaxation's entry point ----------------------------
     k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = windowed_relax_phase(dev)
 
     # no single PyTorch call computes Kaldi's MFCC, a Viterbi pass or the
-    # windowed relaxation: library_ms is null for all three
+    # windowed relaxation: library_ms is null for all three. The two
+    # "stream" entries are K1 and K2 at the streaming path's shapes (a push,
+    # a 7-frame chunk with a carried alpha), their launches counted over one
+    # streamed utterance
     kernels = [
         {"name": "mfcc", "route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
          "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122",
@@ -638,6 +1092,13 @@ def main():
          "launches": launches["viterbi"], "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None},
+        {"name": "mfcc_stream_push", "route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
+         "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122",
+         "launches": stream_counts["mfcc"], "library_ms": None, **k1_push},
+        {"name": "viterbi_stream_chunk", "route": "cuda",
+         "source": "rhasspy_speech_torch/csrc/viterbi.cu",
+         "replaces": "rhasspy_speech_tpu/ops/pallas_decoder.py:370",
+         "launches": stream_counts["viterbi"], "library_ms": None, **k2_chunk},
         {"name": "windowed_relax", "route": "cuda", "source": "rhasspy_speech_torch/csrc/windowed_relax.cu",
          "replaces": "examples/pallas_windowed_cost.py:59",
          "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,

@@ -1,9 +1,12 @@
 """rhasspy_speech_torch: the PyTorch + CUDA port of rhasspy_speech_tpu.
 
-Batch WAV transcription (PCM -> MFCC -> i-vector -> TDNN-F -> dense 1-best
-Viterbi -> words -> fuzzy match) runs on one CUDA device through two
-hand-written Hopper kernels (``csrc/mfcc.cu``, ``csrc/viterbi.cu``); every
-kernel has a plain PyTorch twin that runs for CPU tensors. The host layers
+Batch WAV transcription (PCM -> MFCC -> i-vector -> TDNN-F -> Viterbi ->
+words -> fuzzy match; ``Nnet3WavTranscriber``) and single-stream streaming
+transcription (``Nnet3StreamTranscriber``: one MFCC launch a push, one
+Viterbi launch a 7-frame chunk with the alpha carried on the device) run on
+one CUDA device through two hand-written Hopper kernels (``csrc/mfcc.cu``,
+``csrc/viterbi.cu``); every kernel has a plain PyTorch twin that runs for
+CPU tensors. The host layers
 (grammar, FST, lang, lexicon, graph, io, native, training) are the port's
 own copies of the JAX package's host modules, which hold no JAX code; the
 port imports nothing of the JAX package.
@@ -12,15 +15,19 @@ port imports nothing of the JAX package.
 from .const import LangSuffix
 from .pipeline import (
     AcousticModel,
+    KaldiNnet3StreamTranscriber,
     KaldiNnet3WavTranscriber,
+    Nnet3StreamTranscriber,
     Nnet3WavTranscriber,
 )
 from .pipeline.train import train_model, train_model_sync
 
 __all__ = [
     "AcousticModel",
+    "KaldiNnet3StreamTranscriber",
     "KaldiNnet3WavTranscriber",
     "LangSuffix",
+    "Nnet3StreamTranscriber",
     "Nnet3WavTranscriber",
     "train_model",
     "train_model_sync",

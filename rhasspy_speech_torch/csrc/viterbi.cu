@@ -64,6 +64,14 @@
 // with this much shared memory run 30 at a time on an H100, so 32 streams
 // take two waves.
 //
+// A launch may start from a carried alpha (alpha0 [B, S]) instead of the
+// graph's initial weights: a stream decoded chunk by chunk keeps its alpha on
+// the device, and each chunk is one launch (T = 7 for the streaming
+// transcriber). CARRIED is a template parameter, so the batch decode's
+// kernels are compiled as they were without it: one run-time select of the
+// start pointer measured 1-2% slower at the batch shapes, which
+// the instantiation avoids.
+//
 // Arithmetic is the reference's, operation for operation, so the result is
 // bit-identical to ops/decoder.py's scatter step: am = (-scale) * lp with
 // one rounding (no FMA contraction: __fmul_rn / __fadd_rn), candidate
@@ -89,7 +97,7 @@ constexpr int kMaxCluster = 8;
 constexpr int kStatesPerThread = 4;  // a slice holds <= 4 x 1024 states
 
 // Byte offsets into dynamic shared memory and its size, computed by the
-// wrapper (ops/viterbi_cuda.py smem_layout); alpha0 is at 0.
+// wrapper (ops/viterbi_cuda.py smem_layout); alpha's first buffer is at 0.
 struct Layout {
   int alpha1, ptr, sw, arc, spdf, bytes, resident;
 };
@@ -106,11 +114,12 @@ __device__ __forceinline__ void argmin_merge(float ov, int os, float& best, int&
   }
 }
 
-template <bool FOLDED, bool COMPACT>
+template <bool FOLDED, bool COMPACT, bool CARRIED>
 __global__ void __launch_bounds__(kMaxThreads, 1) viterbi_kernel(
     const float* __restrict__ lp,            // [B, T, P]
     const int* __restrict__ lengths,         // [B]
     const float* __restrict__ init_w,        // [S]
+    const float* __restrict__ alpha0,        // [B, S] carried alpha (CARRIED)
     const float* __restrict__ final_w,       // [S]
     const int* __restrict__ in_ptr,          // [S + 1] CSR of in-arcs
     const uint2* __restrict__ in_sw,         // [A] CSR order: {src | arc << 16, w}
@@ -250,12 +259,16 @@ __global__ void __launch_bounds__(kMaxThreads, 1) viterbi_kernel(
     argmin_merge(__fadd_rn(alpha, final_w[s]), s, fin, fin_s);
   };
 
+  // the alpha this launch starts from: the graph's initial weights, or the
+  // alpha a stream carried out of its previous chunk (every CTA of the
+  // cluster loads its own slice of it and pushes it to all, like any frame)
+  const float* start = CARRIED ? alpha0 + (size_t)b * S : init_w;
   if (len == 0) {
-    for (int i = tid; i < ns; i += nthreads) final_state_of(i, init_w[s_lo + i]);
+    for (int i = tid; i < ns; i += nthreads) final_state_of(i, start[s_lo + i]);
   } else {
     for (int i = tid; i < ns; i += nthreads)
       push(cur, &full[0], i,
-           folded_value(init_w[s_lo + i], FOLDED ? __ldg(lp_b + spdf[i]) : 0.0f));
+           folded_value(start[s_lo + i], FOLDED ? __ldg(lp_b + spdf[i]) : 0.0f));
   }
 
   // Frame t reads buffer t % 2 (alpha_e(t)) once full[t % 2] completes its
@@ -442,7 +455,7 @@ cudaLaunchConfig_t config(int grid, int threads, int smem_bytes, int cluster,
 
 template <bool FOLDED, bool COMPACT>
 int max_clusters(int cluster, int threads, int smem_bytes) {
-  auto kernel = viterbi_kernel<FOLDED, COMPACT>;
+  auto kernel = viterbi_kernel<FOLDED, COMPACT, false>;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem_bytes) != cudaSuccess)
     return 0;
@@ -454,9 +467,10 @@ int max_clusters(int cluster, int threads, int smem_bytes) {
   return n;
 }
 
-template <bool FOLDED, bool COMPACT>
+template <bool FOLDED, bool COMPACT, bool CARRIED>
 cudaError_t launch(const float* lp, const int* lengths, const float* init_w,
-                   const float* final_w, const int* in_ptr, const uint2* in_sw,
+                   const float* alpha0, const float* final_w, const int* in_ptr,
+                   const uint2* in_sw,
                    const int* in_arc, const int* in_pdf,
                    const uint16_t* src_pdf, const uint16_t* arc_src,
                    const int* slice_state, const int* group_ptr, const int* group_state,
@@ -465,14 +479,14 @@ cudaError_t launch(const float* lp, const int* lengths, const float* init_w,
                    Layout L, int smem_bytes, void* bps, float* alpha_out, int* arc_trace,
                    int* final_state, float* total_cost, int cluster, int threads,
                    cudaStream_t stream) {
-  auto kernel = viterbi_kernel<FOLDED, COMPACT>;
+  auto kernel = viterbi_kernel<FOLDED, COMPACT, CARRIED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       config(B * cluster, threads, smem_bytes, cluster, attr, stream);
-  err = cudaLaunchKernelEx(&cfg, kernel, lp, lengths, init_w, final_w, in_ptr, in_sw,
+  err = cudaLaunchKernelEx(&cfg, kernel, lp, lengths, init_w, alpha0, final_w, in_ptr, in_sw,
                            in_arc, in_pdf, src_pdf, arc_src, slice_state, group_ptr,
                            group_state, hub_ptr, hub_state, thread_deg, neg_scale, B, T, P,
                            S, A, L, bps,
@@ -512,7 +526,8 @@ int rss_viterbi_max_clusters(int folded, int compact, int cluster, int threads,
 }
 
 int rss_viterbi_launch(const float* lp, const int* lengths, const float* init_w,
-                       const float* final_w, const int* in_ptr, const uint2* in_sw,
+                       const float* alpha0, const float* final_w, const int* in_ptr,
+                       const uint2* in_sw,
                        const int* in_arc, const int* in_pdf,
                        const uint16_t* src_pdf, const uint16_t* arc_src,
                        const int* slice_state, const int* group_ptr, const int* group_state,
@@ -531,14 +546,21 @@ int rss_viterbi_launch(const float* lp, const int* lengths, const float* init_w,
   const Layout L = {off_alpha1, off_ptr, off_sw, off_arc, off_spdf, smem_bytes, tables};
   cudaStream_t st = (cudaStream_t)stream;
 #define RSS_VITERBI_ARGS                                                       \
-  lp, lengths, init_w, final_w, in_ptr, in_sw, in_arc, in_pdf, src_pdf,       \
-      arc_src, slice_state, group_ptr, group_state, hub_ptr, hub_state,        \
-      thread_deg, neg_scale, B, T, P, S, A, L, smem_bytes, bps, alpha_out,     \
-      arc_trace, final_state, total_cost, cluster, threads, st
-  if (folded && compact) err = launch<true, true>(RSS_VITERBI_ARGS);
-  else if (folded) err = launch<true, false>(RSS_VITERBI_ARGS);
-  else if (compact) err = launch<false, true>(RSS_VITERBI_ARGS);
-  else err = launch<false, false>(RSS_VITERBI_ARGS);
+  lp, lengths, init_w, alpha0, final_w, in_ptr, in_sw, in_arc, in_pdf,        \
+      src_pdf, arc_src, slice_state, group_ptr, group_state, hub_ptr,          \
+      hub_state, thread_deg, neg_scale, B, T, P, S, A, L, smem_bytes, bps,     \
+      alpha_out, arc_trace, final_state, total_cost, cluster, threads, st
+#define RSS_VITERBI_LAUNCH(CARRIED)                                            \
+  if (folded && compact) err = launch<true, true, CARRIED>(RSS_VITERBI_ARGS);  \
+  else if (folded) err = launch<true, false, CARRIED>(RSS_VITERBI_ARGS);       \
+  else if (compact) err = launch<false, true, CARRIED>(RSS_VITERBI_ARGS);      \
+  else err = launch<false, false, CARRIED>(RSS_VITERBI_ARGS)
+  if (alpha0) {
+    RSS_VITERBI_LAUNCH(true);
+  } else {
+    RSS_VITERBI_LAUNCH(false);
+  }
+#undef RSS_VITERBI_LAUNCH
 #undef RSS_VITERBI_ARGS
   return (int)err;
 }

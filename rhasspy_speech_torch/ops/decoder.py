@@ -21,9 +21,14 @@ rounds of scatter-min per frame over flat candidates ``arc * K + k_prev``,
 each round knocking out the candidate it selected. The JAX package has no
 TPU kernel for it, so neither has the port.
 
-``_state_pdf``, ``STAY``, ``_COMPACT_BP_MAX_ARC``, ``traces_to_words_batch``,
-``trace_to_words``, ``kbest_traces_to_nbest`` and ``backtrace_nbest`` are
-copied from the JAX module, which imports JAX.
+``viterbi_decode_checkpointed`` is the JAX module's memory-bounded decode:
+the forward pass keeps only the alpha before each segment of frames, and the
+backtrace recomputes one segment's backpointers at a time, last segment
+first. Same outputs as ``viterbi_decode``, bit for bit.
+
+``_state_pdf``, ``STAY``, ``_COMPACT_BP_MAX_ARC``, ``backtrace_words``,
+``traces_to_words_batch``, ``trace_to_words``, ``kbest_traces_to_nbest`` and
+``backtrace_nbest`` are copied from the JAX module, which imports JAX.
 """
 
 from __future__ import annotations
@@ -128,8 +133,42 @@ class DecodeGraph:
         )
 
 
+# 1e30 as a Python scalar: comparing or clamping an f32 tensor with it keeps
+# f32 and uploads nothing (a tensor made per frame would be a host-to-device
+# copy per frame).
+_INF = float(NEG_INF_F32)
+
+
 def _inf(like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(NEG_INF_F32, dtype=torch.float32, device=like.device)
+
+
+def _arc_scores(graph: DecodeGraph, alpha: torch.Tensor, am_cost: torch.Tensor) -> torch.Tensor:
+    """Every arc's candidate cost [B, A] for one frame, clamped at 1e30."""
+    if graph.folded:
+        alpha_e = alpha + am_cost[:, graph.src_pdf]
+        scores = alpha_e[:, graph.arc_src] + graph.arc_weight[None, :]
+    else:
+        scores = (
+            alpha[:, graph.arc_src] + graph.arc_weight[None, :]
+        ) + am_cost[:, graph.arc_pdf]
+    return scores.clamp(max=_INF)
+
+
+def _scatter_min(graph: DecodeGraph, scores: torch.Tensor) -> torch.Tensor:
+    """The cheapest candidate into each destination state: [B, A] -> [B, S]."""
+    B = scores.shape[0]
+    new_alpha = torch.full(
+        (B, graph.num_states), NEG_INF_F32, dtype=torch.float32, device=scores.device
+    )
+    dst = graph.arc_dst[None, :].expand(B, graph.num_arcs)
+    return new_alpha.scatter_reduce(1, dst, scores, "amin")
+
+
+def relax_costs(graph: DecodeGraph, alpha: torch.Tensor, am_cost: torch.Tensor) -> torch.Tensor:
+    """The cost half of ``viterbi_step``: new_alpha [B, S] with no winner
+    tracking, bit-identical to the alpha ``viterbi_step`` returns."""
+    return _scatter_min(graph, _arc_scores(graph, alpha, am_cost))
 
 
 def viterbi_step(
@@ -139,24 +178,15 @@ def viterbi_step(
     Returns (new_alpha [B, S], best_arc [B, S] int64, -1 if unreached)."""
     B = alpha.shape[0]
     S, A = graph.num_states, graph.num_arcs
-    inf = _inf(alpha)
-    if graph.folded:
-        alpha_e = alpha + am_cost[:, graph.src_pdf]
-        scores = alpha_e[:, graph.arc_src] + graph.arc_weight[None, :]
-    else:
-        scores = (
-            alpha[:, graph.arc_src] + graph.arc_weight[None, :]
-        ) + am_cost[:, graph.arc_pdf]
-    scores = torch.minimum(scores, inf)
+    scores = _arc_scores(graph, alpha, am_cost)
+    new_alpha = _scatter_min(graph, scores)
     dst = graph.arc_dst[None, :].expand(B, A)
-    new_alpha = torch.full((B, S), NEG_INF_F32, dtype=torch.float32, device=alpha.device)
-    new_alpha = new_alpha.scatter_reduce(1, dst, scores, "amin")
     is_best = scores <= new_alpha[:, graph.arc_dst]
     arc_ids = torch.arange(A, device=alpha.device)
     cand = torch.where(is_best, arc_ids[None, :], A)
     best_arc = torch.full((B, S), A, dtype=torch.int64, device=alpha.device)
     best_arc = best_arc.scatter_reduce(1, dst, cand, "amin")
-    best_arc = torch.where(new_alpha >= inf, -1, best_arc)
+    best_arc = torch.where(new_alpha >= _INF, -1, best_arc)
     return new_alpha, best_arc
 
 
@@ -166,11 +196,14 @@ def viterbi(
     acoustic_scale: float = 1.0,
     lengths: Optional[torch.Tensor] = None,
     compact_bp: bool = False,
+    alpha0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched dense Viterbi over [B, T, P] f32 log-probs.
 
     Frames at or past ``lengths[b]`` are no-ops (alpha carried, backpointer
-    STAY). Returns (alpha_final [B, S] f32, bps [T, B, S]): int32 arc ids
+    STAY). ``alpha0`` [B, S] starts each stream from a carried alpha (a
+    stream decoded chunk by chunk) instead of the graph's initial weights.
+    Returns (alpha_final [B, S] f32, bps [T, B, S]): int32 arc ids
     (-1 dead, -2 STAY), or with ``compact_bp`` uint16 ``arc + 2``
     (0 = STAY, 1 = dead)."""
     if compact_bp and graph.num_arcs > _COMPACT_BP_MAX_ARC:
@@ -179,7 +212,7 @@ def viterbi(
         )
     B, T, _P = log_probs.shape
     am_costs = (-acoustic_scale) * log_probs.transpose(0, 1)  # [T, B, P]
-    alpha = graph.init_weight[None, :].expand(B, graph.num_states)
+    alpha = graph.init_weight[None, :].expand(B, graph.num_states) if alpha0 is None else alpha0
     bp_dtype = torch.uint16 if compact_bp else torch.int32
     bps = torch.empty((T, B, graph.num_states), dtype=bp_dtype, device=log_probs.device)
     for t in range(T):
@@ -227,6 +260,105 @@ def viterbi_decode(
     compact = graph.num_arcs <= _COMPACT_BP_MAX_ARC
     alpha_final, bps = viterbi(graph, log_probs, acoustic_scale, lengths, compact_bp=compact)
     return backtrace(graph, alpha_final, bps)
+
+
+def viterbi_decode_checkpointed(
+    graph: DecodeGraph,
+    log_probs: torch.Tensor,
+    acoustic_scale: float = 1.0,
+    segment: int = 32,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Memory-bounded decode: the forward pass keeps only the alpha before
+    each segment of ``segment`` frames ([ceil(T / segment), B, S] f32), then
+    each segment's backpointers are recomputed from its boundary alpha, last
+    segment first, and walked back from the carried end state ([segment, B,
+    S] int32 at a time, where ``viterbi`` holds [T, B, S]).
+
+    Returns host arrays (arc_trace [B, T] int32, final_state [B] int32,
+    total_cost [B] f32) identical to ``viterbi_decode``'s. The end state
+    stays on the device from segment to segment, and the three results come
+    to the host in one copy at the end."""
+    B, T, _P = log_probs.shape
+    dev = log_probs.device
+    am_costs = (-acoustic_scale) * log_probs.transpose(0, 1)  # [T, B, P]
+    active = None
+    if lengths is not None:
+        active = torch.arange(T, device=dev)[:, None, None] < lengths.to(dev)[None, :, None]
+
+    alpha = graph.init_weight[None, :].expand(B, graph.num_states)
+    boundaries = []
+    for t in range(T):
+        if t % segment == 0:
+            boundaries.append(alpha)
+        new_alpha = relax_costs(graph, alpha, am_costs[t])
+        alpha = new_alpha if active is None else torch.where(active[t], new_alpha, alpha)
+    totals = alpha + graph.final_weight[None, :]
+    final_state = torch.argmin(totals, dim=-1)
+    total_cost = totals.gather(1, final_state[:, None])[:, 0]
+
+    rows = torch.arange(B, device=dev)
+    trace = torch.empty((B, T), dtype=torch.int32, device=dev)
+    state = final_state
+    for seg in range(len(boundaries) - 1, -1, -1):
+        lo, hi = seg * segment, min((seg + 1) * segment, T)
+        alpha = boundaries[seg]
+        bps = []
+        for t in range(lo, hi):
+            new_alpha, bp = viterbi_step(graph, alpha, am_costs[t])
+            if active is not None:
+                new_alpha = torch.where(active[t], new_alpha, alpha)
+                bp = torch.where(active[t], bp, STAY)
+            bps.append(bp)
+            alpha = new_alpha
+        for t in range(hi - 1, lo - 1, -1):
+            arc = bps[t - lo][rows, state]
+            trace[:, t] = arc.to(torch.int32)
+            state = torch.where(arc < 0, state, graph.arc_src[arc.clamp_min(0)])
+    packed = torch.cat(
+        [trace, final_state.to(torch.int32)[:, None],
+         total_cost.contiguous().view(torch.int32)[:, None]], dim=1
+    ).cpu().numpy()
+    return (
+        np.ascontiguousarray(packed[:, :T]),
+        packed[:, T].copy(),
+        packed[:, T + 1].copy().view(np.float32),
+    )
+
+
+def backtrace_words(
+    graph: DenseGraph,
+    alpha_final: np.ndarray,
+    backptr: np.ndarray,
+    stream: int,
+    num_frames: Optional[int] = None,
+) -> Tuple[Optional[List[int]], float]:
+    """Host-side 1-best backtrace for one stream.
+
+    Returns (word ids, total cost) or (None, inf) when no complete path."""
+    T = backptr.shape[0] if num_frames is None else num_frames
+    alpha = alpha_final[stream]
+    totals = alpha + graph.final_weight
+    state = int(np.argmin(totals))
+    if totals[state] >= NEG_INF_F32:
+        return None, float("inf")
+    cost = float(totals[state])
+
+    words_rev: List[Tuple[int, ...]] = [graph.words_of(int(graph.final_wseq[state]))]
+    for t in range(T - 1, -1, -1):
+        arc = int(backptr[t, stream, state])
+        if arc == STAY:
+            continue
+        if arc < 0:
+            return None, float("inf")
+        words_rev.append(graph.words_of(int(graph.arc_wseq[arc])))
+        state = int(graph.arc_src[arc])
+    words_rev.append(graph.words_of(int(graph.init_wseq[state])))
+
+    words: List[int] = []
+    for seq in reversed(words_rev):
+        words.extend(seq)
+    return words, cost
 
 
 def traces_to_words_batch(
@@ -315,7 +447,7 @@ def kbest_step(
     candidate arc * K + k_prev, or -1)."""
     B, S, K = alpha.shape
     A = graph.num_arcs
-    inf = _inf(alpha)
+    inf = _INF
     if graph.folded:
         alpha = alpha + am_cost[:, graph.src_pdf][:, :, None]
         cand = alpha[:, graph.arc_src, :] + graph.arc_weight[None, :, None]
@@ -323,7 +455,7 @@ def kbest_step(
         cand = (
             alpha[:, graph.arc_src, :] + graph.arc_weight[None, :, None]
         ) + am_cost[:, graph.arc_pdf, None]
-    cand = torch.minimum(cand, inf).reshape(B, A * K)
+    cand = cand.clamp(max=inf).reshape(B, A * K)
     dst_flat = graph.arc_dst.repeat_interleave(K)  # [A*K]
     dst = dst_flat[None, :].expand(B, A * K)
     flat_ids = torch.arange(A * K, device=alpha.device)

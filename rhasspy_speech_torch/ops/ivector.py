@@ -5,6 +5,9 @@ OnlineIvectorFeature, --online=false): splice(+-3) -> LDA -> diag-UBM
 log-likes -> top-k gselect posteriors (min_post prune, renorm,
 posterior_scale) -> zeroth/first-order stats (max_count rescaling) ->
 per-stream Cholesky solve, prior offset subtracted from ivector[0].
+``splice_frames`` and ``apply_lda`` are the two halves of ``splice_lda`` as
+separate functions (the streaming transcriber splices a chunk's window and
+keeps the chunk's rows); ``extract_ivectors_online`` is the periodic mode.
 """
 
 from __future__ import annotations
@@ -93,6 +96,26 @@ def make_ivector_params(
         ),
         device,
     )
+
+
+def splice_frames(feats: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """[B, T, D] -> [B, T, D * (left + 1 + right)] with edge clamping
+    (OnlineSpliceFrames)."""
+    T = feats.shape[1]
+    parts = []
+    for off in range(-left, right + 1):
+        idx = torch.as_tensor(np.clip(np.arange(T) + off, 0, T - 1), device=feats.device)
+        parts.append(feats[:, idx])
+    return torch.cat(parts, dim=-1)
+
+
+def apply_lda(spliced: torch.Tensor, params: IvectorParams) -> torch.Tensor:
+    """LDA/affine transform; final.mat may have a trailing offset column."""
+    lda = params.lda
+    in_dim = spliced.shape[-1]
+    if lda.shape[1] == in_dim + 1:
+        return spliced @ lda[:, :in_dim].T + lda[:, in_dim]
+    return spliced @ lda.T
 
 
 def splice_lda(feats: torch.Tensor, params: IvectorParams) -> torch.Tensor:
@@ -195,3 +218,27 @@ def extract_ivectors(
     post = gselect_posteriors(ll, params)
     gamma, X = accumulate_stats(lda_feats, post, lengths, frame_weights)
     return solve_ivector(gamma, X, params)
+
+
+def extract_ivectors_online(feats: torch.Tensor, params: IvectorParams) -> torch.Tensor:
+    """Periodic mode: an estimate every ``ivector_period`` frames from the
+    stats of all frames seen so far. [B, T, D] -> [B, ceil(T / period), K]."""
+    spliced = splice_frames(feats, params.splice_left, params.splice_right)
+    lda_feats = apply_lda(spliced, params)
+    ll = gmm_log_likes(lda_feats, params)
+    post = gselect_posteriors(ll, params)
+
+    gamma_t = torch.cumsum(post, dim=1)  # [B, T, I]
+    X_t = torch.cumsum(post[..., None] * lda_feats[:, :, None, :], dim=1)
+    T = feats.shape[1]
+    period = params.ivector_period
+    marks = torch.as_tensor(
+        np.minimum(np.arange(0, T, period) + period - 1, T - 1), device=feats.device
+    )
+    gammas = gamma_t[:, marks]  # [B, P, I]
+    Xs = X_t[:, marks]  # [B, P, I, D]
+    B, P = gammas.shape[0], gammas.shape[1]
+    flat = solve_ivector(
+        gammas.reshape(B * P, -1), Xs.reshape(B * P, Xs.shape[2], Xs.shape[3]), params
+    )
+    return flat.reshape(B, P, -1)

@@ -51,7 +51,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("viterbi")
     if lib.rss_viterbi_launch.argtypes is None:
         lib.rss_viterbi_launch.argtypes = (
-            [_P] * 15 + [_I, _F] + [_I] * 5 + [_I] * 2 + [_I] * 7 + [_P] * 5 + [_I] * 3 + [_P]
+            [_P] * 16 + [_I, _F] + [_I] * 5 + [_I] * 2 + [_I] * 7 + [_P] * 5 + [_I] * 3 + [_P]
         )
         lib.rss_viterbi_launch.restype = _I
         lib.rss_viterbi_max_smem.argtypes = [_I]
@@ -202,6 +202,24 @@ def smem_layout(
     return off, at
 
 
+def alpha_fits(num_states: int, max_smem: int) -> bool:
+    """Whether alpha's two buffers fit the ``max_smem`` bytes of shared
+    memory a block may use: the kernel's reach."""
+    return 2 * _align(4 * num_states) <= max_smem
+
+
+def max_alpha_states(max_smem: int) -> int:
+    """The most states ``alpha_fits`` accepts for ``max_smem`` bytes."""
+    return ((max_smem // 2) & ~15) // 4
+
+
+def kernel_states(device: torch.device) -> int:
+    """The largest graph (states) the kernel decodes on ``device``'s card.
+    The kernel raises past it; ``pipeline.transcribe.select_decoder`` takes
+    this number and names another decoder (``"scan"``) for a larger graph."""
+    return max_alpha_states(_lib().rss_viterbi_max_smem(device.index))
+
+
 def choose_cluster(
     graph: DecodeGraph,
     batch: int,
@@ -215,10 +233,11 @@ def choose_cluster(
     in the fewest waves (``max_clusters``: clusters of a plan the card runs
     at once), the largest on a tie. Where no cluster's tables fit: C = 8,
     tables in global memory. Raises where alpha itself cannot fit."""
-    if 2 * _align(4 * graph.num_states) > max_smem:
+    if not alpha_fits(graph.num_states, max_smem):
         raise ValueError(
             f"viterbi kernel keeps alpha in shared memory: {graph.num_states} states "
-            f"exceed the {max_smem} bytes this card holds (big-graph decoders: ROADMAP)"
+            f"exceed the {max_smem} bytes this card holds ({max_alpha_states(max_smem)} "
+            f"states; select_decoder's \"scan\" mode decodes such a graph)"
         )
     plans = [plan_viterbi(graph, c) for c in CLUSTER_SIZES]
     plans = [p for p in plans if p.max_states <= MAX_SLICE_STATES]
@@ -271,9 +290,11 @@ def launch(
     log_probs: torch.Tensor,
     acoustic_scale: float,
     lengths: torch.Tensor,
+    alpha0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """One kernel launch with a given plan: (trace, final_state,
-    total_cost, alpha, bps). ``viterbi_decode`` checks the inputs."""
+    total_cost, alpha, bps). ``alpha0`` [B, S] f32 contiguous starts the
+    streams from a carried alpha. ``viterbi_decode`` checks the inputs."""
     B, T, P = log_probs.shape
     S, A = graph.num_states, graph.num_arcs
     dev = log_probs.device
@@ -288,7 +309,8 @@ def launch(
         lib = _lib()
         err = lib.rss_viterbi_launch(
             log_probs.data_ptr(), lengths.data_ptr(),
-            graph.init_weight.data_ptr(), graph.final_weight.data_ptr(),
+            graph.init_weight.data_ptr(),
+            None if alpha0 is None else alpha0.data_ptr(), graph.final_weight.data_ptr(),
             graph.in_ptr.data_ptr(), tab.in_sw.data_ptr(), graph.in_arc.data_ptr(),
             graph.in_pdf.data_ptr(), tab.src_pdf.data_ptr(),
             tab.arc_src.data_ptr(), plan.slice_state.data_ptr(), plan.group_ptr.data_ptr(),
@@ -311,8 +333,13 @@ def viterbi_decode(
     acoustic_scale: float = 1.0,
     lengths: Optional[torch.Tensor] = None,
     return_forward: bool = False,
+    alpha0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Dense 1-best decode of [B, T, P] f32 log-probs.
+
+    ``alpha0`` [B, S] f32 starts each stream from a carried alpha instead of
+    the graph's initial weights: a stream's chunk is one launch, and the
+    alpha it returns (``return_forward``) is the next chunk's ``alpha0``.
 
     Returns (arc_trace [B, T] int32, final_state [B] int32, total_cost [B]
     f32), bit-identical to ``ops.decoder.viterbi_decode``; with
@@ -322,7 +349,9 @@ def viterbi_decode(
     dev = log_probs.device
     if dev.type == "cpu":
         compact = graph.num_arcs <= _COMPACT_BP_MAX_ARC
-        alpha, bps = viterbi(graph, log_probs, acoustic_scale, lengths, compact_bp=compact)
+        alpha, bps = viterbi(
+            graph, log_probs, acoustic_scale, lengths, compact_bp=compact, alpha0=alpha0
+        )
         out = backtrace(graph, alpha, bps)
         return out + (alpha, bps) if return_forward else out
     if dev.type != "cuda":
@@ -339,7 +368,13 @@ def viterbi_decode(
         lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
     lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
     log_probs = log_probs.contiguous()
-    out = launch(graph, plan, resident, log_probs, acoustic_scale, lengths)
+    if alpha0 is not None:
+        if alpha0.shape != (B, graph.num_states) or alpha0.dtype != torch.float32:
+            raise ValueError(f"viterbi_decode: alpha0 must be [{B}, {graph.num_states}] float32")
+        if alpha0.device != dev:
+            raise ValueError(f"viterbi_decode: alpha0 on {alpha0.device}, log-probs on {dev}")
+        alpha0 = alpha0.contiguous()
+    out = launch(graph, plan, resident, log_probs, acoustic_scale, lengths, alpha0)
     return out if return_forward else out[:3]
 
 

@@ -1,5 +1,6 @@
 """Transcription pipelines of the port."""
 
+from .stream import KaldiNnet3StreamTranscriber, Nnet3StreamTranscriber
 from .transcribe import (
     AcousticModel,
     KaldiNnet3WavTranscriber,
@@ -7,4 +8,11 @@ from .transcribe import (
     read_wav,
 )
 
-__all__ = ["AcousticModel", "KaldiNnet3WavTranscriber", "Nnet3WavTranscriber", "read_wav"]
+__all__ = [
+    "AcousticModel",
+    "KaldiNnet3StreamTranscriber",
+    "KaldiNnet3WavTranscriber",
+    "Nnet3StreamTranscriber",
+    "Nnet3WavTranscriber",
+    "read_wav",
+]

@@ -1,15 +1,28 @@
 """Batch WAV transcription on one device: PCM -> MFCC -> i-vector ->
-nnet3 forward -> dense Viterbi (1-best or k-best) -> word assembly -> fuzzy
-match; lattices, confidence and lattice rescoring beside it.
+nnet3 forward -> Viterbi decode -> word assembly -> fuzzy match; lattices,
+confidence and lattice rescoring beside it.
 
 Counterpart of ``rhasspy_speech_tpu/pipeline/transcribe.py``
 (``Nnet3WavTranscriber``). On a CUDA device the frontend is the MFCC kernel
-(``ops/mfcc_cuda.py``) and the 1-best decoder the Viterbi kernel
+(``ops/mfcc_cuda.py``) and the dense 1-best decoder the Viterbi kernel
 (``ops/viterbi_cuda.py``); on the CPU the same calls run their plain twins.
-The k-best decoder (``nbest > 1``) and the forward-backward pass of the
-lattice calls are plain PyTorch on either device, as they are plain JAX in
-the JAX package. ``device="cuda"`` is the default and raises where CUDA is
-absent.
+The other decoders and the forward-backward pass of the lattice calls are
+plain PyTorch on either device, as they are plain JAX in the JAX package.
+``device="cuda"`` is the default and raises where CUDA is absent.
+
+``select_decoder`` picks the decoder per call from the backpointer bytes
+against ``decode_memory_budget``, as the JAX package does: ``"dense"``
+(1-best or k-best, in sub-batches), ``"checkpointed"`` (1-best,
+``ops.decoder.viterbi_decode_checkpointed``) or ``"frontier"``
+(``ops.frontier.viterbi_topk`` with K from ``max_active`` and the budget,
+``beam`` and ``min_active``). The port adds a fourth mode, ``"scan"``: the
+Viterbi kernel keeps alpha in shared memory, which holds about 29,000
+states on an H100 (``ops.viterbi_cuda.kernel_states``), and where the
+budget allows a dense 1-best decode of a larger graph on the card,
+``select_decoder`` names the per-frame scan (``ops.decoder.viterbi`` +
+``backtrace``, the JAX package's own dense decoder) instead. Each mode
+runs exactly its decoder: ``"dense"`` on the card is the kernel, which
+raises past its reach and when it fails to build or launch.
 
 With ``silence_weight`` set (and an i-vector extractor present), a
 first-pass 1-best decode marks the silence frames, their weight in the
@@ -17,8 +30,8 @@ i-vector statistics drops to ``silence_weight``, and the batch is scored
 again (the JAX package's OnlineSilenceWeighting equivalent).
 
 Not ported yet, and raising ``NotImplementedError`` rather than answering
-differently: the checkpointed and frontier decoders, GMM models, pitch
-features and bfloat16 compute (ROADMAP Queue 1).
+differently: GMM models, pitch features and bfloat16 compute (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -43,13 +56,16 @@ from ..io.lattice_io import compact_lattice_from_decode, determinize_lattice_pho
 from ..io.nnet3_file import read_am_nnet3
 from ..models.nnet3 import CompiledNnet3, compile_nnet3
 from ..ops.cmvn import online_cmvn
+from ..ops import decoder as plain_decoder
 from ..ops.decoder import (
     _COMPACT_BP_MAX_ARC,
     DecodeGraph,
     kbest_traces_to_nbest,
     traces_to_words_batch,
+    viterbi_decode_checkpointed,
     viterbi_kbest_decode,
 )
+from ..ops.frontier import FrontierGraph, topk_backtrace_nbest, viterbi_topk_cached
 from ..ops.frontend import (
     FrontendConfig,
     frontend_from_mfcc_conf,
@@ -59,7 +75,7 @@ from ..ops.frontend import (
 from ..ops.ivector import extract_ivectors, make_ivector_params
 from ..ops.lattice import Lattice, build_lattice, forward_backward
 from ..ops.mfcc_cuda import mfcc_batch
-from ..ops.viterbi_cuda import viterbi_decode
+from ..ops.viterbi_cuda import kernel_states, viterbi_decode
 from .artifacts import LangArtifacts
 from .endpoint import silence_pdfs_from_model
 from .fuzzy import get_fuzzy_text, rescore_nbest
@@ -241,17 +257,24 @@ def select_decoder(
     out_degree: Optional[int] = None,
     num_arcs: Optional[int] = None,
     min_sub_batch: int = 1,
+    kernel_states: Optional[int] = None,
 ) -> Tuple[str, int]:
     """Pick the decoder from the backpointer footprint (bytes), as the JAX
     package does: ("dense", sub_batch), ("checkpointed", sub_batch) or
-    ("frontier", K). Only "dense" is ported."""
+    ("frontier", K). ``kernel_states`` is the largest graph the dense
+    1-best decoder of the caller's device holds (the Viterbi kernel's reach
+    on a card, None where there is no limit): a dense 1-best decode of a
+    larger graph is ("scan", sub_batch), the per-frame scan with the same
+    backpointer footprint."""
     min_sub = max(1, min(min_sub_batch, batch))
     bp_bytes = 2 if k == 1 and num_arcs is not None and num_arcs <= _COMPACT_BP_MAX_ARC else 4
     per_stream_dense = frames * num_states * k * bp_bytes
     if k > 1 and num_arcs is not None:
         per_stream_dense += num_arcs * k * 4
     if per_stream_dense * min_sub <= budget:
-        return "dense", max(min_sub, min(batch, budget // per_stream_dense))
+        past_kernel = k == 1 and kernel_states is not None and num_states > kernel_states
+        mode = "scan" if past_kernel else "dense"
+        return mode, max(min_sub, min(batch, budget // per_stream_dense))
     n_seg = -(-frames // segment)
     per_stream_ckpt = (n_seg + segment) * num_states * 4
     if k == 1 and per_stream_ckpt * min_sub <= budget:
@@ -265,9 +288,11 @@ def select_decoder(
 class Nnet3WavTranscriber:
     """Reference-compatible WAV transcriber on one device.
 
-    ``max_active``, ``beam`` and ``min_active`` only matter to decoders not
-    ported yet; the dense decoders are exact. ``lattice_beam`` prunes the
-    lattices of ``get_lattice``, ``confidence`` and ``transcribe_rescore``."""
+    ``max_active``, ``beam`` and ``min_active`` only matter to the frontier
+    decoder; the dense, scan and checkpointed decoders are exact.
+    ``lattice_beam`` prunes the lattices of ``get_lattice``, ``confidence``
+    and ``transcribe_rescore``. ``last_decode_plan`` is the (mode, argument)
+    ``select_decoder`` gave the latest decode."""
 
     def __init__(
         self,
@@ -301,6 +326,11 @@ class Nnet3WavTranscriber:
         self.device_graph = DecodeGraph.from_dense(self.artifacts.graph, self.device)
         self._lang_cache: Dict[str, LangArtifacts] = {}
         self._silence_pdfs: Optional[frozenset] = None
+        self._frontier_graph: Optional[FrontierGraph] = None
+        self._out_degree: Optional[int] = None
+        # the Viterbi kernel's reach on this card, for select_decoder
+        self._kernel_states = kernel_states(self.device) if self.device.type == "cuda" else None
+        self.last_decode_plan: Optional[Tuple[str, int]] = None
 
     def _get_silence_pdfs(self) -> frozenset:
         """The model's silence pdfs, from ``model/phones.txt`` (empty
@@ -323,11 +353,15 @@ class Nnet3WavTranscriber:
         sil_pdfs = self._get_silence_pdfs()
         if not sil_pdfs:
             return None
-        trace, _final, _cost = viterbi_decode(
-            self.device_graph, log_probs, acoustic_scale=self.acoustic_scale, lengths=lengths
-        )
-        trace = trace.cpu().numpy()  # [B, T_out]; arc id, STAY, or -1
+        # a dense decode of the whole batch whatever the budget, as in the
+        # JAX package
         graph = self.artifacts.graph
+        plan = select_decoder(
+            graph.num_states, log_probs.shape[0], log_probs.shape[1], 1, self.max_active,
+            budget=1 << 62, num_arcs=graph.num_arcs, kernel_states=self._kernel_states,
+        )
+        trace, _final, _cost = self._decode_traces(log_probs, lengths, plan)
+        # trace [B, T_out]: arc id, STAY, or -1
         B, T_out = trace.shape
         # forward-fill self-loop (STAY) frames with the last real arc
         filled = trace.copy()
@@ -399,44 +433,71 @@ class Nnet3WavTranscriber:
                 )
         return log_probs, lengths
 
-    def _decode_traces(
-        self, log_probs: torch.Tensor, lengths: torch.Tensor
-    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Dense decode in sub-batches sized to the backpointer budget:
-        (arc_trace [B, N], final_state [B], total_cost [B]) on the host."""
+    def _graph_out_degree(self) -> int:
+        """Max out-degree of the decode graph (frontier expansion width)."""
+        if self._out_degree is None:
+            g = self.artifacts.graph
+            self._out_degree = (
+                int(np.bincount(g.arc_src, minlength=g.num_states).max()) if g.num_arcs else 1
+            )
+        return self._out_degree
+
+    def _plan(self, batch: int, frames: int, k: int) -> Tuple[str, int]:
+        """``select_decoder`` for this graph and budget (no mesh in the
+        port, so ``min_sub_batch`` stays 1)."""
         graph = self.artifacts.graph
-        B, N = log_probs.shape[0], log_probs.shape[1]
-        mode, sub = select_decoder(
-            graph.num_states, B, N, 1, self.max_active, self.decode_memory_budget,
-            num_arcs=graph.num_arcs,
+        plan = select_decoder(
+            graph.num_states, batch, frames, k, self.max_active, self.decode_memory_budget,
+            out_degree=self._graph_out_degree(), num_arcs=graph.num_arcs,
+            kernel_states=self._kernel_states,
         )
-        if mode != "dense":
-            raise _not_ported(f"the {mode} decoder (graph too big for dense)", "item 10")
+        self.last_decode_plan = plan
+        return plan
+
+    def _decode_traces(
+        self,
+        log_probs: torch.Tensor,
+        lengths: torch.Tensor,
+        plan: Optional[Tuple[str, int]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Exact 1-best decode in sub-batches sized to the budget, by the
+        decoder the plan names ("dense": ``ops.viterbi_cuda.viterbi_decode``,
+        the Viterbi kernel on a card; "scan": the per-frame scan;
+        "checkpointed"): (arc_trace [B, N], final_state [B], total_cost
+        [B]) on the host."""
+        B, N = log_probs.shape[0], log_probs.shape[1]
+        mode, sub = plan or self._plan(B, N, 1)
+        if mode == "frontier":
+            raise ValueError("the frontier decoder keeps no arc traces; see _decode_frontier")
+        decode = {
+            "dense": viterbi_decode,
+            "scan": plain_decoder.viterbi_decode,
+            "checkpointed": viterbi_decode_checkpointed,
+        }[mode]
         parts = []
         for start in range(0, B, sub):
-            res = viterbi_decode(
-                self.device_graph,
-                log_probs[start : start + sub],
-                acoustic_scale=self.acoustic_scale,
-                lengths=lengths[start : start + sub],
+            res = decode(
+                self.device_graph, log_probs[start : start + sub],
+                acoustic_scale=self.acoustic_scale, lengths=lengths[start : start + sub],
             )
-            parts.append([r.cpu().numpy() for r in res])
+            parts.append([r.cpu().numpy() if isinstance(r, torch.Tensor) else r for r in res])
         return tuple(np.concatenate(p) for p in zip(*parts))
 
     def _decode_nbest(
-        self, log_probs: torch.Tensor, lengths: torch.Tensor, k: int
+        self,
+        log_probs: torch.Tensor,
+        lengths: torch.Tensor,
+        k: int,
+        plan: Optional[Tuple[str, int]] = None,
     ) -> List[List[Tuple[List[int], float]]]:
         """Dense k-best decode in sub-batches sized to the backpointer
         budget ([T, sub, S, k] int32 plus the [sub, A, k] candidates):
         per-utterance n-best [(word ids, cost)], at most k each."""
         graph = self.artifacts.graph
         B, N = log_probs.shape[0], log_probs.shape[1]
-        mode, sub = select_decoder(
-            graph.num_states, B, N, k, self.max_active, self.decode_memory_budget,
-            num_arcs=graph.num_arcs,
-        )
+        mode, sub = plan or self._plan(B, N, k)
         if mode != "dense":
-            raise _not_ported(f"the {mode} decoder (graph too big for dense)", "item 10")
+            return self._decode_frontier(log_probs, lengths, k, sub)
         out: List[List[Tuple[List[int], float]]] = []
         for start in range(0, B, sub):
             res = viterbi_kbest_decode(
@@ -453,16 +514,46 @@ class Nnet3WavTranscriber:
             )
         return out
 
+    def _decode_frontier(
+        self, log_probs: torch.Tensor, lengths: torch.Tensor, n: int, max_states: int
+    ) -> List[List[Tuple[List[int], float]]]:
+        """Sparse-frontier decode of the whole batch, keeping ``max_states``
+        states a stream a frame: per-utterance n-best [(word ids, cost)]
+        from the final frontier's slots (1-best is n = 1)."""
+        graph = self.artifacts.graph
+        if self._frontier_graph is None:
+            self._frontier_graph = FrontierGraph.from_dense(
+                graph, self.device, base=self.device_graph
+            )
+        res = viterbi_topk_cached(
+            self._frontier_graph,
+            log_probs,
+            max_states,
+            acoustic_scale=self.acoustic_scale,
+            lengths=lengths,
+            scratch_bytes=self.decode_memory_budget,
+            beam=self.beam,
+            min_active=self.min_active,
+        )
+        states_t, alphas_t, arcs_t = (r.cpu().numpy() for r in res)
+        return [
+            topk_backtrace_nbest(graph, states_t, alphas_t, arcs_t, i, n=n)
+            for i in range(log_probs.shape[0])
+        ]
+
     def _decode_batch(
         self, pcm_batch: List[np.ndarray], nbest: int
     ) -> List[List[Tuple[List[int], float]]]:
         """PCM list -> per-utterance n-best [(word ids, cost)] (empty when
-        no complete path)."""
+        no complete path), by the decoder ``select_decoder`` picks."""
         log_probs, lengths = self._acoustic_batch(pcm_batch)
         k = max(nbest, 1)
+        plan = self._plan(log_probs.shape[0], log_probs.shape[1], k)
+        if plan[0] == "frontier":
+            return self._decode_frontier(log_probs, lengths, k, plan[1])
         if k > 1:
-            return self._decode_nbest(log_probs, lengths, k)
-        trace, final_state, cost = self._decode_traces(log_probs, lengths)
+            return self._decode_nbest(log_probs, lengths, k, plan)
+        trace, final_state, cost = self._decode_traces(log_probs, lengths, plan)
         assembled = traces_to_words_batch(self.artifacts.graph, trace, final_state, cost)
         return [[] if words is None else [(words, c)] for words, c in assembled]
 

@@ -13,7 +13,9 @@ import torch
 from rhasspy_speech_torch.io.ivector import DiagGmm, IvectorExtractor
 from rhasspy_speech_torch.models import nnet3
 from rhasspy_speech_torch.ops import frontend, ivector
+from rhasspy_speech_torch import Nnet3StreamTranscriber, Nnet3WavTranscriber
 from rhasspy_speech_torch.ops.decoder import DecodeGraph
+from rhasspy_speech_torch.ops.frontier import FrontierGraph
 from rhasspy_speech_torch.testing.decode_graphs import random_decode_graph
 from rhasspy_speech_torch.testing.tdnnf import build_tdnnf_spec
 
@@ -60,6 +62,8 @@ CONSTRUCTORS = {
                          bottleneck_dim=4, num_tdnnf_layers=2, seed=1), 3, **kw),
     "DecodeGraph.from_dense": lambda **kw: DecodeGraph.from_dense(
         random_decode_graph(np.random.RandomState(2), 20, 15, 5, hubs=0), **kw),
+    "FrontierGraph.from_dense": lambda **kw: FrontierGraph.from_dense(
+        random_decode_graph(np.random.RandomState(3), 20, 15, 5, hubs=0), **kw),
     "ivector_params_from_numpy": lambda **kw: ivector.ivector_params_from_numpy(
         _ivector_values(), **kw),
     "make_ivector_params": lambda **kw: ivector.make_ivector_params(*_ivector_system(), **kw),
@@ -81,3 +85,24 @@ def test_constructor_runs_on_the_cpu_when_asked(monkeypatch, name, device):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tensors = _tensors(CONSTRUCTORS[name](device=device))
     assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
+@pytest.mark.parametrize("cls", [Nnet3WavTranscriber, Nnet3StreamTranscriber],
+                         ids=lambda c: c.__name__)
+def test_transcriber_defaults_to_the_card_and_raises_without_one(monkeypatch, tmp_path, cls):
+    """The device is resolved before a file is read: without a card the
+    default raises, whatever the directories hold."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cls(tmp_path / "model", tmp_path / "graph")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cls(tmp_path / "model", tmp_path / "graph", device="cuda:0")
+
+
+def test_frontier_graph_refuses_a_base_on_another_device(monkeypatch):
+    dense = random_decode_graph(np.random.RandomState(4), 20, 15, 5, hubs=0)
+    base = DecodeGraph.from_dense(dense, device="cpu")
+    assert FrontierGraph.from_dense(dense, device="cpu", base=base).base is base
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FrontierGraph.from_dense(dense, base=base)

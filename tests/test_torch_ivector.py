@@ -105,3 +105,31 @@ def test_gselect_posteriors_match_jax_with_ties():
     got = ti.gselect_posteriors(torch.as_tensor(ll), tp).numpy()
     np.testing.assert_array_equal(got != 0, want != 0)  # same top-k sets
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+
+
+def test_splice_frames_and_apply_lda_equal_jax_and_the_fused_form():
+    """The two halves of ``splice_lda`` as separate functions: the splice is
+    a gather (equal to JAX's), the LDA within the matmul tolerance, and
+    their composition agrees with the fused form."""
+    rng, _, _, _, _, jp = _params(3)
+    tp = ti.ivector_params_from_numpy(_numpy_fields(jp), "cpu")
+    feats = rng.randn(2, 37, 6).astype(np.float32)
+    want = np.asarray(ji.splice_frames(jnp.asarray(feats), jp.splice_left, jp.splice_right))
+    got = ti.splice_frames(torch.as_tensor(feats), tp.splice_left, tp.splice_right)
+    np.testing.assert_array_equal(got.numpy(), want)
+    lda = ti.apply_lda(got, tp)
+    np.testing.assert_allclose(lda.numpy(), np.asarray(ji.apply_lda(jnp.asarray(want), jp)),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(lda.numpy(), ti.splice_lda(torch.as_tensor(feats), tp).numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("frames", [23, 40])
+def test_extract_ivectors_online_matches_jax(frames):
+    rng, _, _, _, _, jp = _params(4)
+    tp = ti.ivector_params_from_numpy(_numpy_fields(jp), "cpu")
+    feats = (rng.randn(2, frames, 6) * 2).astype(np.float32)
+    want = np.asarray(ji.extract_ivectors_online(jnp.asarray(feats), jp))
+    got = ti.extract_ivectors_online(torch.as_tensor(feats), tp).numpy()
+    assert got.shape == want.shape == (2, -(-frames // jp.ivector_period), tp.ivector_dim)
+    np.testing.assert_allclose(got, want, rtol=IV_TOL, atol=IV_TOL)

@@ -28,6 +28,7 @@ from rhasspy_speech_torch.ops.frontend import (
 from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch
 from rhasspy_speech_torch.ops.viterbi_cuda import (
     CLUSTER_SIZES,
+    kernel_states,
     launch,
     plan_viterbi,
     smem_layout,
@@ -196,6 +197,79 @@ def test_viterbi_kernel_every_cluster_size(cuda, cluster, resident):
                             cluster=cluster, resident=resident)
 
 
+def assert_chunked_decode_bit_exact(dense, device, B, cluster=None, resident=True, seed=0):
+    """A stream decoded in 7-frame chunks, each one launch that starts from
+    the alpha the previous launch returned: alpha and backpointers equal to
+    the plain ``viterbi(alpha0=...)`` chunk by chunk, and the final alpha to
+    one whole decode."""
+    rng = np.random.RandomState(seed)
+    T, Tc = 20, 7
+    g = DecodeGraph.from_dense(dense, device)
+    compact = dense.num_arcs <= 65533
+    lp = torch.as_tensor(rng.randn(B, T, dense.num_pdfs).astype(np.float32), device=device)
+    lens = torch.as_tensor(rng.randint(0, T + 1, size=B), dtype=torch.int32, device=device)
+    lens[0] = T
+    whole_alpha, _ = viterbi(g, lp, 0.7, lens, compact_bp=compact)
+    alpha = None
+    for lo in range(0, T, Tc):
+        chunk = lp[:, lo : lo + Tc].contiguous()
+        clen = (lens - lo).clamp(0, chunk.shape[1]).contiguous()
+        want_alpha, want_bps = viterbi(g, chunk, 0.7, clen, compact_bp=compact, alpha0=alpha)
+        want = backtrace(g, want_alpha, want_bps) + (want_alpha, want_bps)
+        before = viterbi_decode.launches
+        if cluster is None:
+            got = viterbi_decode(g, chunk, 0.7, clen, return_forward=True, alpha0=alpha)
+        else:
+            got = launch(g, plan_viterbi(g, cluster), resident, chunk, 0.7, clen, alpha)
+        torch.cuda.synchronize()
+        assert viterbi_decode.launches == before + 1
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(
+                a.cpu().to(torch.int64 if a.dtype == torch.uint16 else a.dtype).numpy(),
+                b.cpu().to(torch.int64 if b.dtype == torch.uint16 else b.dtype).numpy(),
+            )
+        alpha = got[3]
+    assert torch.equal(alpha, whole_alpha)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", CLUSTER_SIZES)
+@pytest.mark.parametrize("resident", [True, False], ids=["smem_tables", "l2_tables"])
+def test_viterbi_kernel_carried_alpha_every_cluster_size(cuda, cluster, resident):
+    dense = random_decode_graph(np.random.RandomState(13), 4000, 2500, 500, hubs=3, hub_arcs=40)
+    assert_chunked_decode_bit_exact(dense, cuda, B=4, cluster=cluster, resident=resident, seed=21)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["folded_b1", "unfolded", "int32_bp", "deployment_b1",
+                                  "deployment_b32"])
+def test_viterbi_kernel_carried_alpha(cuda, kind):
+    """``viterbi_decode(alpha0=...)`` as the streaming transcriber calls it
+    (B = 1, T = 7) and batched, on folded and unfolded graphs and with
+    int32 backpointers."""
+    rng = np.random.RandomState(17)
+    if kind == "folded_b1":
+        assert_chunked_decode_bit_exact(random_graph(rng, 300, 500, hubs=2), cuda, B=1, seed=22)
+    elif kind == "unfolded":
+        assert_chunked_decode_bit_exact(random_graph(rng, 53, 200, folded=False), cuda, B=3,
+                                        seed=23)
+    elif kind == "int32_bp":
+        assert_chunked_decode_bit_exact(random_graph(rng, 3000, 66000), cuda, B=2, seed=24)
+    else:
+        assert_chunked_decode_bit_exact(random_decode_graph(rng), cuda,
+                                        B=1 if kind == "deployment_b1" else 32, seed=25)
+
+
+@pytest.mark.cuda
+def test_viterbi_kernel_rejects_bad_carried_alpha(cuda):
+    g = DecodeGraph.from_dense(random_graph(np.random.RandomState(18), 37, 120), cuda)
+    lp = torch.zeros((2, 3, 40), device=cuda)
+    with pytest.raises(ValueError, match="alpha0"):
+        viterbi_decode(g, lp, alpha0=torch.zeros((1, 37), device=cuda))
+    with pytest.raises(ValueError, match="alpha0"):
+        viterbi_decode(g, lp, alpha0=torch.zeros((2, 37), dtype=torch.float64, device=cuda))
+
+
 @pytest.mark.cuda
 def test_viterbi_kernel_deployment_size_batch32(cuda):
     """14,200 states / 38,400 arcs at the main path's batch: C = 4, tables
@@ -234,8 +308,11 @@ def test_viterbi_kernel_large_graph_shared_memory(cuda):
 
 @pytest.mark.cuda
 def test_viterbi_kernel_rejects_oversized_graph(cuda):
+    """``kernel_states`` is the kernel's reach (``select_decoder`` names the
+    scan past it); a launch past it raises."""
     rng = np.random.RandomState(12)
     g = DecodeGraph.from_dense(random_graph(rng, 40000, 10), cuda)
+    assert 14200 < kernel_states(cuda) < 40000
     lp = torch.zeros((1, 2, 40), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         viterbi_decode(g, lp)

@@ -105,17 +105,159 @@ def test_require_fuzzy_rejects_like_jax(trained):
 
 
 def test_unported_options_raise(trained):
-    """bf16 and the decoders for graphs too big for dense backpointers
-    (checkpointed for 1-best, frontier for k-best) name their ROADMAP
-    items."""
+    """bf16 names its ROADMAP item; the decoders for graphs too big for
+    dense backpointers answer now (the routing tests below) and no error
+    names their item any more."""
     model_dir, graph_dir, pcms = trained
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", compute_dtype="bfloat16")
+    # a budget that leaves the frontier a state or two a frame: a beam too
+    # narrow to reach a final state, in both packages alike
     tiny = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", decode_memory_budget=1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        tiny.transcribe_pcm_batch(pcms[:1])
-    with pytest.raises(NotImplementedError, match="frontier.*ROADMAP.*item 10"):
-        tiny.transcribe_pcm_batch(pcms[:1], nbest=3)
+    jtiny = JaxTranscriber(model_dir, graph_dir, decode_memory_budget=1024)
+    assert tiny.transcribe_pcm_batch(pcms[:1]) == jtiny.transcribe_pcm_batch(pcms[:1])
+    assert tiny.last_decode_plan[0] == "frontier"
+    assert tiny.transcribe_pcm_batch(pcms[:1], nbest=3) == jtiny.transcribe_pcm_batch(
+        pcms[:1], nbest=3)
+
+
+def _plans(tt, jt, batch, frames, k):
+    from rhasspy_speech_tpu.pipeline.transcribe import select_decoder as jax_select
+
+    g = jt.artifacts.graph
+    want = jax_select(g.num_states, batch, frames, k, jt.max_active, jt.decode_memory_budget,
+                      out_degree=jt._graph_out_degree(), num_arcs=g.num_arcs)
+    assert tt._plan(batch, frames, k) == want
+    return want
+
+
+def _long(pcms):
+    """The utterances followed by 1.2 s of silence: enough output frames
+    (>= 72) for a checkpointed stream to cost less than a dense one."""
+    from rhasspy_speech_tpu.testing.synthetic import _silence_wave
+
+    sil = _silence_wave(16000, np.random.RandomState(1))
+    sil = np.concatenate([sil, sil])[:19200]
+    return [np.concatenate([p, sil]).astype(np.float32) for p in pcms]
+
+
+def _budget(tt, pcms, mode):
+    """A decode budget just under one dense 1-best stream's backpointers
+    (-> checkpointed), or under one checkpointed stream's (-> frontier)."""
+    g = tt.artifacts.graph
+    frames = tt._acoustic_batch(pcms)[0].shape[1]
+    if mode == "checkpointed":
+        return frames * g.num_states * 2 - 1
+    return (-(-frames // 32) + 32) * g.num_states * 4 - 1
+
+
+@pytest.mark.parametrize("mode", ["checkpointed", "frontier"])
+def test_starved_budget_routes_like_jax_1best(trained, mode):
+    """A budget below the dense backpointer bytes flips the decoder, to the
+    one the JAX transcriber picks (``out_degree`` and all), and the
+    transcripts are the JAX transcriber's, also for a mixed-length batch."""
+    model_dir, graph_dir, pcms = trained
+    pcms = _long(pcms)
+    budget = _budget(Nnet3WavTranscriber(model_dir, graph_dir, device="cpu"), pcms, mode)
+    jt = JaxTranscriber(model_dir, graph_dir, decode_memory_budget=budget)
+    tt = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", decode_memory_budget=budget)
+    assert tt._graph_out_degree() == jt._graph_out_degree() > 1
+    for batch in (pcms[:1], pcms):
+        got = tt.transcribe_pcm_batch(batch)
+        frames = tt._acoustic_batch(batch)[0].shape[1]
+        assert _plans(tt, jt, len(batch), frames, 1)[0] == mode
+        assert got == jt.transcribe_pcm_batch(batch)
+        if mode == "checkpointed" or len(batch) == 1:
+            # exact; the frontier's K shrinks with the batch (the budget is
+            # shared), and at 3 streams it is a beam that may lose a path
+            assert got == [[s] for s in SPOKEN[: len(batch)]]
+    assert tt.last_decode_plan[0] == mode
+
+
+def test_checkpointed_route_equals_dense_traces(trained):
+    """Through ``_decode_traces`` the checkpointed route (sub-batches of one
+    stream here) returns the dense route's arrays, bit for bit."""
+    model_dir, graph_dir, pcms = trained
+    pcms = _long(pcms)
+    dense = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu")
+    ckpt = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu",
+                               decode_memory_budget=_budget(dense, pcms, "checkpointed"))
+    log_probs, lengths = dense._acoustic_batch(pcms)
+    want = dense._decode_traces(log_probs, lengths)
+    got = ckpt._decode_traces(log_probs, lengths)
+    assert (dense.last_decode_plan[0], ckpt.last_decode_plan) == ("dense", ("checkpointed", 1))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_frontier_route_nbest_equals_jax(trained):
+    """n-best over a starved budget goes to the frontier with the K the JAX
+    transcriber computes; word lists equal, costs within the utterance
+    tolerance, and the top hypothesis is the dense k-best's."""
+    model_dir, graph_dir, pcms = trained
+    dense = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu")
+    g = dense.artifacts.graph
+    frames = dense._acoustic_batch(pcms)[0].shape[1]
+    budget = frames * g.num_states * 3 * 4 + g.num_arcs * 3 * 4 - 1  # under one dense stream
+    jt = JaxTranscriber(model_dir, graph_dir, decode_memory_budget=budget)
+    tt = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", decode_memory_budget=budget)
+    want, got = jt._decode_batch(pcms, 3), tt._decode_batch(pcms, 3)
+    mode, K = _plans(tt, jt, len(pcms), frames, 3)
+    assert mode == "frontier" and tt.last_decode_plan == (mode, K) and K < g.num_states
+    assert [[w for w, _ in h] for h in got] == [[w for w, _ in h] for h in want]
+    for g_h, w_h in zip(got, want):
+        np.testing.assert_allclose([c for _, c in g_h], [c for _, c in w_h], atol=COST_ATOL)
+    assert tt.transcribe_pcm_batch(pcms, nbest=3) == jt.transcribe_pcm_batch(pcms, nbest=3)
+    # the longest utterance alone: the same budget leaves every state, exact
+    i = int(np.argmax([len(p) for p in pcms]))
+    one = tt._decode_batch([pcms[i]], 3)[0]
+    assert tt.last_decode_plan == ("frontier", g.num_states)
+    top_words, top_cost = dense._decode_batch([pcms[i]], 3)[0][0]
+    assert one[0][0] == top_words and abs(one[0][1] - top_cost) <= COST_ATOL
+    assert tt.transcribe_pcm_batch([pcms[i]], nbest=3)[0][0] == SPOKEN[i]
+
+
+def test_frontier_route_passes_budget_beam_and_min_active(trained, monkeypatch):
+    from rhasspy_speech_torch.pipeline import transcribe as tmod
+
+    model_dir, graph_dir, pcms = trained
+    pcms = _long(pcms)
+    budget = _budget(Nnet3WavTranscriber(model_dir, graph_dir, device="cpu"), pcms[:1], "frontier")
+    tt = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", decode_memory_budget=budget,
+                             beam=17.0, min_active=5)
+    seen = {}
+    real = tmod.viterbi_topk_cached
+
+    def recording(graph, log_probs, k, **kw):
+        seen.update(kw, k=k, graph=graph)
+        return real(graph, log_probs, k, **kw)
+
+    monkeypatch.setattr(tmod, "viterbi_topk_cached", recording)
+    assert tt.transcribe_pcm_batch(pcms[:1]) == [[SPOKEN[0]]]
+    assert (seen["scratch_bytes"], seen["beam"], seen["min_active"]) == (budget, 17.0, 5)
+    assert seen["k"] == tt.last_decode_plan[1] and seen["graph"].base is tt.device_graph
+    assert seen["graph"] is tt._frontier_graph  # built once, lazily
+
+
+def test_dense_sub_batching_matches_whole_batch(trained):
+    """A budget that keeps the dense mode but forces sub-batches of one
+    stream decodes like the whole batch, 1-best and k-best."""
+    from rhasspy_speech_torch.pipeline.transcribe import select_decoder
+
+    model_dir, graph_dir, pcms = trained
+    whole = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu")
+    g = whole.artifacts.graph
+    frames = whole._acoustic_batch(pcms)[0].shape[1]
+    per_1best = frames * g.num_states * 2
+    per_kbest = frames * g.num_states * 2 * 4 + g.num_arcs * 2 * 4
+    small = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", decode_memory_budget=per_1best + 1)
+    assert small.transcribe_pcm_batch(pcms) == whole.transcribe_pcm_batch(pcms)
+    assert small.last_decode_plan == ("dense", 1)
+    small_k = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", decode_memory_budget=per_kbest + 1)
+    assert small_k.transcribe_pcm_batch(pcms, nbest=2) == whole.transcribe_pcm_batch(pcms, nbest=2)
+    assert small_k.last_decode_plan == ("dense", 1)
+    assert select_decoder(g.num_states, len(pcms), frames, 2, 7000, per_kbest + 1,
+                          num_arcs=g.num_arcs) == ("dense", 1)
 
 
 def test_cuda_default_raises_without_cuda(trained):
@@ -197,6 +339,51 @@ def test_copied_select_decoder_equals_original():
         kw = dict(budget=budget, num_arcs=arcs, out_degree=7)
         assert select_decoder(states, batch, frames, k, 7000, **kw) == jax_select(
             states, batch, frames, k, 7000, **kw)
+
+
+def test_select_decoder_names_the_scan_past_the_kernels_reach():
+    """With ``kernel_states`` given, a dense 1-best decode of a larger graph
+    is the "scan" mode with the same sub-batch; every other answer stays."""
+    from rhasspy_speech_torch.pipeline.transcribe import select_decoder
+
+    kw = dict(budget=3 << 30, num_arcs=90000, out_degree=7)
+    dense = select_decoder(40000, 32, 112, 1, 7000, **kw)
+    assert dense[0] == "dense"
+    assert select_decoder(40000, 32, 112, 1, 7000, kernel_states=29000, **kw) == ("scan", dense[1])
+    assert select_decoder(29000, 32, 112, 1, 7000, kernel_states=29000, **kw) == dense
+    assert select_decoder(40000, 32, 112, 3, 7000, kernel_states=29000, **kw) == select_decoder(
+        40000, 32, 112, 3, 7000, **kw)
+    for budget in (1 << 24, 1 << 20):  # checkpointed, frontier
+        small = dict(kw, budget=budget)
+        assert select_decoder(40000, 32, 112, 1, 7000, kernel_states=29000, **small) == (
+            select_decoder(40000, 32, 112, 1, 7000, **small))
+        assert select_decoder(40000, 32, 112, 1, 7000, **small)[0] != "dense"
+
+
+def test_alpha_states_match_alpha_fits():
+    from rhasspy_speech_torch.ops.viterbi_cuda import H100_MAX_SMEM, alpha_fits, max_alpha_states
+
+    for smem in (H100_MAX_SMEM, 49152, 1000, 31):
+        n = max_alpha_states(smem)
+        assert (n == 0 or alpha_fits(n, smem)) and not alpha_fits(n + 1, smem)
+
+
+def test_scan_mode_decodes_like_dense(trained):
+    """A transcriber whose graph is past its kernel's reach plans "scan"
+    (the silence first pass too) and transcribes like the dense mode."""
+    model_dir, graph_dir, pcms = trained
+    whole = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", silence_weight=0.5)
+    assert whole._kernel_states is None
+    want = whole.transcribe_pcm_batch(pcms)
+    assert whole.last_decode_plan[0] == "dense"
+    scan = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", silence_weight=0.5)
+    scan._kernel_states = scan.artifacts.graph.num_states - 1
+    seen = []
+    real = scan._decode_traces
+    scan._decode_traces = lambda lp, lens, plan=None: seen.append(plan) or real(lp, lens, plan)
+    assert scan.transcribe_pcm_batch(pcms) == want
+    assert scan.last_decode_plan == ("scan", len(pcms))
+    assert [p[0] for p in seen] == ["scan", "scan"]  # first pass, then the decode
 
 
 def test_copied_read_wav_equals_original(trained, tmp_path):

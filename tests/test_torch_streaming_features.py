@@ -1,0 +1,154 @@
+"""The port's incremental feature assembly against the JAX package's.
+
+``StreamFeaturizer`` rows over uneven chunkings, for ``snip_edges`` true and
+false, against the JAX featurizer's rows at the same chunking and against
+the port's batch rows: rtol 1e-4 / atol 2e-3, the tolerance
+tests/test_torch_frontend.py holds the port's MFCC to against the JAX
+package's (both f32, summed in another order). A framing fault shifts whole
+windows and misses that by orders of magnitude. The host functions copied
+from the JAX module (``_reflect_idx``, ``stage_ivector_window``,
+``silence_weights_from_chunk``, ``online_cmvn_numpy``) must equal their
+originals exactly.
+"""
+
+import types
+
+import numpy as np
+import pytest
+
+from rhasspy_speech_tpu.ops import frontend as jfe
+from rhasspy_speech_tpu.pipeline import streaming_features as jsf
+
+import torch
+
+from rhasspy_speech_torch.ops import frontend as tfe
+from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch
+from rhasspy_speech_torch.pipeline import streaming_features as tsf
+
+RTOL, ATOL = 1e-4, 2e-3
+CFG = dict(num_mel_bins=23, num_ceps=13)
+
+
+def _jax_am(snip):
+    cfg = jfe.FrontendConfig(snip_edges=snip, **CFG)
+    return types.SimpleNamespace(frontend_config=cfg, frontend_params=jfe.make_frontend_params(cfg),
+                                 pitch_config=None)
+
+
+def _torch_am(snip):
+    cfg = tfe.FrontendConfig(snip_edges=snip, **CFG)
+    return types.SimpleNamespace(frontend_config=cfg, device=torch.device("cpu"),
+                                 frontend_params=tfe.make_frontend_params(cfg, "cpu"))
+
+
+def _stream_rows(fz, pcm, chunks):
+    state = fz.new_state()
+    rows, off = [], 0
+    for c in chunks:
+        rows.append(fz.push(state, pcm[off : off + c]))
+        off += c
+    rows.append(fz.push(state, pcm[off:], flush=True))
+    return np.concatenate([np.zeros((0, fz.num_ceps), np.float32)] + rows, axis=0)
+
+
+@pytest.mark.parametrize("snip", [True, False], ids=["snip", "no_snip"])
+@pytest.mark.parametrize(
+    "n_samples,chunks",
+    [
+        (16000, [1024] * 10),
+        (16000, [160, 3360, 7, 4000, 1]),
+        (4321, [4321]),
+        (399, [399]),  # under one frame window
+        (100, [100]),  # shorter than the reflection prefix
+        (80, [80]),  # exactly one centered frame (snip_edges=false)
+        (16013, [16013]),
+    ],
+)
+def test_featurizer_matches_jax_and_batch(snip, n_samples, chunks):
+    pcm = (1000.0 * np.random.RandomState(7).randn(n_samples)).astype(np.float32)
+    am = _torch_am(snip)
+    got = _stream_rows(tsf.StreamFeaturizer(am), pcm, chunks)
+    want = _stream_rows(jsf.StreamFeaturizer(_jax_am(snip)), pcm, chunks)
+    assert got.shape == want.shape == (tfe.num_frames(am.frontend_config, n_samples), 13)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    if got.shape[0]:
+        batch = mfcc_batch(am.frontend_params, torch.as_tensor(pcm[None]))[0].numpy()
+        np.testing.assert_allclose(got, batch, rtol=RTOL, atol=ATOL)
+
+
+def test_prepare_commit_contract_matches_batch():
+    """The batched-MFCC path (``prepare_mfcc_buf`` / ``commit_mfcc``) sees
+    virtual-signal buffers and lands the batch rows."""
+    am = _torch_am(False)
+    fz = tsf.StreamFeaturizer(am)
+    pcm = (1000.0 * np.random.RandomState(3).randn(9000)).astype(np.float32)
+    state, rows = fz.new_state(), []
+    for off in range(0, 9000, 2048):
+        chunk = pcm[off : off + 2048]
+        r = fz.prepare_mfcc_buf(state, chunk)
+        if r is None:
+            continue
+        buf, n = r
+        feats = mfcc_batch(fz.stream_params, torch.as_tensor(buf[None]))[0][:n].numpy()
+        fz.commit_mfcc(state, buf, n)
+        rows.append(feats)
+    rows.append(fz.push(state, np.zeros(0, np.float32), flush=True))
+    got = np.concatenate(rows, axis=0)
+    want = mfcc_batch(am.frontend_params, torch.as_tensor(pcm[None]))[0].numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_pitch_half_raises_naming_its_item():
+    am = _torch_am(True)
+    fz = tsf.StreamFeaturizer(am)
+    state = fz.new_state()
+    for call in (lambda: fz.pitch_window_array(state),
+                 lambda: fz.consume_pitch_rows(state, np.zeros((1, 3), np.float32)),
+                 lambda: fz._extract_pitch(state),
+                 lambda: fz.merge_pitch(state, np.zeros((0, 3), np.float32))):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            call()
+    am.pitch_config = object()
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tsf.StreamFeaturizer(am)
+
+
+def test_copied_reflect_idx_equals_original():
+    for n in (1, 3, 80, 400):
+        idx = np.arange(-2 * n - 3, 3 * n + 3)
+        np.testing.assert_array_equal(tsf._reflect_idx(idx, n), jsf._reflect_idx(idx, n))
+
+
+@pytest.mark.parametrize("with_stats", [True, False])
+def test_copied_ivector_window_and_cmvn_equal_original(with_stats):
+    rng = np.random.RandomState(5)
+    feats = (rng.randn(70, 6) * 3 + 2).astype(np.float32)
+    stats = None
+    if with_stats:
+        stats = np.concatenate([np.full((1, 6), 150.0), [[60.0]]], axis=1)
+        stats = np.concatenate([stats, np.zeros((1, 7))], axis=0)
+    np.testing.assert_array_equal(
+        tsf.online_cmvn_numpy(feats, stats, cmn_window=20, global_frames=7),
+        jsf.online_cmvn_numpy(feats, stats, cmn_window=20, global_frames=7))
+    for t0, have in ((0, 30), (21, 70), (63, 66), (63, 70)):
+        got = tsf.stage_ivector_window(feats, t0, 21, have, 3, 3, stats)
+        want = jsf.stage_ivector_window(feats, t0, 21, have, 3, 3, stats)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("k_best", [1, 3])
+def test_copied_silence_weights_from_chunk_equals_original(k_best):
+    rng = np.random.RandomState(6)
+    S, A, Tc = 9, 30, 7
+    arc_pdf, arc_src = rng.randint(0, 8, size=A), rng.randint(0, S, size=A)
+    sil = np.asarray([1, 4, 5])
+    shape = (Tc, S) if k_best == 1 else (Tc, S, k_best)
+    bp = rng.randint(-2, A * k_best, size=shape).astype(np.int32)
+    alpha = rng.rand(*shape[1:]).astype(np.float32)
+    np.testing.assert_array_equal(
+        tsf.silence_weights_from_chunk(bp, alpha, arc_pdf, arc_src, sil, k_best=k_best),
+        jsf.silence_weights_from_chunk(bp, alpha, arc_pdf, arc_src, sil, k_best=k_best))
+    assert tsf.silence_weights_from_chunk(bp, alpha, arc_pdf, arc_src, np.zeros(0, np.int64)) is None
+    assert tsf.silence_weights_from_chunk(bp[:0], alpha, arc_pdf, arc_src, sil) is None
