@@ -79,7 +79,23 @@ three hand-written kernels against their plain PyTorch twins:
    carried alpha against ``viterbi(alpha0=...)`` bit for bit at T=7, B=1 and
    B=32 on both graphs; a chunk's milliseconds stage by stage and the
    stream's real-time factor;
-12. checks that no module of ``jax`` or ``rhasspy_speech_tpu`` was imported
+12. the stream scheduler (``pipeline.scheduler.StreamScheduler``, 32 slots):
+   the 32 utterances fed interleaved in 1,024-sample pushes (stream i from
+   round i % 4, a tick after each round), on the flagship graph and on the
+   13,789-state generated grammar. Every tick makes at most one MFCC and one
+   Viterbi launch, both kernels run, and the tick's Viterbi outputs (alpha
+   and backpointers) on a tick with idle slots and on one with a partial
+   chunk are bit-equal to the plain decoder's on the same log-probs and
+   ``alpha0``; at least 30 of 32 transcripts equal the single stream's (a
+   product at 32 windows may differ in the last bits from one at one, and
+   on noise that can flip a transcript); tick ms p50 / p90 (host clock),
+   slots a tick, the fleet's real-time factor, and each stage's ms in a
+   second, synchronized pass. Then the port's synthetic speech profile
+   (``testing/synthetic.py``): 8 spoken sentences with trailing silence and
+   no ``finish()`` must all endpoint to the spoken sentence and the batch
+   transcript, plain and with ``silence_weight`` (which must weigh at least
+   one silence frame);
+13. checks that no module of ``jax`` or ``rhasspy_speech_tpu`` was imported
    (the card's machine has JAX installed; the port must not reach it).
 
 Each kernel's entry in the ``kernels`` line carries ``bound_ms``, the least
@@ -113,8 +129,13 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from rhasspy_speech_torch import Nnet3StreamTranscriber, Nnet3WavTranscriber  # noqa: E402
-from rhasspy_speech_torch.pipeline.artifacts import LangArtifacts  # noqa: E402
+from rhasspy_speech_torch import LangSuffix, Nnet3StreamTranscriber, Nnet3WavTranscriber  # noqa: E402
+from rhasspy_speech_torch.pipeline.artifacts import LangArtifacts, lang_dir_name  # noqa: E402
+from rhasspy_speech_torch.pipeline.endpoint import EndpointConfig  # noqa: E402
+from rhasspy_speech_torch.pipeline.scheduler import StreamScheduler  # noqa: E402
+from rhasspy_speech_torch.pipeline.train import train_model_sync  # noqa: E402
+from rhasspy_speech_torch.testing import build_synthetic_profile, synthesize_sentence  # noqa: E402
+from rhasspy_speech_torch.testing.synthetic import _silence_wave  # noqa: E402
 from rhasspy_speech_torch.testing.big_grammar import (  # noqa: E402
     train_big_grammar,
     write_big_grammar_model_dir,
@@ -171,6 +192,16 @@ STREAMS = 8
 STREAM_CHUNK = 1024  # samples a push
 STREAM_NBEST = 3
 CHUNK_FRAMES = 7
+SCHED_STAGGER = 4  # stream i starts feeding at round i % 4
+SCHED_MIN_EQUAL = 30  # of 32 scheduled transcripts that must equal the single stream's
+SPEECH_LEXICON = {
+    "turn": ["t", "er", "n"], "on": ["aa", "n"], "off": ["ao", "f"], "the": ["dh", "ah"],
+    "light": ["l", "ay", "t"], "fan": ["f", "ae", "n"], "never": ["n", "eh", "v", "er"],
+    "mind": ["m", "ay", "n", "d"],
+}
+SPEECH_GRAMMAR = ["turn (on|off) [the] (light|fan) [never mind]", "never mind"]
+SPEECH_TEXTS = ["turn on the light", "never mind", "turn off the fan", "turn on fan",
+                "turn off light never mind", "turn on the fan", "turn off the light", "never mind"]
 KERNELS = ("mfcc", "viterbi", "windowed_relax")
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM, 700 W
 
@@ -775,6 +806,7 @@ def big_graph_phase(root, dev, pcms):
           f"holds {kernel_states(dev)} and raises): select_decoder's \"scan\" mode decoded "
           f"{tuple(lp.shape)} by the per-frame scan, equal to the checkpointed decode and to CPU "
           f"tensors (4 streams); scan {scan_ms:.3f} ms (CUDA events)")
+    return model_dir, graph_dir
 
 
 def carried_alpha_phase(t, lp_k, lengths, dev):
@@ -972,6 +1004,259 @@ def stream_phase(root, model_dir, graph_dir, t, dev, pcms, fuzzy):
     return counts, k1
 
 
+def sched_run(sched, pcms, on_tick=None):
+    """The phase's traffic through ``sched``: stream i fed from round i %
+    SCHED_STAGGER in STREAM_CHUNK pushes and finished after its last, a
+    tick after each round, then ticks until every transcript is in.
+    Returns (transcripts, [(tick ms, slots decoded, K1 launches, K2
+    launches)], wall seconds)."""
+    sids = [sched.open_stream() for _ in pcms]
+    check(all(sid >= 0 for sid in sids), "the scheduler refused a stream")
+    ticks = []
+
+    def tick():
+        k1, k2 = mfcc_batch.launches, viterbi_decode.launches
+        t0 = time.perf_counter()
+        lanes = sched.step()
+        torch.cuda.synchronize()
+        ticks.append(((time.perf_counter() - t0) * 1000.0, lanes,
+                      mfcc_batch.launches - k1, viterbi_decode.launches - k2))
+        if on_tick is not None:
+            on_tick()
+
+    t0 = time.perf_counter()
+    pushes = [-(-p.shape[0] // STREAM_CHUNK) for p in pcms]
+    for r in range(max(n + i % SCHED_STAGGER for i, n in enumerate(pushes))):
+        for i, (sid, pcm) in enumerate(zip(sids, pcms)):
+            k = r - i % SCHED_STAGGER
+            if 0 <= k < pushes[i]:
+                sched.feed(sid, pcm[k * STREAM_CHUNK : (k + 1) * STREAM_CHUNK])
+                if k == pushes[i] - 1:
+                    sched.finish(sid)
+        tick()
+    for _ in range(200):
+        if all(sched.poll(sid) is not None for sid in sids):
+            break
+        tick()
+    wall = time.perf_counter() - t0
+    texts = [sched.poll(sid) for sid in sids]
+    check(all(x is not None for x in texts), "a scheduled stream never finished")
+    for sid in sids:
+        sched.close(sid)
+    return texts, ticks, wall
+
+
+def capture_tick_inputs(sched, store):
+    """Wrap ``sched._decode`` to keep, for the first tick with an idle slot
+    and the first with a partial chunk, the decode's inputs (log-probs,
+    lengths, alpha0, rows) and outputs (alpha, backpointers); and
+    ``sched._features`` to keep the first tick's PCM batch."""
+    decode, features = sched._decode, sched._features
+
+    def wrapped_decode(log_probs, lengths, rows):
+        lens = lengths.cpu()
+        kind = ("partial" if bool(((lens > 0) & (lens < sched._chunk_out)).any())
+                else "idle" if bool((lens == 0).any()) else None)
+        keep = kind is not None and kind not in store
+        alpha0 = sched._alpha.clone() if keep else None
+        bps = decode(log_probs, lengths, rows)
+        if keep:
+            store[kind] = (log_probs.clone(), lengths.clone(), alpha0, rows,
+                           sched._alpha.clone(), bps.clone())
+        return bps
+
+    def wrapped_features(batch):
+        store.setdefault("pcm", batch.copy())
+        return features(batch)
+
+    sched._decode, sched._features = wrapped_decode, wrapped_features
+
+
+def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy):
+    """The scheduler at 32 slots on one graph: counted run, K2 held bit for
+    bit on two ticks, transcripts against the single stream, tick times,
+    stage times. Returns (launch counts, captured tick inputs, scheduler)."""
+    sched = StreamScheduler(model_dir, graph_dir, max_streams=BATCH, device=dev, **fuzzy)
+    g = sched.device_graph
+    check(sched.chunk_decoder == "dense", f"{name}: the tick should decode on the Viterbi kernel")
+    sched_run(sched, pcms)  # warm-up: the chunk plan's first calls at [32, W, D]
+
+    # -- counted: at most one K1 and one K2 launch a tick ----------------------
+    store = {}
+    capture_tick_inputs(sched, store)
+    zero_counts()
+    texts, ticks, _wall = sched_run(sched, pcms)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    del sched._decode, sched._features  # back to the class's methods
+    check(all(k1 <= 1 and k2 <= 1 for _ms, _l, k1, k2 in ticks),
+          f"{name}: a tick launched more than one MFCC or Viterbi kernel")
+    check(counts["mfcc"] > 0 and counts["viterbi"] > 0, f"{name}: kernels not launched: {counts}")
+    check(counts["viterbi"] == sum(1 for t in ticks if t[1] > 0),
+          f"{name}: {counts['viterbi']} Viterbi launches for {sum(1 for t in ticks if t[1])} ticks with work")
+    check(len(texts) == BATCH and all(len(x) == 1 for x in texts), f"{name}: transcripts {texts[:3]}")
+
+    # -- the tick's K2 outputs against the plain decoder, bit for bit ---------
+    check("idle" in store and "partial" in store, f"{name}: no tick with idle slots or partial chunks")
+    compact = g.num_arcs <= twin_decoder._COMPACT_BP_MAX_ARC
+    for kind in ("idle", "partial"):
+        lp, lens, alpha0, rows, alpha1, bps1 = store[kind]
+        want = twin_decoder.viterbi(g, lp, sched.acoustic_scale, lens, compact_bp=compact, alpha0=alpha0)
+        full = viterbi_decode(g, lp, sched.acoustic_scale, lens, return_forward=True, alpha0=alpha0)
+        torch.cuda.synchronize()
+        check(torch.equal(alpha1, want[0]) and torch.equal(bps1.to(torch.int32), want[1][:rows].to(torch.int32)),
+              f"{name}: the tick's Viterbi outputs differ from the plain decoder's ({kind} tick)")
+        check(decode_outputs_equal(full[3:], want), f"{name}: K2 at the tick's shape differs ({kind})")
+        what = "an idle slot" if kind == "idle" else "a partial chunk"
+        print(f"scheduler {name}: the first tick with {what} (lengths {lens.tolist()}): alpha and "
+              f"backpointers bit-equal to the plain decoder's")
+
+    # -- transcripts against the single stream ---------------------------------
+    st = Nnet3StreamTranscriber(model_dir, graph_dir, device=dev)
+    single = [st.transcribe_pcm(p, chunk_samples=STREAM_CHUNK, **fuzzy) for p in pcms]
+    same = sum(a == b for a, b in zip(texts, single))
+    check(same >= SCHED_MIN_EQUAL, f"{name}: only {same} of {BATCH} scheduled transcripts equal the "
+          f"single stream's: {texts} vs {single}")
+
+    # -- tick times, slots a tick, fleet RTF; then stages, synchronized -------
+    _texts, ticks, wall = sched_run(sched, pcms)
+    work = [t for t in ticks if t[1] > 0]
+    ms = np.asarray([t[0] for t in work])
+    idle_ms = np.asarray([t[0] for t in ticks if t[1] == 0])
+    stage_s, calls = {}, {}
+    names = ("_features", "_ready", "_upload", "_reset_lanes", "_fold_ivector", "_acoustic",
+             "_decode", "_download", "_stage_ivector_stats", "_finalize")
+    for n in names:
+        fn = timed_stage(getattr(sched, n), stage_s, n.lstrip("_"))
+
+        def counted(*args, _fn=fn, _n=n.lstrip("_")):
+            calls[_n] = calls.get(_n, 0) + 1
+            return _fn(*args)
+
+        setattr(sched, n, counted)
+    sched_run(sched, pcms)
+    for n in names:
+        delattr(sched, n)
+    stages = {k: f"{v * 1000.0 / calls[k]:.4f} x{calls[k]}" for k, v in stage_s.items()}
+    print(f"scheduler {name} ({g.num_states} states), {BATCH} slots, {BATCH} x {SECONDS} s fed in "
+          f"{STREAM_CHUNK}-sample pushes: launches {counts} over {len(ticks)} ticks ({len(work)} with a "
+          f"chunk); {same} of {BATCH} transcripts equal the single stream's; tick ms (host clock) "
+          f"p50 {np.percentile(ms, 50):.3f} p90 {np.percentile(ms, 90):.3f} (ticks without a chunk: "
+          f"p50 {np.percentile(idle_ms, 50):.3f}); slots a tick with a chunk: mean "
+          f"{np.mean([t[1] for t in work]):.2f}, max {max(t[1] for t in work)}; fleet wall "
+          f"{wall * 1000:.1f} ms, real-time factor {wall / (BATCH * SECONDS):.5f}")
+    print(f"scheduler {name} stages (ms a call x calls, host clock, each synchronized): {stages}")
+    return counts, store, sched
+
+
+def sched_kernel_numbers(sched, store, dev):
+    """K1 and K2 at the tick's shapes against their plain versions: K1 on
+    the first tick's PCM batch, K2 on the tick with idle slots."""
+    params = sched._featurizer.stream_params
+    samples = torch.as_tensor(store["pcm"], device=dev)
+    got, want = mfcc_batch(params, samples), mfcc_batch_torch(params, samples)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=MFCC_RTOL, atol=MFCC_ATOL),
+          f"mfcc kernel vs twin at the tick's shape: max |d| {err}")
+    k1 = {"ms": device_ms(lambda: mfcc_batch(params, samples)),
+          "plain_ms": cuda_ms(lambda: mfcc_batch_torch(params, samples)), "max_abs_err": err}
+    k1["bound_ms"], k1["bound_by"] = bound(*mfcc_work(params, *samples.shape, got.shape[1]))
+    g = sched.device_graph
+    lp, lens, alpha0, _rows, _a, _b = store["idle"]
+    compact = g.num_arcs <= twin_decoder._COMPACT_BP_MAX_ARC
+    out = viterbi_decode(g, lp, sched.acoustic_scale, lens, return_forward=True, alpha0=alpha0)
+    want = twin_decoder.viterbi(g, lp, sched.acoustic_scale, lens, compact_bp=compact, alpha0=alpha0)
+    torch.cuda.synchronize()
+    k2 = {"ms": device_ms(lambda: viterbi_decode(g, lp, sched.acoustic_scale, lens,
+                                                 return_forward=True, alpha0=alpha0)),
+          "plain_ms": cuda_ms(lambda: twin_decoder.viterbi(
+              g, lp, sched.acoustic_scale, lens, compact_bp=compact, alpha0=alpha0), iters=3),
+          "max_abs_err": float((out[3] - want[0]).abs().max())}
+    nbytes, nops = viterbi_work(g, *lp.shape, lens)
+    k2["bound_ms"], k2["bound_by"] = bound(nbytes + 4 * lp.shape[0] * g.num_states, nops)  # + alpha0
+    for name, k, shape in (("K1 mfcc", k1, f"{list(samples.shape)} -> {list(got.shape)}"),
+                           ("K2 viterbi", k2, f"{list(lp.shape)} with alpha0, lengths {lens.tolist()}")):
+        print(f"{name} at the tick's shape {shape}: max |d| {k['max_abs_err']:.3e}; kernel "
+              f"{k['ms']:.4f} ms of device time, plain {k['plain_ms']:.4f} ms, bound "
+              f"{k['bound_ms']:.6f} ms ({k['bound_by']})")
+    return k1, k2
+
+
+def speech_part(root, dev):
+    """The port's synthetic speech profile: 8 spoken sentences with
+    trailing silence, never finished, must endpoint to the spoken sentence
+    and the batch transcript, plain and with silence_weight."""
+    profile = build_synthetic_profile(os.path.join(root, "speech_model"), SPEECH_LEXICON,
+                                      with_ivector=True)
+    intents = {"language": "en", "intents": {"Main": {"data": [{"sentences": SPEECH_GRAMMAR}]}}}
+    train_model_sync("en", intents, os.path.join(root, "speech_train"), profile.model_dir,
+                     lang_suffixes=[LangSuffix.GRAMMAR])
+    graph_dir = os.path.join(root, "speech_train", lang_dir_name(LangSuffix.GRAMMAR))
+    rng = np.random.RandomState(SEED + 11)
+    pcms = [np.concatenate([synthesize_sentence(profile, text, seed=SEED + i),
+                            _silence_wave(16000 + 2000 * i, rng)]).astype(np.float32)
+            for i, text in enumerate(SPEECH_TEXTS)]
+    spoken = [[t] for t in SPEECH_TEXTS]
+    batch = Nnet3WavTranscriber(profile.model_dir, graph_dir, device=dev).transcribe_pcm_batch(pcms)
+    check(batch == spoken, f"speech profile: batch transcripts {batch}")
+    for kw in ({}, {"silence_weight": SILENCE_WEIGHT}):
+        sched = StreamScheduler(profile.model_dir, graph_dir, max_streams=len(pcms),
+                                endpointing=EndpointConfig(), device=dev, **kw)
+        hits = [0]
+        stage = sched._stage_ivector_stats
+
+        def counting(sid, *args, _stage=stage, _sched=sched):
+            _stage(sid, *args)
+            hits[0] += int((_sched.slots[sid].iv_pending_w == np.float32(SILENCE_WEIGHT)).sum())
+
+        sched._stage_ivector_stats = counting
+        sids = [sched.open_stream() for _ in pcms]
+        zero_counts()
+        ticks = 0
+        for off in range(0, max(p.shape[0] for p in pcms), STREAM_CHUNK):
+            for sid, pcm in zip(sids, pcms):
+                if off < pcm.shape[0]:
+                    sched.feed(sid, pcm[off : off + STREAM_CHUNK])
+            sched.step()
+            ticks += 1
+        for _ in range(200):
+            if all(sched.poll(sid) is not None for sid in sids):
+                break
+            sched.step()
+            ticks += 1
+        counts = read_counts()
+        texts = [sched.poll(sid) for sid in sids]
+        check(not any(sched.pool.is_finished(sid) for sid in sids), "a speech stream was finished")
+        check(texts == batch, f"speech profile {kw}: endpointed transcripts {texts} vs batch {batch}")
+        check(counts["mfcc"] > 0 and counts["viterbi"] > 0, f"speech profile: launches {counts}")
+        if kw:
+            check(hits[0] > 0, "silence weighting weighed no frame")
+        print(f"scheduler on the synthetic speech profile {kw or '(plain)'}: {len(pcms)} streams with "
+              f"1-2 s of trailing silence, never finished, all endpointed within {ticks} ticks to the "
+              f"spoken sentences and the batch transcripts; launches {counts}; input frames weighed "
+              f"{SILENCE_WEIGHT} as silence: {hits[0]}")
+
+
+def scheduler_phase(model_dir, graph_dir, big_dirs, root, dev, pcms, fuzzy):
+    """The stream scheduler at full width on both graphs, then on speech;
+    returns the launch counts and K1 / K2 numbers of the flagship graph's
+    tick."""
+    counts, store, sched = sched_graph_part("flagship", model_dir, graph_dir, dev, pcms, fuzzy)
+    k1, k2 = sched_kernel_numbers(sched, store, dev)
+    del sched, store
+    _c, big_store, big = sched_graph_part("13789", *big_dirs, dev, pcms, {})
+    lp, lens, alpha0, _rows, _a, _b = big_store["idle"]
+    big_ms = device_ms(lambda: viterbi_decode(big.device_graph, lp, big.acoustic_scale, lens,
+                                              return_forward=True, alpha0=alpha0))
+    plan, _ = select_plan(big.device_graph, lp.shape[0])
+    print(f"K2 at the tick's shape on {big.device_graph.num_states} states {list(lp.shape)}: "
+          f"{big_ms:.4f} ms of device time in clusters of {plan.cluster}")
+    del big, big_store
+    speech_part(root, dev)
+    return counts, k1, k2
+
+
 def main():
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -1072,7 +1357,11 @@ def main():
         del t, tc
 
         # -- the big-graph decoders ---------------------------------------------
-        big_graph_phase(root, dev, pcms)
+        big_dirs = big_graph_phase(root, dev, pcms)
+
+        # -- the stream scheduler: one K1 and one K2 launch a tick --------------
+        sched_counts, k1_tick, k2_tick = scheduler_phase(
+            model_dir, graph_dir, big_dirs, root, dev, pcms, fuzzy)
 
     # -- K3: the windowed relaxation's entry point ----------------------------
     k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = windowed_relax_phase(dev)
@@ -1081,7 +1370,9 @@ def main():
     # windowed relaxation: library_ms is null for all three. The two
     # "stream" entries are K1 and K2 at the streaming path's shapes (a push,
     # a 7-frame chunk with a carried alpha), their launches counted over one
-    # streamed utterance
+    # streamed utterance; the two "sched_tick" entries at the scheduler
+    # tick's ([32, L] PCM; [32, 7, P] with alpha0 and a length per slot),
+    # their launches counted over the flagship graph's scheduler run
     kernels = [
         {"name": "mfcc", "route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
          "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122",
@@ -1099,6 +1390,13 @@ def main():
          "source": "rhasspy_speech_torch/csrc/viterbi.cu",
          "replaces": "rhasspy_speech_tpu/ops/pallas_decoder.py:370",
          "launches": stream_counts["viterbi"], "library_ms": None, **k2_chunk},
+        {"name": "mfcc_sched_tick", "route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
+         "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122",
+         "launches": sched_counts["mfcc"], "library_ms": None, **k1_tick},
+        {"name": "viterbi_sched_tick", "route": "cuda",
+         "source": "rhasspy_speech_torch/csrc/viterbi.cu",
+         "replaces": "rhasspy_speech_tpu/ops/pallas_decoder.py:370",
+         "launches": sched_counts["viterbi"], "library_ms": None, **k2_tick},
         {"name": "windowed_relax", "route": "cuda", "source": "rhasspy_speech_torch/csrc/windowed_relax.cu",
          "replaces": "examples/pallas_windowed_cost.py:59",
          "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,

@@ -3,7 +3,9 @@
 Batch WAV transcription (PCM -> MFCC -> i-vector -> TDNN-F -> Viterbi ->
 words -> fuzzy match; ``Nnet3WavTranscriber``) and single-stream streaming
 transcription (``Nnet3StreamTranscriber``: one MFCC launch a push, one
-Viterbi launch a 7-frame chunk with the alpha carried on the device) run on
+Viterbi launch a 7-frame chunk with the alpha carried on the device) and
+many streams at once (``pipeline.scheduler.StreamScheduler``: one MFCC and
+one Viterbi launch a tick over every stream slot) run on
 one CUDA device through two hand-written Hopper kernels (``csrc/mfcc.cu``,
 ``csrc/viterbi.cu``); every kernel has a plain PyTorch twin that runs for
 CPU tensors. The host layers
@@ -12,7 +14,8 @@ own copies of the JAX package's host modules, which hold no JAX code; the
 port imports nothing of the JAX package.
 """
 
-from .const import LangSuffix
+from .const import LangSuffix, ModelType, WordCasing
+from .tools import KaldiTools
 from .pipeline import (
     AcousticModel,
     KaldiNnet3StreamTranscriber,
@@ -22,13 +25,19 @@ from .pipeline import (
 )
 from .pipeline.train import train_model, train_model_sync
 
+__version__ = "0.2.0"
+
 __all__ = [
     "AcousticModel",
     "KaldiNnet3StreamTranscriber",
     "KaldiNnet3WavTranscriber",
+    "KaldiTools",
     "LangSuffix",
+    "ModelType",
     "Nnet3StreamTranscriber",
     "Nnet3WavTranscriber",
+    "WordCasing",
     "train_model",
     "train_model_sync",
+    "__version__",
 ]

@@ -1,9 +1,10 @@
 """Batched MFCC frontend in PyTorch: the plain twin of the MFCC kernel.
 
 Counterpart of ``rhasspy_speech_tpu/ops/frontend.py``. The configuration
-and the NumPy table functions (``FrontendConfig``, ``num_frames``,
-``frame_indices``, the window, mel, DCT and lifter tables) are copied from
-there, because that module imports JAX; ``tests/test_torch_frontend.py``
+and the NumPy functions (``FrontendConfig``, ``num_frames``,
+``frame_indices``, the window, mel, DCT and lifter tables, and the float64
+``mfcc_numpy`` that ``testing/synthetic.py`` builds its model from) are
+copied from there, because that module imports JAX; ``tests/test_torch_frontend.py``
 holds each copy equal to the original. ``mfcc_batch_torch`` follows
 ``mfcc_batch`` step for step (Kaldi feature-mfcc.cc numerics) and is what
 ``ops.mfcc_cuda.mfcc_batch`` runs for tensors on the CPU and what the CUDA
@@ -198,6 +199,48 @@ def make_dct_matrix(num_rows: int, num_cols: int) -> np.ndarray:
 def make_lifter_coeffs(q: float, num_ceps: int) -> np.ndarray:
     i = np.arange(num_ceps, dtype=np.float64)
     return 1.0 + 0.5 * q * np.sin(np.pi * i / q)
+
+
+def mfcc_numpy(cfg: FrontendConfig, samples: np.ndarray) -> np.ndarray:
+    """Reference MFCC over one waveform [S] -> [T, num_ceps] (float64)."""
+    samples = np.asarray(samples, dtype=np.float64)
+    T = num_frames(cfg, samples.shape[0])
+    window = window_function(cfg)
+    mel_w = make_mel_matrix(cfg)
+    dct = make_dct_matrix(cfg.num_ceps, cfg.num_mel_bins)
+    lifter = make_lifter_coeffs(cfg.cepstral_lifter, cfg.num_ceps)
+    padded = cfg.padded_window_size
+    eps = float(np.finfo(np.float32).eps)
+
+    idx = frame_indices(cfg, samples.shape[0])
+    out = np.zeros((T, cfg.num_ceps), dtype=np.float64)
+    for t in range(T):
+        frame = samples[idx[t]].copy()
+        if cfg.remove_dc_offset:
+            frame -= frame.mean()
+        if cfg.use_energy and cfg.raw_energy:
+            log_e = np.log(max(np.dot(frame, frame), eps))
+        if cfg.preemph_coeff != 0.0:
+            prev = np.concatenate([frame[:1], frame[:-1]])
+            frame = frame - cfg.preemph_coeff * prev
+        frame = frame * window
+        if cfg.use_energy and not cfg.raw_energy:
+            log_e = np.log(max(np.dot(frame, frame), eps))
+        buf = np.zeros(padded, dtype=np.float64)
+        buf[: cfg.frame_length] = frame
+        spec = np.fft.rfft(buf)
+        power = spec.real**2 + spec.imag**2
+        mel = power @ mel_w
+        logmel = np.log(np.maximum(mel, eps))
+        feats = logmel @ dct
+        if cfg.cepstral_lifter != 0.0:
+            feats = feats * lifter
+        if cfg.use_energy:
+            if cfg.energy_floor > 0.0:
+                log_e = max(log_e, np.log(cfg.energy_floor))
+            feats[0] = log_e
+        out[t] = feats
+    return out
 
 
 @dataclass(frozen=True)

@@ -213,10 +213,13 @@ def max_alpha_states(max_smem: int) -> int:
     return ((max_smem // 2) & ~15) // 4
 
 
-def kernel_states(device: torch.device) -> int:
-    """The largest graph (states) the kernel decodes on ``device``'s card.
-    The kernel raises past it; ``pipeline.transcribe.select_decoder`` takes
-    this number and names another decoder (``"scan"``) for a larger graph."""
+def kernel_states(device: torch.device) -> Optional[int]:
+    """The largest graph (states) the kernel decodes on ``device``'s card,
+    or None for the CPU, where the plain twin decodes any graph. The kernel
+    raises past it; ``pipeline.transcribe.select_decoder`` takes this number
+    and names another decoder (``"scan"``) for a larger graph."""
+    if device.type != "cuda":
+        return None
     return max_alpha_states(_lib().rss_viterbi_max_smem(device.index))
 
 

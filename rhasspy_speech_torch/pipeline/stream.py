@@ -152,7 +152,7 @@ class Nnet3StreamTranscriber:
         self.chunk_decoder = select_decoder(
             graph.num_states, 1, CHUNK_OUT_FRAMES, 1, max_active, budget=1 << 62,
             num_arcs=graph.num_arcs,
-            kernel_states=kernel_states(self.device) if self.device.type == "cuda" else None,
+            kernel_states=kernel_states(self.device),
         )[0]
         self._compact = self.artifacts.graph.num_arcs <= _COMPACT_BP_MAX_ARC
         # a chunk's valid frames as a [1] int32 tensor, made once per count

@@ -9,7 +9,10 @@ device, because both the MFCC kernel (one warp a frame) and its plain
 version compute a frame from its window alone, whatever else the call
 holds. ``StreamFeaturizer.push`` calls ``ops.mfcc_cuda.mfcc_batch`` on the
 acoustic model's device, so on the card the MFCC kernel runs on every push
-that completes a frame.
+that completes a frame. The scheduler of many streams batches that call
+instead: ``prepare_mfcc_buf`` gives each stream's buffer, one MFCC call
+covers them all, and ``commit_mfcc`` and ``push_with_base`` take the rows
+back.
 
 Pitch features are not ported (ROADMAP Queue 1, item 14): ``AcousticModel``
 refuses a pitch model, and the featurizer's pitch half
@@ -191,6 +194,24 @@ class StreamFeaturizer:
 
     def commit_mfcc(self, state: StreamFeatState, buf: np.ndarray, n: int) -> None:
         state.mfcc_tail = buf[n * self.frame_shift :]
+
+    def push_with_base(
+        self,
+        state: StreamFeatState,
+        pcm: np.ndarray,
+        base_rows: np.ndarray,
+        pitch_rows: Optional[np.ndarray] = None,
+        flush: bool = False,
+    ) -> np.ndarray:
+        """Scheduler path: the caller batched the MFCC across slots
+        (``prepare_mfcc_buf`` / ``commit_mfcc``); returns the newly
+        finalized feature rows, which without pitch are ``base_rows``."""
+        if pitch_rows is not None:
+            raise _pitch_not_ported()
+        pcm = np.asarray(pcm, dtype=np.float32)
+        if pcm.shape[0]:
+            state.total_samples += pcm.shape[0]
+        return base_rows
 
     # -- streaming pitch (not ported) -----------------------------------------
 

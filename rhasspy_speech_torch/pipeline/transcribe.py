@@ -90,6 +90,10 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, {item})")
 
 
+def _aot_not_ported() -> NotImplementedError:
+    return _not_ported("the AOT program store (aot_dir, save_aot)", "item 17")
+
+
 def read_wav(path: Union[str, Path]) -> np.ndarray:
     """WAV -> 16 kHz mono float32 samples (Kaldi int16 range). Other rates
     and channel counts go through the native runtime's resampler."""
@@ -292,7 +296,9 @@ class Nnet3WavTranscriber:
     decoder; the dense, scan and checkpointed decoders are exact.
     ``lattice_beam`` prunes the lattices of ``get_lattice``, ``confidence``
     and ``transcribe_rescore``. ``last_decode_plan`` is the (mode, argument)
-    ``select_decoder`` gave the latest decode."""
+    ``select_decoder`` gave the latest decode. ``aot_dir`` and ``save_aot``
+    take the reference's arguments and raise: its store holds StableHLO
+    programs, which the port cannot run."""
 
     def __init__(
         self,
@@ -307,8 +313,11 @@ class Nnet3WavTranscriber:
         decode_memory_budget: int = DEFAULT_DECODE_BUDGET,
         compute_dtype: Optional[str] = None,
         min_active: int = 200,
+        aot_dir: Optional[Union[str, Path]] = None,
         device: Union[str, torch.device] = "cuda",
     ):
+        if aot_dir is not None:
+            raise _aot_not_ported()
         self.device = resolve_device(device)
         self.model_dir = Path(model_dir)
         self.graph_dir = Path(graph_dir)
@@ -329,8 +338,11 @@ class Nnet3WavTranscriber:
         self._frontier_graph: Optional[FrontierGraph] = None
         self._out_degree: Optional[int] = None
         # the Viterbi kernel's reach on this card, for select_decoder
-        self._kernel_states = kernel_states(self.device) if self.device.type == "cuda" else None
+        self._kernel_states = kernel_states(self.device)
         self.last_decode_plan: Optional[Tuple[str, int]] = None
+
+    def save_aot(self, pcm_batch: List[np.ndarray], nbest: int = 1) -> Path:
+        raise _aot_not_ported()
 
     def _get_silence_pdfs(self) -> frozenset:
         """The model's silence pdfs, from ``model/phones.txt`` (empty

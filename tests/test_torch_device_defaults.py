@@ -16,6 +16,7 @@ from rhasspy_speech_torch.ops import frontend, ivector
 from rhasspy_speech_torch import Nnet3StreamTranscriber, Nnet3WavTranscriber
 from rhasspy_speech_torch.ops.decoder import DecodeGraph
 from rhasspy_speech_torch.ops.frontier import FrontierGraph
+from rhasspy_speech_torch.pipeline.scheduler import StreamScheduler
 from rhasspy_speech_torch.testing.decode_graphs import random_decode_graph
 from rhasspy_speech_torch.testing.tdnnf import build_tdnnf_spec
 
@@ -87,7 +88,7 @@ def test_constructor_runs_on_the_cpu_when_asked(monkeypatch, name, device):
     assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
-@pytest.mark.parametrize("cls", [Nnet3WavTranscriber, Nnet3StreamTranscriber],
+@pytest.mark.parametrize("cls", [Nnet3WavTranscriber, Nnet3StreamTranscriber, StreamScheduler],
                          ids=lambda c: c.__name__)
 def test_transcriber_defaults_to_the_card_and_raises_without_one(monkeypatch, tmp_path, cls):
     """The device is resolved before a file is read: without a card the

@@ -7,11 +7,12 @@ Tolerances: against ``mfcc_batch`` rtol 1e-4 / atol 2e-3 (both f32 rfft
 + matmul, summed in other orders; log-mel amplifies relative error where
 a mel band is weak); against the Pallas kernel and ``mfcc_numpy`` the JAX
 package's own tolerances for those pairs (rtol 2e-3 / atol 3e-2 and
-rtol 2e-3 / atol 2e-2). The copied config helpers must equal the
-originals exactly.
+rtol 2e-3 / atol 2e-2). The copied config helpers and ``mfcc_numpy`` must
+equal the originals exactly.
 """
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -118,6 +119,18 @@ def test_copied_tables_equal_original(window):
             tf.make_lifter_coeffs(a.cepstral_lifter, a.num_ceps),
             jf.make_lifter_coeffs(b.cepstral_lifter, b.num_ceps),
         )
+
+
+def test_copied_mfcc_numpy_equals_original():
+    """``mfcc_numpy`` is the original's source but for the window table's
+    name, and gives the same float64 rows."""
+    want = inspect.getsource(jf.mfcc_numpy).replace("_window_function(cfg)", "window_function(cfg)")
+    assert inspect.getsource(tf.mfcc_numpy) == want
+    rng = np.random.RandomState(11)
+    pcm = speech_like(rng, 3000).astype(np.float64)
+    for kw in CONFIGS.values():
+        np.testing.assert_array_equal(tf.mfcc_numpy(tf.FrontendConfig(**kw), pcm),
+                                      jf.mfcc_numpy(jf.FrontendConfig(**kw), pcm))
 
 
 def test_copied_conf_parser_equals_original(tmp_path):

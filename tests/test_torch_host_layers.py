@@ -43,19 +43,24 @@ COPIED = [
     "native/runtime.py",
     *(f"pipeline/{m}.py" for m in ("artifacts", "endpoint", "fuzzy", "rescore", "train")),
     "testing/flagship.py",
+    "testing/synthetic.py",
     "testing/tdnnf.py",
+    "tools.py",
+    "utils/__init__.py",
+    "utils/metrics.py",
 ]
 
 # Docstrings of the originals cite the upstream sources by the absolute
 # path of a local checkout; the copies cite them relative to it.
 _CHECKOUT_PREFIX = re.compile(r'(?<=[\s("])/\w+/reference/')
 
-# The copies' only other edits, as (original, copy) snippets. The four
+# The copies' only other edits, as (original, copy) snippets. The five
 # lazy branches into JAX modules raise or reach the port's own module
-# (the flagship's CMVN branch imports ``..ops.cmvn`` unchanged), the first
-# g++ attempt of the native build also catches a missing compiler (ROADMAP
-# Queue 3, R2), and the flagship graph builds its fallback grammar without
-# looking for the upstream checkout's test_en.yaml.
+# (the flagship's and the synthetic profile's CMVN branches import
+# ``..ops.cmvn`` unchanged), the first g++ attempt of the native build also
+# catches a missing compiler (ROADMAP Queue 3, R2), the flagship graph
+# builds its fallback grammar without looking for the upstream checkout's
+# test_en.yaml, and the tools shim names the port.
 EDITS = {
     "pipeline/train.py": [(
         """        # CTC backend (train.py:85-88): compile the grammar and build the
@@ -146,6 +151,72 @@ EDITS = {
 """,
         ),
     ],
+    "testing/synthetic.py": [(
+        """    from ..models.ctc import CtcModel
+
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    if frontend is None:
+        frontend = FrontendConfig(num_mel_bins=20, num_ceps=20)
+    rng = np.random.RandomState(seed)
+
+    ordered = [" "] + sorted(c for c in chars if c != " ")
+    char_freqs = _phone_freqs([c for c in ordered])
+
+    centroids = []
+    for c in ordered:
+        wave = _phone_wave(char_freqs[c], SAMPLE_RATE, rng)
+        centroids.append(mfcc_numpy(frontend, wave).mean(axis=0))
+    # blank = silence
+    centroids.append(mfcc_numpy(frontend, _silence_wave(SAMPLE_RATE, rng)).mean(axis=0))
+    C = np.stack(centroids)  # [L, D]
+
+    out_w = (2.0 * C / tau).T.astype(np.float32)  # [D, L]
+    out_b = (-np.sum(C * C, axis=1) / tau).astype(np.float32)
+    model = CtcModel(
+        params={"out_w": out_w, "out_b": out_b},
+        num_labels=C.shape[0],
+        context=0,
+        has_lstm=False,
+    )
+    model.save(str(model_dir / "model.npz"))
+
+    with open(model_dir / "alphabet.txt", "w", encoding="utf-8") as f:
+        for c in ordered:
+            f.write(("" if c == " " else c) + "\\n")
+    with open(model_dir / "frontend.json", "w", encoding="utf-8") as f:
+        json.dump(
+            {"num_mel_bins": frontend.num_mel_bins,
+             "num_ceps": frontend.num_ceps,
+             "dither": frontend.dither},
+            f,
+        )
+    return SyntheticCtcProfile(
+        model_dir=model_dir,
+        frontend=frontend,
+        chars=ordered,
+        char_freqs=char_freqs,
+    )
+
+
+""",
+        """    raise NotImplementedError(
+        "Coqui CTC models are not ported yet (ROADMAP Queue 1, item 15)"
+    )
+
+
+""",
+    )],
+    "tools.py": [
+        (
+            "framework runs everything in-process — on TPU for the numeric path, host",
+            "framework runs everything in-process — on the GPU for the numeric path, host",
+        ),
+        (
+            '"rhasspy_speech_tpu runs in-process; there are no tool "',
+            '"rhasspy_speech_torch runs in-process; there are no tool "',
+        ),
+    ],
 }
 
 
@@ -158,6 +229,12 @@ def test_copy_equals_original(rel):
     assert (COPY / rel).read_text(encoding="utf-8") == want
 
 
+# Imports of a module that is JAX in the original package but the port's own
+# module in the copy, which carries what the copy imports from it
+# (``FrontendConfig`` and ``mfcc_numpy``, pinned by tests/test_torch_frontend.py).
+OWN_MODULE_IMPORTS = {("testing/synthetic.py", "..ops.frontend")}
+
+
 def test_copies_import_no_jax_module():
     """No copied module names JAX or a JAX module of the original package
     in an import, top level or lazy."""
@@ -165,8 +242,11 @@ def test_copies_import_no_jax_module():
     for rel in COPIED:
         for name in imports.findall((COPY / rel).read_text(encoding="utf-8")):
             assert name.partition(".")[0] not in ("jax", "jaxlib", "rhasspy_speech_tpu"), (rel, name)
+            if (rel, name) in OWN_MODULE_IMPORTS:
+                continue
             assert not re.match(r"\.+(ops\.(adpcm|mulaw|frontend)|models|pipeline\.coqui)", name), (
                 rel, name)
+    from rhasspy_speech_torch.ops.frontend import FrontendConfig, mfcc_numpy  # noqa: F401
 
 
 def test_matrix_from_stats_equals_original():
@@ -219,9 +299,32 @@ _DRIVE = textwrap.dedent(
     t = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu")
     pcm = np.load(root / "pcm.npy")
     texts = t.transcribe_pcm_batch([pcm], max_fuzzy_cost=1e9)
+
+    from rhasspy_speech_torch.pipeline.scheduler import StreamScheduler
+    from rhasspy_speech_torch.testing import build_synthetic_profile, synthesize_sentence
+
+    lexicon = {"turn": ["t", "er", "n"], "on": ["aa", "n"], "the": ["dh", "ah"],
+               "light": ["l", "ay", "t"], "never": ["n", "eh", "v", "er"], "mind": ["m", "ay", "n", "d"]}
+    profile = build_synthetic_profile(root / "synth", lexicon, with_ivector=True)
+    intents = {"language": "en", "intents": {"All": {"data": [
+        {"sentences": ["turn on [the] light", "never mind"]}]}}}
+    train_model_sync("en", intents, root / "synth_train", profile.model_dir,
+                     lang_suffixes=[LangSuffix.GRAMMAR])
+    synth_graph = root / "synth_train" / lang_dir_name(LangSuffix.GRAMMAR)
+    sched = StreamScheduler(profile.model_dir, synth_graph, max_streams=2, device="cpu")
+    speech = synthesize_sentence(profile, "turn on the light", seed=3)
+    np.save(root / "speech.npy", speech)
+    sid = sched.open_stream()
+    for off in range(0, speech.shape[0], 1024):
+        sched.feed(sid, speech[off : off + 1024])
+        sched.step()
+    sched.finish(sid)
+    sched.run_until_idle()
     loaded = [m for m in sys.modules if m.partition(".")[0] in ("jax", "rhasspy_speech_tpu")]
     assert not loaded, loaded
-    print(json.dumps({"model_dir": str(model_dir), "graph_dir": str(graph_dir), "texts": texts}))
+    print(json.dumps({"model_dir": str(model_dir), "graph_dir": str(graph_dir), "texts": texts,
+                      "synth_model_dir": str(profile.model_dir), "synth_graph_dir": str(synth_graph),
+                      "streamed": sched.poll(sid)}))
     """
 )
 
@@ -230,8 +333,10 @@ def test_port_trains_and_transcribes_with_jax_package_blocked(tmp_path):
     """In a process where importing ``jax`` or ``rhasspy_speech_tpu``
     raises: the port's flagship fixtures write a narrow random model,
     the port trains a grammar graph for it and transcribes seeded noise on
-    the CPU. The JAX package's transcriber, reading the same files here,
-    gives the same transcript."""
+    the CPU; the port's synthetic profile is built and trained, and a
+    sentence streamed through the port's ``StreamScheduler`` decodes to
+    itself. The JAX package's transcriber, reading the same files here,
+    gives the same transcripts."""
     pcm = (1000.0 * np.random.RandomState(0).randn(16000)).astype(np.float32)
     np.save(tmp_path / "pcm.npy", pcm)
     proc = subprocess.run(
@@ -243,3 +348,6 @@ def test_port_trains_and_transcribes_with_jax_package_blocked(tmp_path):
     assert len(out["texts"]) == 1 and len(out["texts"][0]) == 1 and out["texts"][0][0]
     jt = JaxTranscriber(out["model_dir"], out["graph_dir"])
     assert jt.transcribe_pcm_batch([pcm], max_fuzzy_cost=1e9) == out["texts"]
+    assert out["streamed"] == ["turn on the light"]
+    js = JaxTranscriber(out["synth_model_dir"], out["synth_graph_dir"])
+    assert js.transcribe_pcm_batch([np.load(tmp_path / "speech.npy")]) == [out["streamed"]]

@@ -1,0 +1,345 @@
+"""The port's batched streaming scheduler against the JAX package's and
+against the port's batch transcriber, end to end on the CPU.
+
+A synthetic profile with an i-vector extractor (the port's own copy of
+``testing/synthetic.py``) is trained once, with the lexicon and grammar of
+tests/test_torch_stream.py. Six utterances are fed interleaved in
+1,024-sample pushes to 8 slots of both packages' ``StreamScheduler``, with
+a tick after each round: transcripts must equal the JAX scheduler's, the
+port's batch transcripts and the spoken sentences, plain, with
+``silence_weight`` and with ``chunk_out_frames=14``. The plain run steps the
+two schedulers in lockstep and holds every tick's state: alpha within atol
+1e-2, the i-vector statistics within rtol 1e-4 (atol 1e-4 on gamma's
+near-zero entries and 1e-3 on X's, whose small entries cancel sums of
+hundreds) and the i-vectors solved from them within 2e-3, the tolerances
+tests/test_torch_stream.py holds one stream to; a slot that decoded nothing, had
+nothing to fold and was not reopened keeps its alpha and statistics bit
+for bit. Three JAX schedulers are built in all.
+"""
+
+import numpy as np
+import pytest
+
+from rhasspy_speech_tpu.ops.ivector import solve_ivector as jax_solve_ivector
+from rhasspy_speech_tpu.pipeline.scheduler import StreamScheduler as JaxScheduler
+
+import jax.numpy as jnp
+import torch
+
+from rhasspy_speech_torch.const import LangSuffix
+from rhasspy_speech_torch.ops.ivector import solve_ivector
+from rhasspy_speech_torch.pipeline import Nnet3WavTranscriber, lang_dir_name
+from rhasspy_speech_torch.pipeline import scheduler as sched_mod
+from rhasspy_speech_torch.pipeline.endpoint import EndpointConfig
+from rhasspy_speech_torch.pipeline.scheduler import StreamScheduler
+from rhasspy_speech_torch.pipeline.train import train_model_sync
+from rhasspy_speech_torch.testing import build_synthetic_profile, synthesize_sentence
+from rhasspy_speech_torch.testing.synthetic import _silence_wave, build_synthetic_gmm_profile
+
+from test_torch_pipeline import LEXICON
+from test_torch_stream import SENTENCES
+
+COST_ATOL = 1e-2
+STATS_RTOL = GAMMA_ATOL = 1e-4
+X_ATOL = 1e-3
+IV_TOL = 2e-3
+TEXTS = ["turn on the light", "never mind", "turn off the fan", "turn on fan",
+         "turn off light never mind", "never mind"]
+SLOTS = 8
+PUSH = 1024
+OPTIONS = {"plain": {}, "silence_weight": dict(silence_weight=0.01),
+           "chunk14": dict(chunk_out_frames=14)}
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_sched")
+    profile = build_synthetic_profile(root / "model", LEXICON, with_ivector=True)
+    intents = {"language": "en", "intents": {"Main": {"data": [{"sentences": SENTENCES}]}}}
+    train_model_sync("en", intents, root / "train", profile.model_dir,
+                     lang_suffixes=[LangSuffix.GRAMMAR])
+    graph_dir = root / "train" / lang_dir_name(LangSuffix.GRAMMAR)
+    pcms = [synthesize_sentence(profile, t, seed=100 + i) for i, t in enumerate(TEXTS)]
+    batch = Nnet3WavTranscriber(profile.model_dir, graph_dir, device="cpu").transcribe_pcm_batch(pcms)
+    assert batch == [[t] for t in TEXTS]
+    return root, profile, graph_dir, pcms
+
+
+def _port(trained, **kw):
+    _root, profile, graph_dir, _pcms = trained
+    return StreamScheduler(profile.model_dir, graph_dir, device="cpu", **kw)
+
+
+def _feed_interleaved(scheds, pcms, on_tick=None):
+    """Open a stream a PCM in each scheduler, feed them round by round in
+    PUSH-sample pushes with a tick after each round, finish them and step
+    until every transcript is in; returns each scheduler's transcripts."""
+    sids = [[s.open_stream() for _ in pcms] for s in scheds]
+    assert all(sid >= 0 for row in sids for sid in row)
+    for off in range(0, max(p.shape[0] for p in pcms), PUSH):
+        for s, row in zip(scheds, sids):
+            for sid, pcm in zip(row, pcms):
+                if off < pcm.shape[0]:
+                    s.feed(sid, pcm[off : off + PUSH])
+        for s in scheds:
+            s.step()
+        if on_tick is not None:
+            on_tick()
+    for s, row in zip(scheds, sids):
+        for sid in row:
+            s.finish(sid)
+    for _ in range(200):
+        if all(s.poll(sid) is not None for s, row in zip(scheds, sids) for sid in row):
+            break
+        for s in scheds:
+            s.step()
+        if on_tick is not None:
+            on_tick()
+    return [[s.poll(sid) for sid in row] for s, row in zip(scheds, sids)]
+
+
+class _TickRecorder:
+    """Holds the port's tick state against the JAX scheduler's after every
+    tick, and the port's idle slots against their state before it."""
+
+    def __init__(self, port, jax_sched):
+        self.port, self.jax = port, jax_sched
+        self.ticks = self.idle_checked = 0
+        self.snapshot()
+
+    def snapshot(self):
+        p = self.port
+        self.before = (p._alpha.clone(), p._iv_gamma.clone(), p._iv_X.clone(),
+                       [s.out_frames for s in p.slots],
+                       [s.iv_pending_w is None or not s.iv_pending_w.any() for s in p.slots],
+                       p._pending_reset.copy())
+
+    def __call__(self):
+        p, j = self.port, self.jax
+        np.testing.assert_allclose(p._alpha.numpy(), np.asarray(j._alpha), rtol=0, atol=COST_ATOL)
+        gamma, X = p._iv_gamma.numpy(), p._iv_X.numpy()
+        jgamma, jX = np.asarray(j._iv_gamma), np.asarray(j._iv_X)
+        np.testing.assert_allclose(gamma, jgamma, rtol=STATS_RTOL, atol=GAMMA_ATOL)
+        np.testing.assert_allclose(X, jX, rtol=STATS_RTOL, atol=X_ATOL)
+        ivp, jivp = p._ivp, j._ivp
+        np.testing.assert_allclose(
+            solve_ivector(p._iv_gamma, p._iv_X, ivp).numpy(),
+            np.asarray(jax_solve_ivector(jnp.asarray(jgamma), jnp.asarray(jX), jivp)),
+            rtol=IV_TOL, atol=IV_TOL)
+        alpha0, gamma0, X0, out0, nothing_pending, reset = self.before
+        for sid, st in enumerate(p.slots):
+            if st.out_frames == out0[sid] and nothing_pending[sid] and not reset[sid]:
+                assert torch.equal(p._alpha[sid], alpha0[sid])
+                assert torch.equal(p._iv_gamma[sid], gamma0[sid])
+                assert torch.equal(p._iv_X[sid], X0[sid])
+                self.idle_checked += 1
+        self.ticks += 1
+        self.snapshot()
+
+
+@pytest.fixture(scope="module")
+def lockstep(trained):
+    """The plain option: the port and the JAX scheduler stepped in
+    lockstep, every tick's state recorded."""
+    _root, profile, graph_dir, pcms = trained
+    port = _port(trained, max_streams=SLOTS)
+    jax_sched = JaxScheduler(profile.model_dir, graph_dir, max_streams=SLOTS)
+    rec = _TickRecorder(port, jax_sched)
+    got, want = _feed_interleaved([port, jax_sched], pcms, on_tick=rec)
+    return got, want, rec
+
+
+@pytest.mark.parametrize("name", sorted(OPTIONS))
+def test_many_streams_equal_jax_and_batch(trained, lockstep, name):
+    _root, profile, graph_dir, pcms = trained
+    if name == "plain":
+        got, want, _rec = lockstep
+    else:
+        port = _port(trained, max_streams=SLOTS, **OPTIONS[name])
+        jax_sched = JaxScheduler(profile.model_dir, graph_dir, max_streams=SLOTS, **OPTIONS[name])
+        got, want = _feed_interleaved([port, jax_sched], pcms)
+    assert got == want == [[t] for t in TEXTS]
+
+
+def test_tick_state_equals_jax(lockstep):
+    _got, _want, rec = lockstep
+    assert rec.ticks > 10 and rec.idle_checked > rec.ticks
+
+
+def test_one_device_step_a_tick(trained):
+    """A tick makes at most one MFCC call and one device step; the plain
+    decoder on the CPU names itself "dense", as the kernel does on a card."""
+    _root, _profile, _graph_dir, pcms = trained
+    s = _port(trained, max_streams=SLOTS)
+    assert s.chunk_decoder == "dense"
+    sid = s.open_stream()
+    per_tick = []
+    for off in range(0, pcms[0].shape[0], PUSH):
+        s.feed(sid, pcms[0][off : off + PUSH])
+        before = s.device_dispatches
+        decoded = s.step()
+        per_tick.append((s.device_dispatches - before, decoded))
+    # every push completes a frame: one MFCC call a tick, plus the device
+    # step on a tick that decodes
+    assert per_tick == [(1 + (lanes > 0), lanes) for _n, lanes in per_tick]
+    assert any(lanes for _n, lanes in per_tick)
+
+
+def test_endpointing_without_finish(trained):
+    """Streams with >= 1 s of trailing silence endpoint without finish():
+    the transcript is the spoken sentence and the batch transcript."""
+    _root, profile, graph_dir, _pcms = trained
+    rng = np.random.RandomState(0)
+    texts = ["never mind", "turn on the light"]
+    pcms = [np.concatenate([synthesize_sentence(profile, t, seed=77 + i),
+                            _silence_wave(16000 + 8000 * i, rng)]).astype(np.float32)
+            for i, t in enumerate(texts)]
+    s = _port(trained, max_streams=2, endpointing=EndpointConfig())
+    assert s._silence_pdfs, "silence pdfs must be derived from the model"
+    sids = [s.open_stream() for _ in texts]
+    for sid, pcm in zip(sids, pcms):
+        s.feed(sid, pcm)
+    for _ in range(100):
+        if all(s.poll(sid) is not None for sid in sids):
+            break
+        s.step()
+    assert not any(s.pool.is_finished(sid) for sid in sids)
+    batch = Nnet3WavTranscriber(profile.model_dir, graph_dir, device="cpu").transcribe_pcm_batch(pcms)
+    assert [s.poll(sid) for sid in sids] == batch == [[t] for t in texts]
+
+
+def _decode_one(s, sid, pcm):
+    s.feed(sid, pcm)
+    s.finish(sid)
+    for _ in range(100):
+        if s.poll(sid) is not None:
+            break
+        s.step()
+    return s.poll(sid)
+
+
+def test_admission_limit_and_slot_recycling(trained):
+    """Two slots admit two streams; a closed slot is the next one opened,
+    and its second stream decodes chunk for chunk like a fresh
+    scheduler's."""
+    _root, profile, _graph_dir, pcms = trained
+    s = _port(trained, max_streams=2)
+    a, b = s.open_stream(), s.open_stream()
+    assert a >= 0 and b >= 0 and s.open_stream() == -1
+    assert s.active_streams == 2
+    assert _decode_one(s, a, pcms[0]) == [TEXTS[0]]
+    s.close(a)
+    assert s.active_streams == 1
+    assert s.open_stream() == a
+    assert _decode_one(s, a, pcms[2]) == [TEXTS[2]]
+    fresh = _port(trained, max_streams=2)
+    sid = fresh.open_stream()
+    assert _decode_one(fresh, sid, pcms[2]) == [TEXTS[2]]
+    assert len(s.slots[a].bps) == len(fresh.slots[sid].bps)
+    assert all(np.array_equal(x, y) for x, y in zip(s.slots[a].bps, fresh.slots[sid].bps))
+    assert torch.equal(s._alpha[a], fresh._alpha[sid])
+    assert torch.equal(s._iv_gamma[a], fresh._iv_gamma[sid])
+
+
+def test_close_ticket_survives_recycle(trained):
+    """A done stream closed before anyone polled it: its ticket redeems its
+    transcript once, and the recycled slot decodes its next stream."""
+    _root, profile, _graph_dir, pcms = trained
+    s = _port(trained, max_streams=1)
+    sid = s.open_stream()
+    s.feed(sid, pcms[0])
+    s.finish(sid)
+    for _ in range(100):
+        s.step()
+        if s.slots[sid].done:
+            break
+    ticket = s.close(sid)
+    sid2 = s.open_stream()
+    assert sid2 == sid
+    assert _decode_one(s, sid2, pcms[1]) == [TEXTS[1]]
+    assert s.take_result(ticket, block=True) == [TEXTS[0]]
+    assert s.take_result(ticket) is None
+    # a finished stream's ticket redeems at once, an unfinished one's nothing
+    assert s.take_result(s.close(sid2)) == [TEXTS[1]]
+    sid3 = s.open_stream()
+    assert s.take_result(s.close(sid3)) is None
+
+
+def test_feed_many_feeds_each_row_to_its_slot(trained):
+    """``feed_many`` (int16 rows, one call) gives each slot what ``feed``
+    would have."""
+    _root, _profile, _graph_dir, pcms = trained
+    s = _port(trained, max_streams=2)
+    sids = np.asarray([s.open_stream(), s.open_stream()], dtype=np.int32)
+    n = min(pcms[1].shape[0], pcms[5].shape[0])
+    rows = np.stack([pcms[1][:n], pcms[5][:n]]).round().astype(np.int16)
+    assert list(s.feed_many(sids, rows)) == [n, n]
+    for sid in sids:
+        s.finish(int(sid))
+    s.run_until_idle()
+    assert [s.poll(int(sid)) for sid in sids] == [[TEXTS[1]], [TEXTS[5]]]
+
+
+def test_burst_feed_drains_over_several_ticks(trained):
+    """A stream fed all at once drains at most the drain cap a tick, over
+    several ticks, to the spoken sentence."""
+    _root, _profile, _graph_dir, pcms = trained
+    rng = np.random.RandomState(1)
+    pcm = np.concatenate([_silence_wave(8000, rng), pcms[4], _silence_wave(16000, rng)])
+    pcm = pcm.astype(np.float32)
+    s = _port(trained, max_streams=2)
+    assert pcm.shape[0] > 2 * s._drain_cap
+    sid = s.open_stream()
+    s.feed(sid, pcm)
+    s.finish(sid)
+    left = []
+    for _ in range(3):
+        s.step()
+        left.append(s.pool.available(sid))
+    assert left[0] == pcm.shape[0] - s._drain_cap
+    assert left[0] - s._drain_cap <= left[1] < left[0] and left[2] < left[1]
+    s.run_until_idle()
+    assert s.poll(sid) == [TEXTS[4]]
+
+
+def test_decoder_choice_past_the_kernels_reach(trained, monkeypatch):
+    """Past the Viterbi kernel's reach the scheduler names the plain scan,
+    which decodes the same."""
+    _root, _profile, graph_dir, pcms = trained
+    states = _port(trained, max_streams=2).graph.num_states
+    monkeypatch.setattr(sched_mod, "kernel_states", lambda device: states - 1)
+    s = _port(trained, max_streams=2)
+    assert s.chunk_decoder == "scan"
+    assert _decode_one(s, s.open_stream(), pcms[3]) == [TEXTS[3]]
+
+
+NOT_PORTED = {
+    "mesh": (None, dict(mesh=object()), "item 16"),
+    "mulaw": (None, dict(wire="mulaw"), "item 16"),
+    "adpcm": (None, dict(wire="adpcm"), "item 16"),
+    "bf16": (None, dict(compute_dtype="bfloat16"), "item 4"),
+    "recurrent": (lambda d: build_synthetic_profile(d, LEXICON, recurrent_delay=1), {}, "item 4"),
+    "gmm": (lambda d: build_synthetic_gmm_profile(d, LEXICON), {}, "item 13"),
+    "pitch": (lambda d: build_synthetic_profile(d, LEXICON, with_pitch=True), {}, "item 14"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NOT_PORTED))
+def test_options_not_ported_raise(trained, tmp_path, case):
+    _root, profile, graph_dir, _pcms = trained
+    build, kw, item = NOT_PORTED[case]
+    model_dir = profile.model_dir if build is None else build(tmp_path / case).model_dir
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
+        StreamScheduler(model_dir, graph_dir, device="cpu", **kw)
+
+
+def test_unknown_wire_raises(trained):
+    _root, profile, graph_dir, _pcms = trained
+    with pytest.raises(ValueError, match="wire"):
+        StreamScheduler(profile.model_dir, graph_dir, wire="f32", device="cpu")
+
+
+def test_pcm_bucket():
+    cap = sched_mod._DRAIN_CAP
+    assert [sched_mod._pcm_bucket(n) for n in (0, 1600, 1601, 2401, cap, cap + 1)] == [
+        1600, 1600, 2400, 3200, cap, cap]

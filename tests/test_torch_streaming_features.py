@@ -99,6 +99,39 @@ def test_prepare_commit_contract_matches_batch():
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("snip", [True, False], ids=["snip", "no_snip"])
+def test_push_with_base_equals_original(snip):
+    """The scheduler's batched path: the same PCM and the same batched rows
+    through the JAX featurizer's ``push_with_base`` and the port's give the
+    same rows and sample counts, and the rows equal the batch rows."""
+    pcm = (1000.0 * np.random.RandomState(8).randn(7000)).astype(np.float32)
+    am = _torch_am(snip)
+    tfz, jfz = tsf.StreamFeaturizer(am), jsf.StreamFeaturizer(_jax_am(snip))
+    tstate, jstate = tfz.new_state(), jfz.new_state()
+    rows, off = [], 0
+    for n in (100, 1024, 7, 3000, 1024, 1845):
+        chunk = pcm[off : off + n]
+        off += n
+        r, jr = tfz.prepare_mfcc_buf(tstate, chunk), jfz.prepare_mfcc_buf(jstate, chunk)
+        base = np.zeros((0, 13), np.float32)
+        if r is not None:
+            buf, k = r
+            np.testing.assert_array_equal(buf, jr[0])
+            assert k == jr[1]
+            base = mfcc_batch(tfz.stream_params, torch.as_tensor(buf[None]))[0][:k].numpy()
+            tfz.commit_mfcc(tstate, buf, k)
+            jfz.commit_mfcc(jstate, *jr)
+        got = tfz.push_with_base(tstate, chunk, base)
+        np.testing.assert_array_equal(got, jfz.push_with_base(jstate, chunk, base))
+        assert tstate.total_samples == jstate.total_samples == off
+        rows.append(got)
+    rows.append(tfz.push(tstate, np.zeros(0, np.float32), flush=True))
+    want = mfcc_batch(am.frontend_params, torch.as_tensor(pcm[None]))[0].numpy()
+    np.testing.assert_allclose(np.concatenate(rows, axis=0), want, rtol=RTOL, atol=ATOL)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tfz.push_with_base(tstate, pcm[:10], base, pitch_rows=np.zeros((0, 3), np.float32))
+
+
 def test_pitch_half_raises_naming_its_item():
     am = _torch_am(True)
     fz = tsf.StreamFeaturizer(am)
