@@ -5,11 +5,12 @@ Drives batch WAV transcription (``Nnet3WavTranscriber.transcribe_pcm_batch``)
 at the full width of the benchmarked model -- TDNN-F 768 x 9, 40-dim MFCC,
 100-dim i-vector from a 512-Gaussian UBM, 3,072 pdfs, random weights from a
 seed -- over the flagship decode graph, then its n-best, silence-weighting
-and lattice paths, and the windowed-relaxation entry point, and checks the
-three hand-written kernels against their plain PyTorch twins:
+and lattice paths, the windowed-relaxation entry point and the stream
+scheduler, and checks the four hand-written kernels against their plain
+PyTorch twins:
 
-1. builds ``csrc/mfcc.cu``, ``csrc/viterbi.cu`` and
-   ``csrc/windowed_relax.cu`` with nvcc for sm_90a, in parallel;
+1. builds ``csrc/mfcc.cu``, ``csrc/viterbi.cu``, ``csrc/windowed_relax.cu``
+   and ``csrc/path_walk.cu`` with nvcc for sm_90a, in parallel;
 2. transcribes 32 seeded 3 s utterances (1-best) with the launch counters
    zeroed just before and read just after, and requires the MFCC and
    Viterbi kernels to have run;
@@ -79,22 +80,30 @@ three hand-written kernels against their plain PyTorch twins:
    carried alpha against ``viterbi(alpha0=...)`` bit for bit at T=7, B=1 and
    B=32 on both graphs; a chunk's milliseconds stage by stage and the
    stream's real-time factor;
-12. the stream scheduler (``pipeline.scheduler.StreamScheduler``, 32 slots):
-   the 32 utterances fed interleaved in 1,024-sample pushes (stream i from
-   round i % 4, a tick after each round), on the flagship graph and on the
-   13,789-state generated grammar. Every tick makes at most one MFCC and one
-   Viterbi launch, both kernels run, and the tick's Viterbi outputs (alpha
-   and backpointers) on a tick with idle slots and on one with a partial
-   chunk are bit-equal to the plain decoder's on the same log-probs and
-   ``alpha0``; at least 30 of 32 transcripts equal the single stream's (a
-   product at 32 windows may differ in the last bits from one at one, and
-   on noise that can flip a transcript); tick ms p50 / p90 (host clock),
-   slots a tick, the fleet's real-time factor, and each stage's ms in a
-   second, synchronized pass. Then the port's synthetic speech profile
-   (``testing/synthetic.py``): 8 spoken sentences with trailing silence and
-   no ``finish()`` must all endpoint to the spoken sentence and the batch
-   transcript, plain and with ``silence_weight`` (which must weigh at least
-   one silence frame);
+12. the stream scheduler (``pipeline.scheduler.StreamScheduler``, 32 slots)
+   on its device route (feature and backpointer rings on the card, the
+   tick captured as CUDA graphs): the 32 utterances fed interleaved in
+   1,024-sample pushes (stream i from round i % 4, a tick after each
+   round), on the flagship graph and on the 13,789-state generated grammar.
+   By the scheduler's own count (captured launches times replays) every
+   tick makes at most one MFCC, one Viterbi and one path-walk launch, one
+   upload and one download, and all three kernels run; every replay of the
+   counted run is bit-equal to the tick body run eagerly on copies of its
+   state and inputs; K2 at the tick's shapes (the first tick with an idle
+   slot, the first with a partial chunk) is bit-equal to the plain
+   decoder; at least 30 of 32 transcripts equal the single stream's and the
+   host route's (forced, as the CPU tests force it); the path walk (K4) on
+   each graph's ring at the run's end is bit-equal to its twin and timed
+   beside its bound; tick ms p50 / p90 (host clock) captured, eager and on
+   the host route, bytes down a tick, graphs captured, the fleet's
+   real-time factor, and the host-side stages in a synchronized pass. Then
+   the port's synthetic speech profile (``testing/synthetic.py``, with an
+   AM context over the i-vector tap and the extractor's CMVN stats, so on
+   the device route): 8 spoken sentences with trailing silence and no
+   ``finish()`` must all endpoint to the spoken sentence and the batch
+   transcript on both routes, plain and with ``silence_weight`` (which must
+   weigh at least one frame), each stream's endpoint tick printed beside
+   the host route's;
 13. checks that no module of ``jax`` or ``rhasspy_speech_tpu`` was imported
    (the card's machine has JAX installed; the port must not reach it).
 
@@ -103,7 +112,8 @@ time the card could take for the same work: the larger of its bytes (each
 input read once, each output written once) at 3.35 TB/s and its f32
 operations at 67 TFLOP/s, NVIDIA's H100 SXM peaks at 700 W. The Viterbi
 kernel's log-probs count only where this run's decode reads them: the
-32-byte sectors of the graph's pdfs in each stream's active frames.
+32-byte sectors of the graph's pdfs in each stream's active frames; the
+path walk's ring reads one 32-byte sector a frame walked.
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and exits non-zero.
@@ -132,6 +142,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from rhasspy_speech_torch import LangSuffix, Nnet3StreamTranscriber, Nnet3WavTranscriber  # noqa: E402
 from rhasspy_speech_torch.pipeline.artifacts import LangArtifacts, lang_dir_name  # noqa: E402
 from rhasspy_speech_torch.pipeline.endpoint import EndpointConfig  # noqa: E402
+from rhasspy_speech_torch.pipeline import scheduler as sched_mod  # noqa: E402
 from rhasspy_speech_torch.pipeline.scheduler import StreamScheduler  # noqa: E402
 from rhasspy_speech_torch.pipeline.train import train_model_sync  # noqa: E402
 from rhasspy_speech_torch.testing import build_synthetic_profile, synthesize_sentence  # noqa: E402
@@ -154,6 +165,7 @@ from rhasspy_speech_torch.ops.frontend import mfcc_batch_torch  # noqa: E402
 from rhasspy_speech_torch.ops.ivector import extract_ivectors  # noqa: E402
 from rhasspy_speech_torch.ops.lattice import forward_backward  # noqa: E402
 from rhasspy_speech_torch.ops.mfcc_cuda import mel_bands, mfcc_batch  # noqa: E402
+from rhasspy_speech_torch.ops.path_walk_cuda import path_walk, path_walk_torch, walk_start  # noqa: E402
 from rhasspy_speech_torch.ops.viterbi_cuda import (  # noqa: E402
     CLUSTER_SIZES,
     MAX_SLICE_STATES,
@@ -202,7 +214,7 @@ SPEECH_LEXICON = {
 SPEECH_GRAMMAR = ["turn (on|off) [the] (light|fan) [never mind]", "never mind"]
 SPEECH_TEXTS = ["turn on the light", "never mind", "turn off the fan", "turn on fan",
                 "turn off light never mind", "turn on the fan", "turn off the light", "never mind"]
-KERNELS = ("mfcc", "viterbi", "windowed_relax")
+KERNELS = ("mfcc", "viterbi", "windowed_relax", "path_walk")
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM, 700 W
 
 
@@ -361,13 +373,13 @@ def build_profile(root):
 
 
 def zero_counts():
-    for fn in (mfcc_batch, viterbi_decode, windowed_relax):
+    for fn in (mfcc_batch, viterbi_decode, windowed_relax, path_walk):
         fn.launches = 0
 
 
 def read_counts():
     return {"mfcc": mfcc_batch.launches, "viterbi": viterbi_decode.launches,
-            "windowed_relax": windowed_relax.launches}
+            "windowed_relax": windowed_relax.launches, "path_walk": path_walk.launches}
 
 
 def viterbi_phase(t, lp_k, lengths, dev):
@@ -858,9 +870,9 @@ def carried_alpha_phase(t, lp_k, lengths, dev):
 def timed_stage(fn, seconds, name):
     """``fn`` wrapped to add its host-clock seconds, ended by a device
     synchronize, to ``seconds[name]``."""
-    def wrapper(*args):
+    def wrapper(*args, **kwargs):
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         torch.cuda.synchronize()
         seconds[name] = seconds.get(name, 0.0) + (time.perf_counter() - t0)
         return out
@@ -1008,19 +1020,23 @@ def sched_run(sched, pcms, on_tick=None):
     """The phase's traffic through ``sched``: stream i fed from round i %
     SCHED_STAGGER in STREAM_CHUNK pushes and finished after its last, a
     tick after each round, then ticks until every transcript is in.
-    Returns (transcripts, [(tick ms, slots decoded, K1 launches, K2
-    launches)], wall seconds)."""
+    Returns (transcripts, [(tick ms, slots decoded, {kernel: launches by
+    the scheduler's own count}, uploads, downloads)], wall seconds)."""
     sids = [sched.open_stream() for _ in pcms]
     check(all(sid >= 0 for sid in sids), "the scheduler refused a stream")
     ticks = []
+    runner = sched._runner if sched._device_bp else None
 
     def tick():
-        k1, k2 = mfcc_batch.launches, viterbi_decode.launches
+        k0 = sched.kernel_launches
+        io0 = (runner.uploads, runner.downloads) if runner else (0, 0)
         t0 = time.perf_counter()
         lanes = sched.step()
         torch.cuda.synchronize()
-        ticks.append(((time.perf_counter() - t0) * 1000.0, lanes,
-                      mfcc_batch.launches - k1, viterbi_decode.launches - k2))
+        ms = (time.perf_counter() - t0) * 1000.0
+        k1 = sched.kernel_launches
+        io1 = (runner.uploads, runner.downloads) if runner else (0, 0)
+        ticks.append((ms, lanes, {k: k1[k] - k0[k] for k in k1}, io1[0] - io0[0], io1[1] - io0[1]))
         if on_tick is not None:
             on_tick()
 
@@ -1046,92 +1062,148 @@ def sched_run(sched, pcms, on_tick=None):
     return texts, ticks, wall
 
 
-def capture_tick_inputs(sched, store):
-    """Wrap ``sched._decode`` to keep, for the first tick with an idle slot
-    and the first with a partial chunk, the decode's inputs (log-probs,
-    lengths, alpha0, rows) and outputs (alpha, backpointers); and
-    ``sched._features`` to keep the first tick's PCM batch."""
-    decode, features = sched._decode, sched._features
+def host_route_scheduler(*args, **kwargs):
+    """A StreamScheduler forced onto the host route (the compact-backpointer
+    limit set below any graph), as the CPU tests force it."""
+    saved = sched_mod._BP_RING_MAX_ARC
+    sched_mod._BP_RING_MAX_ARC = -1
+    try:
+        sched = StreamScheduler(*args, **kwargs)
+    finally:
+        sched_mod._BP_RING_MAX_ARC = saved
+    check(not sched._device_bp, "the forced scheduler is not on the host route")
+    return sched
 
-    def wrapped_decode(log_probs, lengths, rows):
-        lens = lengths.cpu()
-        kind = ("partial" if bool(((lens > 0) & (lens < sched._chunk_out)).any())
-                else "idle" if bool((lens == 0).any()) else None)
-        keep = kind is not None and kind not in store
-        alpha0 = sched._alpha.clone() if keep else None
-        bps = decode(log_probs, lengths, rows)
-        if keep:
-            store[kind] = (log_probs.clone(), lengths.clone(), alpha0, rows,
-                           sched._alpha.clone(), bps.clone())
-        return bps
 
-    def wrapped_features(batch):
-        store.setdefault("pcm", batch.copy())
-        return features(batch)
+def tick_ms(ticks):
+    work = np.asarray([t[0] for t in ticks if t[1] > 0])
+    return np.percentile(work, 50), np.percentile(work, 90)
 
-    sched._decode, sched._features = wrapped_decode, wrapped_features
+
+def path_walk_numbers(name, sched, dev):
+    """K4 on the scheduler's ring as the run left it (every slot's frames
+    decoded so far, walked from its alpha) against its plain twin bit for
+    bit, timed, with its bound: one 32-byte ring sector read a step, the
+    packed rows written."""
+    st, tk = sched._st, sched._tick
+    start, costs = walk_start(st.alpha, sched.device_graph.final_weight)
+    args = (st.ring, st.offs, start, costs, tk.arc_src, tk.arc_sil, sched._ring_frames,
+            sched._ep_device)
+    got = path_walk(*args)
+    want = path_walk_torch(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"{name}: path walk kernel differs from its twin")
+    steps = int(st.offs.sum())
+    out = {"ms": device_ms(lambda: path_walk(*args)), "plain_ms": cuda_ms(lambda: path_walk_torch(*args), iters=3),
+           "max_abs_err": float((got.to(torch.int32) - want.to(torch.int32)).abs().max())}
+    out["bound_ms"], out["bound_by"] = bound(32 * steps + got.numel() * 2, 6 * steps)
+    print(f"K4 path_walk on {name} ({sched.device_graph.num_states} states), ring "
+          f"{list(st.ring.shape)}, {steps} frames walked over {st.offs.shape[0]} slots: bit-equal "
+          f"to its twin; kernel {out['ms']:.4f} ms of device time, plain {out['plain_ms']:.4f} ms, "
+          f"bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
+    return out
 
 
 def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy):
-    """The scheduler at 32 slots on one graph: counted run, K2 held bit for
-    bit on two ticks, transcripts against the single stream, tick times,
-    stage times. Returns (launch counts, captured tick inputs, scheduler)."""
+    """The scheduler at 32 slots on one graph, on the device route and
+    captured: counted run with every replay held bit-equal to the eager
+    body, the kernels' inputs at the tick's shapes probed; transcripts
+    against the single stream and the host route; tick times captured and
+    eager; stage times. Returns (launch counts, probes, scheduler)."""
     sched = StreamScheduler(model_dir, graph_dir, max_streams=BATCH, device=dev, **fuzzy)
     g = sched.device_graph
+    check(sched._device_bp and sched._device_feats, f"{name}: not on the device route")
     check(sched.chunk_decoder == "dense", f"{name}: the tick should decode on the Viterbi kernel")
-    sched_run(sched, pcms)  # warm-up: the chunk plan's first calls at [32, W, D]
+    sched_run(sched, pcms)  # warm-up: each tick body's first call, then its capture
+    runner = sched._runner
 
-    # -- counted: at most one K1 and one K2 launch a tick ----------------------
-    store = {}
-    capture_tick_inputs(sched, store)
+    # -- counted: at most one K1, K2 and K4 launch, one upload and one
+    # download a tick; every replay bit-equal to the eager body -------------
+    probes = {}
+
+    def on_tick():
+        p = sched._tick.probe
+        if p and "viterbi" in p:
+            lens = p["viterbi"][1]
+            kind = ("partial" if bool(((lens > 0) & (lens < sched._chunk_out)).any())
+                    else "idle" if bool((lens == 0).any()) else None)
+            if kind is not None and kind not in probes:
+                probes[kind] = p["viterbi"]
+            probes.setdefault("pcm", p.get("mfcc"))
+        sched._tick.probe = {}
+        runner.check_next = True
+
+    sched._tick.probe = {}
+    runner.check_next = True
+    # the scheduler's counts (and the wrappers') to 0 just before the
+    # counted run, read just after
     zero_counts()
-    texts, ticks, _wall = sched_run(sched, pcms)
+    runner.launches = dict.fromkeys(runner.launches, 0)
+    n_checks = len(runner.checks)
+    texts, ticks, _wall = sched_run(sched, pcms, on_tick)
+    sched._tick.probe, runner.check_next = None, False
     torch.cuda.synchronize()
-    counts = read_counts()
-    del sched._decode, sched._features  # back to the class's methods
-    check(all(k1 <= 1 and k2 <= 1 for _ms, _l, k1, k2 in ticks),
-          f"{name}: a tick launched more than one MFCC or Viterbi kernel")
-    check(counts["mfcc"] > 0 and counts["viterbi"] > 0, f"{name}: kernels not launched: {counts}")
-    check(counts["viterbi"] == sum(1 for t in ticks if t[1] > 0),
-          f"{name}: {counts['viterbi']} Viterbi launches for {sum(1 for t in ticks if t[1])} ticks with work")
+    counts = sched.kernel_launches
+    checks = runner.checks[n_checks:]
+    check(all(max(t[2].values()) <= 1 for t in ticks),
+          f"{name}: a tick launched more than one MFCC, Viterbi or path-walk kernel")
+    check(all(t[3] <= 1 and t[4] <= 1 for t in ticks), f"{name}: a tick made more than one upload or download")
+    check(all(v > 0 for v in counts.values()), f"{name}: kernels not launched: {counts}")
+    chunk_ticks = sum(1 for t in ticks if t[1] > 0)
+    check(counts["viterbi"] == chunk_ticks, f"{name}: {counts['viterbi']} Viterbi launches for {chunk_ticks} "
+          "ticks with a chunk")
+    check(len(checks) > 0 and all(all(eq.values()) for _k, eq in checks),
+          f"{name}: a replay differs from the eager tick body: {[c for c in checks if not all(c[1].values())][:2]}")
     check(len(texts) == BATCH and all(len(x) == 1 for x in texts), f"{name}: transcripts {texts[:3]}")
+    print(f"scheduler {name}: {len(checks)} replays of {len(runner.graphs)} captured tick graphs "
+          f"each bit-equal to the tick body run eagerly on copies of its inputs "
+          f"(every state tensor: {', '.join(checks[0][1])})")
 
-    # -- the tick's K2 outputs against the plain decoder, bit for bit ---------
-    check("idle" in store and "partial" in store, f"{name}: no tick with idle slots or partial chunks")
+    # -- K2 at the tick's shapes against the plain decoder, bit for bit ------
+    check("idle" in probes and "partial" in probes, f"{name}: no tick with idle slots or partial chunks")
     compact = g.num_arcs <= twin_decoder._COMPACT_BP_MAX_ARC
     for kind in ("idle", "partial"):
-        lp, lens, alpha0, rows, alpha1, bps1 = store[kind]
+        lp, lens, alpha0 = probes[kind]
         want = twin_decoder.viterbi(g, lp, sched.acoustic_scale, lens, compact_bp=compact, alpha0=alpha0)
         full = viterbi_decode(g, lp, sched.acoustic_scale, lens, return_forward=True, alpha0=alpha0)
         torch.cuda.synchronize()
-        check(torch.equal(alpha1, want[0]) and torch.equal(bps1.to(torch.int32), want[1][:rows].to(torch.int32)),
-              f"{name}: the tick's Viterbi outputs differ from the plain decoder's ({kind} tick)")
         check(decode_outputs_equal(full[3:], want), f"{name}: K2 at the tick's shape differs ({kind})")
         what = "an idle slot" if kind == "idle" else "a partial chunk"
-        print(f"scheduler {name}: the first tick with {what} (lengths {lens.tolist()}): alpha and "
-              f"backpointers bit-equal to the plain decoder's")
+        print(f"scheduler {name}: K2 on the first tick with {what} (lengths {lens.tolist()}): alpha "
+              f"and backpointers bit-equal to the plain decoder's")
 
-    # -- transcripts against the single stream ---------------------------------
+    # -- transcripts against the single stream and the host route -------------
     st = Nnet3StreamTranscriber(model_dir, graph_dir, device=dev)
     single = [st.transcribe_pcm(p, chunk_samples=STREAM_CHUNK, **fuzzy) for p in pcms]
     same = sum(a == b for a, b in zip(texts, single))
     check(same >= SCHED_MIN_EQUAL, f"{name}: only {same} of {BATCH} scheduled transcripts equal the "
           f"single stream's: {texts} vs {single}")
+    host = host_route_scheduler(model_dir, graph_dir, max_streams=BATCH, device=dev, **fuzzy)
+    host_texts, host_ticks, host_wall = sched_run(host, pcms)
+    same_host = sum(a == b for a, b in zip(texts, host_texts))
+    check(same_host >= SCHED_MIN_EQUAL, f"{name}: only {same_host} of {BATCH} device-route transcripts "
+          f"equal the host route's: {texts} vs {host_texts}")
+    del host
 
-    # -- tick times, slots a tick, fleet RTF; then stages, synchronized -------
+    # -- tick times captured and eager, bytes down, fleet RTF; stages --------
+    d0, b0 = runner.downloads, runner.download_bytes
     _texts, ticks, wall = sched_run(sched, pcms)
-    work = [t for t in ticks if t[1] > 0]
-    ms = np.asarray([t[0] for t in work])
+    down = (runner.download_bytes - b0) / max(runner.downloads - d0, 1)
+    runner.capture = False
+    _texts, eager_ticks, eager_wall = sched_run(sched, pcms)
+    runner.capture = True
+    (c50, c90), (e50, e90), (h50, h90) = tick_ms(ticks), tick_ms(eager_ticks), tick_ms(host_ticks)
     idle_ms = np.asarray([t[0] for t in ticks if t[1] == 0])
+    work = [t for t in ticks if t[1] > 0]
     stage_s, calls = {}, {}
-    names = ("_features", "_ready", "_upload", "_reset_lanes", "_fold_ivector", "_acoustic",
-             "_decode", "_download", "_stage_ivector_stats", "_finalize")
+    names = ("_prep_features_device", "_apply_endpoint_stats", "_step_fused", "_feed_only_dispatch",
+             "_finalize_device", "_harvest_finalizes")
     for n in names:
         fn = timed_stage(getattr(sched, n), stage_s, n.lstrip("_"))
 
-        def counted(*args, _fn=fn, _n=n.lstrip("_")):
+        def counted(*args, _fn=fn, _n=n.lstrip("_"), **kwargs):
             calls[_n] = calls.get(_n, 0) + 1
-            return _fn(*args)
+            return _fn(*args, **kwargs)
 
         setattr(sched, n, counted)
     sched_run(sched, pcms)
@@ -1139,21 +1211,25 @@ def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy):
         delattr(sched, n)
     stages = {k: f"{v * 1000.0 / calls[k]:.4f} x{calls[k]}" for k, v in stage_s.items()}
     print(f"scheduler {name} ({g.num_states} states), {BATCH} slots, {BATCH} x {SECONDS} s fed in "
-          f"{STREAM_CHUNK}-sample pushes: launches {counts} over {len(ticks)} ticks ({len(work)} with a "
-          f"chunk); {same} of {BATCH} transcripts equal the single stream's; tick ms (host clock) "
-          f"p50 {np.percentile(ms, 50):.3f} p90 {np.percentile(ms, 90):.3f} (ticks without a chunk: "
-          f"p50 {np.percentile(idle_ms, 50):.3f}); slots a tick with a chunk: mean "
-          f"{np.mean([t[1] for t in work]):.2f}, max {max(t[1] for t in work)}; fleet wall "
-          f"{wall * 1000:.1f} ms, real-time factor {wall / (BATCH * SECONDS):.5f}")
+          f"{STREAM_CHUNK}-sample pushes, device route: launches {counts} over {len(ticks)} ticks "
+          f"({len(work)} with a chunk); {same} of {BATCH} transcripts equal the single stream's, "
+          f"{same_host} the host route's; tick ms (host clock) captured p50 {c50:.3f} p90 {c90:.3f}, "
+          f"eager p50 {e50:.3f} p90 {e90:.3f}, host route p50 {h50:.3f} p90 {h90:.3f} (captured ticks "
+          f"without a chunk: p50 {np.percentile(idle_ms, 50):.3f}); bytes down a tick with a download "
+          f"{down:.0f}; tick graphs captured {len(runner.graphs)}; slots a tick with a chunk: mean "
+          f"{np.mean([t[1] for t in work]):.2f}, max {max(t[1] for t in work)}; fleet wall captured "
+          f"{wall * 1000:.1f} ms (real-time factor {wall / (BATCH * SECONDS):.5f}), eager "
+          f"{eager_wall * 1000:.1f} ms ({eager_wall / (BATCH * SECONDS):.5f}), host route "
+          f"{host_wall * 1000:.1f} ms ({host_wall / (BATCH * SECONDS):.5f})")
     print(f"scheduler {name} stages (ms a call x calls, host clock, each synchronized): {stages}")
-    return counts, store, sched
+    return counts, probes, sched
 
 
-def sched_kernel_numbers(sched, store, dev):
+def sched_kernel_numbers(sched, probes, dev):
     """K1 and K2 at the tick's shapes against their plain versions: K1 on
-    the first tick's PCM batch, K2 on the tick with idle slots."""
+    the first probed tick's PCM, K2 on the tick with idle slots."""
     params = sched._featurizer.stream_params
-    samples = torch.as_tensor(store["pcm"], device=dev)
+    samples = probes["pcm"]
     got, want = mfcc_batch(params, samples), mfcc_batch_torch(params, samples)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -1163,7 +1239,7 @@ def sched_kernel_numbers(sched, store, dev):
           "plain_ms": cuda_ms(lambda: mfcc_batch_torch(params, samples)), "max_abs_err": err}
     k1["bound_ms"], k1["bound_by"] = bound(*mfcc_work(params, *samples.shape, got.shape[1]))
     g = sched.device_graph
-    lp, lens, alpha0, _rows, _a, _b = store["idle"]
+    lp, lens, alpha0 = probes["idle"]
     compact = g.num_arcs <= twin_decoder._COMPACT_BP_MAX_ARC
     out = viterbi_decode(g, lp, sched.acoustic_scale, lens, return_forward=True, alpha0=alpha0)
     want = twin_decoder.viterbi(g, lp, sched.acoustic_scale, lens, compact_bp=compact, alpha0=alpha0)
@@ -1183,12 +1259,49 @@ def sched_kernel_numbers(sched, store, dev):
     return k1, k2
 
 
+def speech_endpoints(sched, pcms):
+    """The speech streams fed in STREAM_CHUNK pushes, never finished, a
+    tick after each round, until every transcript is in. Returns
+    (transcripts, the tick each stream's endpoint fired on, ticks, input
+    frames weighed as silence on the device)."""
+    sids = [sched.open_stream() for _ in pcms]
+    fired = [None] * len(sids)
+    ticks = weighed = 0
+
+    def tick():
+        nonlocal ticks, weighed
+        sched.step()
+        ticks += 1
+        for i, sid in enumerate(sids):
+            if fired[i] is None and sched.slots[sid].done:
+                fired[i] = ticks
+        if sched._device_bp and sched._sw_device:
+            weighed += int((sched._sw_w == np.float32(SILENCE_WEIGHT)).sum())
+
+    for off in range(0, max(p.shape[0] for p in pcms), STREAM_CHUNK):
+        for sid, pcm in zip(sids, pcms):
+            if off < pcm.shape[0]:
+                sched.feed(sid, pcm[off : off + STREAM_CHUNK])
+        tick()
+    for _ in range(200):
+        if all(sched.poll(sid) is not None for sid in sids):
+            break
+        tick()
+    check(not any(sched.pool.is_finished(sid) for sid in sids), "a speech stream was finished")
+    texts = [sched.poll(sid) for sid in sids]
+    for sid in sids:
+        sched.close(sid)
+    return texts, fired, ticks, weighed
+
+
 def speech_part(root, dev):
-    """The port's synthetic speech profile: 8 spoken sentences with
-    trailing silence, never finished, must endpoint to the spoken sentence
-    and the batch transcript, plain and with silence_weight."""
+    """The port's synthetic speech profile (an AM context that covers the
+    i-vector tap, and the extractor's CMVN stats: the device route in full):
+    8 spoken sentences with trailing silence, never finished, must endpoint
+    to the spoken sentence and the batch transcript, plain and with
+    silence_weight; each stream's endpoint tick beside the host route's."""
     profile = build_synthetic_profile(os.path.join(root, "speech_model"), SPEECH_LEXICON,
-                                      with_ivector=True)
+                                      with_ivector=True, with_context=True, with_ivector_cmvn=True)
     intents = {"language": "en", "intents": {"Main": {"data": [{"sentences": SPEECH_GRAMMAR}]}}}
     train_model_sync("en", intents, os.path.join(root, "speech_train"), profile.model_dir,
                      lang_suffixes=[LangSuffix.GRAMMAR])
@@ -1201,60 +1314,47 @@ def speech_part(root, dev):
     batch = Nnet3WavTranscriber(profile.model_dir, graph_dir, device=dev).transcribe_pcm_batch(pcms)
     check(batch == spoken, f"speech profile: batch transcripts {batch}")
     for kw in ({}, {"silence_weight": SILENCE_WEIGHT}):
-        sched = StreamScheduler(profile.model_dir, graph_dir, max_streams=len(pcms),
-                                endpointing=EndpointConfig(), device=dev, **kw)
-        hits = [0]
-        stage = sched._stage_ivector_stats
-
-        def counting(sid, *args, _stage=stage, _sched=sched):
-            _stage(sid, *args)
-            hits[0] += int((_sched.slots[sid].iv_pending_w == np.float32(SILENCE_WEIGHT)).sum())
-
-        sched._stage_ivector_stats = counting
-        sids = [sched.open_stream() for _ in pcms]
-        zero_counts()
-        ticks = 0
-        for off in range(0, max(p.shape[0] for p in pcms), STREAM_CHUNK):
-            for sid, pcm in zip(sids, pcms):
-                if off < pcm.shape[0]:
-                    sched.feed(sid, pcm[off : off + STREAM_CHUNK])
-            sched.step()
-            ticks += 1
-        for _ in range(200):
-            if all(sched.poll(sid) is not None for sid in sids):
-                break
-            sched.step()
-            ticks += 1
-        counts = read_counts()
-        texts = [sched.poll(sid) for sid in sids]
-        check(not any(sched.pool.is_finished(sid) for sid in sids), "a speech stream was finished")
+        args = (profile.model_dir, graph_dir)
+        kwargs = dict(max_streams=len(pcms), endpointing=EndpointConfig(), device=dev, **kw)
+        sched = StreamScheduler(*args, **kwargs)
+        check(sched._device_bp and sched._device_feats and sched._ep_device
+              and sched._sw_device == bool(kw), f"speech profile {kw}: not on the device route")
+        before = sched.kernel_launches
+        texts, fired, ticks, weighed = speech_endpoints(sched, pcms)
+        counts = {k: v - before[k] for k, v in sched.kernel_launches.items()}
+        host_texts, host_fired, _t, _w = speech_endpoints(host_route_scheduler(*args, **kwargs), pcms)
         check(texts == batch, f"speech profile {kw}: endpointed transcripts {texts} vs batch {batch}")
-        check(counts["mfcc"] > 0 and counts["viterbi"] > 0, f"speech profile: launches {counts}")
+        check(host_texts == batch, f"speech profile {kw}: host-route transcripts {host_texts}")
+        check(all(v > 0 for v in counts.values()), f"speech profile: launches {counts}")
         if kw:
-            check(hits[0] > 0, "silence weighting weighed no frame")
-        print(f"scheduler on the synthetic speech profile {kw or '(plain)'}: {len(pcms)} streams with "
-              f"1-2 s of trailing silence, never finished, all endpointed within {ticks} ticks to the "
-              f"spoken sentences and the batch transcripts; launches {counts}; input frames weighed "
-              f"{SILENCE_WEIGHT} as silence: {hits[0]}")
+            check(weighed > 0, "silence weighting weighed no frame")
+        print(f"scheduler on the synthetic speech profile {kw or '(plain)'}, device route: "
+              f"{len(pcms)} streams with 1-2 s of trailing silence, never finished, all endpointed "
+              f"within {ticks} ticks to the spoken sentences and the batch transcripts; launches "
+              f"{counts}; input frames weighed {SILENCE_WEIGHT} as silence on the device: {weighed}; "
+              f"endpoint tick per stream, device route {fired}, host route {host_fired}")
 
 
 def scheduler_phase(model_dir, graph_dir, big_dirs, root, dev, pcms, fuzzy):
     """The stream scheduler at full width on both graphs, then on speech;
-    returns the launch counts and K1 / K2 numbers of the flagship graph's
-    tick."""
-    counts, store, sched = sched_graph_part("flagship", model_dir, graph_dir, dev, pcms, fuzzy)
-    k1, k2 = sched_kernel_numbers(sched, store, dev)
-    del sched, store
-    _c, big_store, big = sched_graph_part("13789", *big_dirs, dev, pcms, {})
-    lp, lens, alpha0, _rows, _a, _b = big_store["idle"]
+    returns the launch counts and K1 / K2 / K4 numbers of the flagship
+    graph's tick, and K4's on the big graph."""
+    counts, probes, sched = sched_graph_part("flagship", model_dir, graph_dir, dev, pcms, fuzzy)
+    k1, k2 = sched_kernel_numbers(sched, probes, dev)
+    k4 = path_walk_numbers("flagship", sched, dev)
+    del sched, probes
+    big_counts, big_probes, big = sched_graph_part("13789", *big_dirs, dev, pcms, {})
+    lp, lens, alpha0 = big_probes["idle"]
     big_ms = device_ms(lambda: viterbi_decode(big.device_graph, lp, big.acoustic_scale, lens,
                                               return_forward=True, alpha0=alpha0))
     plan, _ = select_plan(big.device_graph, lp.shape[0])
     print(f"K2 at the tick's shape on {big.device_graph.num_states} states {list(lp.shape)}: "
           f"{big_ms:.4f} ms of device time in clusters of {plan.cluster}")
-    del big, big_store
+    k4_big = path_walk_numbers("13789", big, dev)
+    k4_big["launches"] = big_counts["path_walk"]
+    del big, big_probes
     speech_part(root, dev)
-    return counts, k1, k2
+    return counts, k1, k2, k4, k4_big
 
 
 def main():
@@ -1360,19 +1460,22 @@ def main():
         big_dirs = big_graph_phase(root, dev, pcms)
 
         # -- the stream scheduler: one K1 and one K2 launch a tick --------------
-        sched_counts, k1_tick, k2_tick = scheduler_phase(
+        sched_counts, k1_tick, k2_tick, k4_tick, k4_big = scheduler_phase(
             model_dir, graph_dir, big_dirs, root, dev, pcms, fuzzy)
 
     # -- K3: the windowed relaxation's entry point ----------------------------
     k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = windowed_relax_phase(dev)
 
-    # no single PyTorch call computes Kaldi's MFCC, a Viterbi pass or the
-    # windowed relaxation: library_ms is null for all three. The two
-    # "stream" entries are K1 and K2 at the streaming path's shapes (a push,
-    # a 7-frame chunk with a carried alpha), their launches counted over one
-    # streamed utterance; the two "sched_tick" entries at the scheduler
-    # tick's ([32, L] PCM; [32, 7, P] with alpha0 and a length per slot),
-    # their launches counted over the flagship graph's scheduler run
+    # no single PyTorch call computes Kaldi's MFCC, a Viterbi pass, the
+    # windowed relaxation or a backpointer walk: library_ms is null for all
+    # four. The two "stream" entries are K1 and K2 at the streaming path's
+    # shapes (a push, a 7-frame chunk with a carried alpha), their launches
+    # counted over one streamed utterance; the two "sched_tick" entries at
+    # the scheduler tick's ([32, L] PCM; [32, 7, P] with alpha0 and a length
+    # per slot), their launches (and path_walk's) counted by the scheduler
+    # over the flagship graph's captured run; path_walk_13789 is K4 on the
+    # big graph's ring, its launches that graph's run's. K4 has no TPU
+    # kernel: "replaces" names the XLA scan it stands in for.
     kernels = [
         {"name": "mfcc", "route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
          "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122",
@@ -1397,6 +1500,11 @@ def main():
          "source": "rhasspy_speech_torch/csrc/viterbi.cu",
          "replaces": "rhasspy_speech_tpu/ops/pallas_decoder.py:370",
          "launches": sched_counts["viterbi"], "library_ms": None, **k2_tick},
+        {"name": "path_walk", "route": "cuda", "source": "rhasspy_speech_torch/csrc/path_walk.cu",
+         "replaces": "rhasspy_speech_tpu/pipeline/scheduler.py:838",
+         "launches": sched_counts["path_walk"], "library_ms": None, **k4_tick},
+        {"name": "path_walk_13789", "route": "cuda", "source": "rhasspy_speech_torch/csrc/path_walk.cu",
+         "replaces": "rhasspy_speech_tpu/pipeline/scheduler.py:838", "library_ms": None, **k4_big},
         {"name": "windowed_relax", "route": "cuda", "source": "rhasspy_speech_torch/csrc/windowed_relax.cu",
          "replaces": "examples/pallas_windowed_cost.py:59",
          "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,

@@ -2,8 +2,9 @@
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Dict, Union
 
+import numpy as np
 import torch
 
 # The AM matmuls and the feature math are held to the JAX package's f32
@@ -29,3 +30,18 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+_INDEX_CACHE: Dict[tuple, torch.Tensor] = {}
+
+
+def cached_index(values: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``torch.as_tensor(values, device=device)``, made once per distinct
+    array and device: a forward pass that indexes with constant arrays
+    uploads nothing after its first call, so a CUDA graph can capture it."""
+    arr = np.ascontiguousarray(values)
+    key = (arr.dtype.str, arr.shape, arr.tobytes(), str(device))
+    out = _INDEX_CACHE.get(key)
+    if out is None:
+        out = _INDEX_CACHE[key] = torch.as_tensor(arr, device=device)
+    return out

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import resolve_device
+from ..device import cached_index, resolve_device
 from ..io.nnet3_file import ComponentSpec, Descriptor, Nnet3Spec, NodeSpec
 
 _AFFINE = ("AffineComponent", "NaturalGradientAffineComponent", "FixedAffineComponent")
@@ -477,7 +477,7 @@ class CompiledNnet3(nn.Module):
             if kind == "switch":
                 # value at time t from sub-descriptor t mod n
                 parts = [eval_desc(s, lo, hi) for s in desc[1]]
-                sel = torch.as_tensor(np.arange(lo, hi) % len(parts), device=dev)
+                sel = cached_index(np.arange(lo, hi) % len(parts), dev)
                 out = parts[0]
                 for i in range(1, len(parts)):
                     out = torch.where((sel == i)[None, :, None], parts[i], out)
@@ -494,7 +494,7 @@ class CompiledNnet3(nn.Module):
                 src = (np.arange(lo, hi) // m) * m
                 sub_lo, sub_hi = int(src.min()), int(src.max()) + 1
                 arr = eval_desc(desc[1], sub_lo, sub_hi)
-                return arr[:, torch.as_tensor(src - sub_lo, device=dev)]
+                return arr[:, cached_index(src - sub_lo, dev)]
             if kind == "ifdefined":
                 # frames outside the sub-descriptor's computable range read 0
                 sub_lo, sub_hi = self._computable_range(desc[1])
@@ -529,7 +529,7 @@ class CompiledNnet3(nn.Module):
             period = plan.ivector_period if plan.ivector_period > 0 else max(iv_hi - iv_lo, 1)
             ts = np.arange(iv_lo, iv_hi)
             idx = np.clip(np.maximum(ts, 0) // period, 0, ivector.shape[1] - 1)
-            values["ivector"] = ivector[:, torch.as_tensor(idx, device=dev)]
+            values["ivector"] = ivector[:, cached_index(idx, dev)]
             origins["ivector"] = iv_lo
 
         for node in plan.order:
@@ -555,7 +555,7 @@ class CompiledNnet3(nn.Module):
 
         out = values[plan.output_name]
         idx = np.arange(plan.num_out_frames) * plan.subsampling - origins[plan.output_name]
-        return out[:, torch.as_tensor(idx, device=dev)]
+        return out[:, cached_index(idx, dev)]
 
 
 def compile_nnet3(

@@ -19,7 +19,7 @@ from typing import Any, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import cached_index, resolve_device
 from ..io.ivector import DiagGmm, IvectorExtractor, OnlineIvectorConfig
 
 
@@ -104,7 +104,7 @@ def splice_frames(feats: torch.Tensor, left: int, right: int) -> torch.Tensor:
     T = feats.shape[1]
     parts = []
     for off in range(-left, right + 1):
-        idx = torch.as_tensor(np.clip(np.arange(T) + off, 0, T - 1), device=feats.device)
+        idx = cached_index(np.clip(np.arange(T) + off, 0, T - 1), feats.device)
         parts.append(feats[:, idx])
     return torch.cat(parts, dim=-1)
 
@@ -127,7 +127,7 @@ def splice_lda(feats: torch.Tensor, params: IvectorParams) -> torch.Tensor:
     n_blocks = left + 1 + right
     out = None
     for i, off in enumerate(range(-left, right + 1)):
-        idx = torch.as_tensor(np.clip(np.arange(T) + off, 0, T - 1), device=feats.device)
+        idx = cached_index(np.clip(np.arange(T) + off, 0, T - 1), feats.device)
         y = feats[:, idx] @ lda[:, i * D : (i + 1) * D].T
         out = y if out is None else out + y
     if lda.shape[1] == n_blocks * D + 1:
@@ -186,6 +186,20 @@ def accumulate_stats(
     return gamma, X
 
 
+def window_stats(
+    wins: torch.Tensor, weights: torch.Tensor, params: IvectorParams, chunk_in: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's statistics from its tap windows [B, left + chunk_in +
+    right, D] (the splice clamps at the window's edges), frame ``t``
+    weighted by ``weights[:, t]`` [B, chunk_in]: (gamma [B, I], X [B, I,
+    Dl]) to add to a stream's running statistics."""
+    sl = params.splice_left
+    spliced = splice_frames(wins, sl, params.splice_right)[:, sl : sl + chunk_in]
+    lda_feats = apply_lda(spliced, params)
+    post = gselect_posteriors(gmm_log_likes(lda_feats, params), params)
+    return accumulate_stats(lda_feats, post, frame_weights=weights)
+
+
 def solve_ivector(gamma: torch.Tensor, X: torch.Tensor, params: IvectorParams) -> torch.Tensor:
     """[B, I], [B, I, D] -> [B, K] i-vectors (prior offset subtracted):
     (I + sum_i gamma_i U_i) is symmetric positive definite, so a Cholesky
@@ -200,8 +214,11 @@ def solve_ivector(gamma: torch.Tensor, X: torch.Tensor, params: IvectorParams) -
     linear[:, 0] += params.prior_offset
     quad = torch.einsum("bi,ikl->bkl", gamma, params.U)
     quad = quad + torch.eye(K, dtype=quad.dtype, device=quad.device)[None]
-    chol = torch.linalg.cholesky(quad)
-    ivec = torch.cholesky_solve(linear[..., None], chol)[..., 0]
+    # cholesky_ex and two triangular solves check nothing on the host, so a
+    # CUDA graph can capture the solve (the stream scheduler's tick does)
+    chol = torch.linalg.cholesky_ex(quad)[0]
+    y = torch.linalg.solve_triangular(chol, linear[..., None], upper=False)
+    ivec = torch.linalg.solve_triangular(chol.mT, y, upper=True)[..., 0]
     ivec[:, 0] -= params.prior_offset
     return ivec
 

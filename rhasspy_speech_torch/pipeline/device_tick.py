@@ -1,0 +1,447 @@
+"""The stream scheduler's device route: the tick's device program.
+
+Counterpart of the programs the JAX ``StreamScheduler`` builds with
+``jax.jit`` (``batch_chunk``, ``batch_chunk_fused``, ``feed_only_merged``
+and ``finalize_trace``, ``rhasspy_speech_tpu/pipeline/scheduler.py``). Every
+slot's decode state lives on the device in a ``TickState`` allocated once:
+alpha ``[N, S]``, the backpointer ring ``[N, F + chunk, S]`` (uint16
+``bp + 3`` bits: 0 no frame, 2 dead, arc + 3), its write offsets, the
+i-vector statistics and carried tap window, the silence weights, and on the
+fused route the feature ring ``[N, FT, D]`` with its cumulative-sum twin for
+the i-vector CMVN. A tick's bodies update it in place:
+
+- ``body_fused``: one ``pcm_meta`` upload ``[N, L + 16]`` (PCM and seven
+  int32 slot scalars as 16-bit halves) -> one MFCC launch writing the new
+  rows into the feature rings -> AM windows gathered from the ring -> reset
+  of reopened slots -> i-vector fold -> chunk AM -> one Viterbi launch with
+  the carried alpha -> silence weights -> ring write -> one path-walk
+  launch, whose packed row ``[N, F + 8]`` is the tick's only download;
+- ``body_feed``: the feature rings only (a tick with audio and no chunk);
+- ``body_chunk``: the chunk step on windows the host assembled (a model
+  whose features stay on the host: ``snip_edges=false``, or an i-vector tap
+  the AM's context does not cover);
+- ``body_finalize``: the path walk alone, for a tick that flushes a stream
+  and decodes nothing.
+
+``TickRunner.run`` executes a body. On the CPU it runs eagerly. On the card
+the first call of each key (body and input shapes) runs eagerly on a side
+stream -- that call IS the tick -- and then captures the body into a
+``torch.cuda.CUDAGraph`` (one private memory pool per scheduler); every
+later call copies the pinned inputs into the graph's static inputs and
+replays it. A capture failure raises. The wrapper counters count host calls,
+which under capture happen once, so the runner keeps the scheduler's own
+count: the launches recorded in a graph times its replays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import decoder as plain_decoder
+from ..ops.ivector import solve_ivector, window_stats
+from ..ops.mfcc_cuda import mfcc_batch
+from ..ops.path_walk_cuda import path_walk, walk_start
+from ..ops.viterbi_cuda import viterbi_decode
+
+# trailing int16 / f32 columns of the pcm_meta upload: 8 int32 slots as
+# lo / hi 16-bit halves (7 used: n_valid, reset, t0, have, feature-ring
+# write offset, has new audio, pending i-vector frames)
+META_COLS = 16
+KERNELS = ("mfcc", "viterbi", "path_walk")
+
+
+def kernel_counts() -> Dict[str, int]:
+    return {"mfcc": mfcc_batch.launches, "viterbi": viterbi_decode.launches,
+            "path_walk": path_walk.launches}
+
+
+@dataclass
+class TickState:
+    """Every slot's device state (dummies of one element where a route
+    does not use a piece)."""
+
+    alpha: torch.Tensor  # [N, S] f32
+    offs: torch.Tensor  # [N] int32 decoded frames a slot (= ring rows)
+    ring: torch.Tensor  # [N, F + chunk_out, S] int16 (uint16 bp + 3)
+    packed: torch.Tensor  # [N, F + 8] int16 (uint16): the last walk's rows
+    gamma: torch.Tensor  # [N, I] f32
+    X: torch.Tensor  # [N, I, Dl] f32
+    iv_carry: torch.Tensor  # [N, Wiv, C] f32: the tap window to fold next
+    sw_w: torch.Tensor  # [N, chunk_in] f32: next fold's silence weights
+    feats_ring: torch.Tensor  # [N, FT, D] f32
+    cum_ring: torch.Tensor  # [N, FT, C] f32: cumulative feature sums
+
+    def clone(self) -> "TickState":
+        return TickState(**{f.name: getattr(self, f.name).clone()
+                            for f in dataclasses.fields(self)})
+
+
+@dataclass(frozen=True)
+class TickConfig:
+    """What the bodies read besides the state: sizes, flags, tables."""
+
+    N: int
+    ring_frames: int  # F: the packed trace's width
+    chunk_out: int
+    chunk_in: int
+    win_lo: int
+    win_hi: int
+    num_ceps: int
+    acoustic_scale: float
+    dense: bool  # decode on the Viterbi kernel (else the plain scan)
+    carry_device: bool  # the i-vector tap window is cut on the device
+    cmvn_device: bool  # ... and normalized from the cumulative ring
+    sw_device: bool
+    sw_factor: float
+    ep_stats: bool  # the walk counts trailing silence
+    subsampling: int
+    splice_left: int
+    splice_right: int
+    cmvn_window: int
+    cmvn_g_count: float
+    cmvn_g_cap: float
+
+
+class DeviceTick:
+    """The bodies of the scheduler's device tick over a ``TickState``."""
+
+    def __init__(self, cfg: TickConfig, graph, chunk_model, ivp, ivector_dim: Optional[int],
+                 stream_params, arc_src: torch.Tensor, arc_sil: torch.Tensor,
+                 cmvn_g_sum: Optional[torch.Tensor]):
+        self.cfg = cfg
+        self.graph = graph
+        self.chunk_model = chunk_model
+        self.ivp = ivp
+        self.ivector_dim = ivector_dim  # None: the AM reads no i-vector
+        self.stream_params = stream_params
+        self.arc_src = arc_src  # int32 [A]
+        self.arc_sil = arc_sil  # uint8 [A]
+        self.cmvn_g_sum = cmvn_g_sum
+        dev = graph.device
+        self.lanes = torch.arange(cfg.N, device=dev)
+        # filled by an eager run while set: each kernel's inputs at the
+        # tick's shapes (chip_smoke.py times the kernels on them)
+        self.probe: Optional[dict] = None
+
+    # -- pieces ---------------------------------------------------------------
+
+    @staticmethod
+    def unpack(pcm_meta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[N, L + META_COLS] int16 or f32 -> (PCM [N, L] f32, meta [N, 8]
+        int32)."""
+        enc = pcm_meta[:, -META_COLS:].to(torch.int64)
+        meta = ((enc[:, 0::2] & 0xFFFF) | ((enc[:, 1::2] & 0xFFFF) << 16)).to(torch.int32)
+        return pcm_meta[:, :-META_COLS].to(torch.float32), meta
+
+    def _ring_write(self, ring: torch.Tensor, rows: torch.Tensor, counts: torch.Tensor,
+                    has_new: torch.Tensor) -> None:
+        """rows [N, Lf, D] into ring [N, FT, D] at each slot's ``counts``
+        where ``has_new``; other slots keep their rows."""
+        N, FT, D = ring.shape
+        Lf = rows.shape[1]
+        at = (counts.to(torch.int64)[:, None]
+              + torch.arange(Lf, device=ring.device)[None, :]).clamp(max=FT - 1)
+        flat = (self.lanes[:, None] * FT + at).reshape(-1)
+        view = ring.view(N * FT, D)
+        cur = view.index_select(0, flat).view(N, Lf, D)
+        view.index_copy_(0, flat, torch.where(has_new[:, None, None], rows, cur).reshape(N * Lf, D))
+
+    def feed_feats(self, st: TickState, pcm: torch.Tensor, counts: torch.Tensor,
+                   has_new: torch.Tensor) -> None:
+        """One MFCC launch over the tick's PCM; each slot's new rows go to
+        its feature ring (and their running sums to the cumulative ring) at
+        its frame count. Rows past a slot's real frames are scratch that a
+        later write overwrites; reads clamp to the real count."""
+        if pcm.shape[1] == 0:
+            return
+        if self.probe is not None:
+            self.probe["mfcc"] = pcm.clone()
+        rows = mfcc_batch(self.stream_params, pcm)  # [N, Lf, C]
+        self._ring_write(st.feats_ring, rows, counts, has_new)
+        if self.cfg.cmvn_device:
+            last = st.cum_ring[self.lanes, (counts.to(torch.int64) - 1).clamp_min(0)]
+            prev = torch.where((counts > 0)[:, None], last, 0.0)
+            self._ring_write(st.cum_ring, prev[:, None, :] + torch.cumsum(rows, dim=1),
+                             counts, has_new)
+
+    def gather_windows(self, st: TickState, t0s: torch.Tensor, haves: torch.Tensor) -> torch.Tensor:
+        """AM windows [N, W, D] from the feature ring, edge-clamped as the
+        host route clamps them."""
+        cfg = self.cfg
+        W = cfg.win_hi - cfg.win_lo
+        idx = (t0s.to(torch.int64)[:, None] + cfg.win_lo
+               + torch.arange(W, device=t0s.device)[None, :])
+        idx = torch.minimum(idx.clamp_min(0), (haves.to(torch.int64) - 1).clamp_min(0)[:, None])
+        D = st.feats_ring.shape[2]
+        return torch.gather(st.feats_ring, 1, idx[:, :, None].expand(-1, -1, D))
+
+    def _cmvn_tap(self, st: TickState, windows: torch.Tensor, t0s: torch.Tensor,
+                  haves: torch.Tensor) -> torch.Tensor:
+        """The next fold's tap window, CMVN'd from the cumulative ring: per
+        row the sliding-window mean of two ring gathers, the deficit filled
+        from the global stats (``stage_ivector_window`` with CMVN stats is
+        the host twin)."""
+        cfg = self.cfg
+        sl, sr = cfg.splice_left, cfg.splice_right
+        Wiv = sl + cfg.chunk_in + sr
+        t0 = t0s.to(torch.int64)
+        have = haves.to(torch.int64)
+        t_end = torch.minimum(t0 + cfg.chunk_in, have)
+        clamp = (torch.minimum(t_end + sr, have) - 1).clamp_min(0)[:, None]
+        r = torch.minimum((t0[:, None] + torch.arange(Wiv, device=t0.device)[None, :] - sl)
+                          .clamp_min(0), clamp)
+        off = -sl - cfg.win_lo
+        raw = windows[:, off : off + Wiv, : cfg.num_ceps]
+        C = st.cum_ring.shape[2]
+        cum_r = torch.gather(st.cum_ring, 1, r[:, :, None].expand(-1, -1, C))
+        lo = (r - (cfg.cmvn_window - 1)).clamp_min(0)
+        cum_lo = torch.gather(st.cum_ring, 1, (lo - 1).clamp_min(0)[:, :, None].expand(-1, -1, C))
+        cum_lo = torch.where((lo > 0)[:, :, None], cum_lo, 0.0)
+        wsum = cum_r - cum_lo
+        cnt = (r - lo + 1).to(torch.float32)[:, :, None]
+        if cfg.cmvn_g_cap > 0:
+            take = (cfg.cmvn_window - cnt).clamp(0.0, cfg.cmvn_g_cap)
+            mean = (wsum + (take / cfg.cmvn_g_count) * self.cmvn_g_sum[None, None, :]) / (cnt + take)
+        else:
+            mean = wsum / cnt
+        return raw - mean
+
+    def _silence_weights(self, bps: torch.Tensor, alpha: torch.Tensor,
+                         n_valid: torch.Tensor) -> torch.Tensor:
+        """OnlineSilenceWeighting's chunk traceback: the chunk's best path
+        walked back from the best state, silence frames weighing
+        ``sw_factor`` in the next fold, per input frame [N, chunk_in]."""
+        cfg = self.cfg
+        s_cur = torch.argmin(alpha, dim=1)
+        sil = self.arc_sil.to(torch.bool)
+        src = self.arc_src.to(torch.int64)
+        flags = []
+        for t in range(bps.shape[0] - 1, -1, -1):
+            e = bps[t][self.lanes, s_cur]
+            real = e >= 0
+            safe = e.clamp_min(0)
+            flags.append(real & sil[safe])
+            s_cur = torch.where(real, src[safe], s_cur)
+        flags = torch.stack(flags[::-1], dim=1)  # [N, chunk_out]
+        kk = n_valid.to(torch.int64).clamp_min(1)
+        out_idx = torch.minimum(
+            torch.arange(cfg.chunk_in, device=alpha.device)[None, :] // cfg.subsampling,
+            (kk - 1)[:, None])
+        fsel = torch.gather(flags, 1, out_idx)
+        return torch.where(fsel, cfg.sw_factor, 1.0)
+
+    def _walk(self, st: TickState, alpha: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
+        start, costs = walk_start(alpha, self.graph.final_weight)
+        return path_walk(st.ring, frames, start, costs, self.arc_src, self.arc_sil,
+                         self.cfg.ring_frames, self.cfg.ep_stats)
+
+    def chunk(self, st: TickState, windows: torch.Tensor, n_valid: torch.Tensor,
+              reset: torch.Tensor, t0s: torch.Tensor, haves: torch.Tensor,
+              iv_wins: Optional[torch.Tensor], iv_ws: torch.Tensor) -> None:
+        """Reset, i-vector fold, chunk AM, decode, silence weights, ring
+        write and walk over every slot (``batch_chunk``)."""
+        cfg = self.cfg
+        st.alpha.copy_(torch.where(reset[:, None], self.graph.init_weight[None, :], st.alpha))
+        st.offs.copy_(torch.where(reset, 0, st.offs))
+        ivec = None
+        if self.ivector_dim is not None:
+            if self.ivp is None:
+                ivec = torch.zeros((cfg.N, self.ivector_dim), dtype=torch.float32,
+                                   device=windows.device)
+            else:
+                ivp = self.ivp
+                st.gamma.copy_(torch.where(reset[:, None], 0.0, st.gamma))
+                st.X.copy_(torch.where(reset[:, None, None], 0.0, st.X))
+                if cfg.sw_device:
+                    iv_ws = iv_ws * st.sw_w
+                if cfg.carry_device:
+                    iv_wins = st.iv_carry
+                d_gamma, d_X = window_stats(iv_wins, iv_ws, ivp, cfg.chunk_in)
+                gamma, X = st.gamma + d_gamma, st.X + d_X
+                ivec = solve_ivector(gamma, X, ivp)
+                st.gamma.copy_(gamma)
+                st.X.copy_(X)
+                if cfg.cmvn_device:
+                    st.iv_carry.copy_(self._cmvn_tap(st, windows, t0s, haves))
+                elif cfg.carry_device:
+                    off = -ivp.splice_left - cfg.win_lo
+                    st.iv_carry.copy_(windows[:, off : off + st.iv_carry.shape[1], : cfg.num_ceps])
+        log_probs = self.chunk_model(windows, ivec)
+        if self.probe is not None:
+            self.probe["viterbi"] = (log_probs.clone(), n_valid.clone(), st.alpha.clone())
+        if cfg.dense:
+            out = viterbi_decode(self.graph, log_probs, cfg.acoustic_scale, n_valid,
+                                 return_forward=True, alpha0=st.alpha)
+            alpha, bps = out[3], out[4]
+        else:
+            alpha, bps = plain_decoder.viterbi(self.graph, log_probs, cfg.acoustic_scale, n_valid,
+                                               compact_bp=True, alpha0=st.alpha)
+        b = bps.to(torch.int32)  # [k, N, S] arc + 2: 0 no frame, 1 dead
+        if cfg.sw_device:
+            st.sw_w.copy_(self._silence_weights(b - 2, alpha, n_valid))
+        # the ring keeps bp + 3 (0 no frame, 2 dead): re-encoded, not copied
+        enc = torch.where(b == 0, 0, b + 1).to(torch.int16).transpose(0, 1)  # [N, k, S]
+        N, F_ring, S = st.ring.shape
+        k = enc.shape[1]
+        rows = st.offs.to(torch.int64)[:, None] + torch.arange(k, device=enc.device)[None, :]
+        flat = (self.lanes[:, None] * F_ring + rows).reshape(-1)
+        st.ring.view(N * F_ring, S).index_copy_(0, flat, enc.reshape(N * k, S))
+        st.offs.copy_(st.offs + n_valid)
+        st.alpha.copy_(alpha)
+        st.packed.copy_(self._walk(st, st.alpha, st.offs))
+
+    # -- the bodies -------------------------------------------------------------
+
+    def body_fused(self, st: TickState, pcm_meta: torch.Tensor) -> None:
+        pcm, meta = self.unpack(pcm_meta)
+        n_valid, reset, t0s, haves = meta[:, 0], meta[:, 1] != 0, meta[:, 2], meta[:, 3]
+        self.feed_feats(st, pcm, meta[:, 4], meta[:, 5] != 0)
+        iv_ws = (torch.arange(self.cfg.chunk_in, device=meta.device)[None, :]
+                 < meta[:, 6:7]).to(torch.float32)
+        windows = self.gather_windows(st, t0s, haves)
+        self.chunk(st, windows, n_valid.contiguous(), reset, t0s, haves, None, iv_ws)
+
+    def body_feed(self, st: TickState, pcm_meta: torch.Tensor) -> None:
+        pcm, meta = self.unpack(pcm_meta)
+        self.feed_feats(st, pcm, meta[:, 4], meta[:, 5] != 0)
+
+    def body_chunk(self, st: TickState, windows: torch.Tensor, meta: torch.Tensor,
+                   iv_ws: torch.Tensor, iv_wins: Optional[torch.Tensor] = None) -> None:
+        """meta [N, 4] int32: n_valid, reset, t0, have."""
+        self.chunk(st, windows, meta[:, 0].contiguous(), meta[:, 1] != 0, meta[:, 2],
+                   meta[:, 3], iv_wins, iv_ws)
+
+    def body_finalize(self, st: TickState) -> None:
+        st.packed.copy_(self._walk(st, st.alpha, st.offs))
+
+
+class TickRunner:
+    """Runs a body eagerly (CPU) or as a captured CUDA graph (card), and
+    counts the kernel launches, uploads and downloads the ticks make."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.graphs: Dict[tuple, Tuple[torch.cuda.CUDAGraph, List[torch.Tensor], Dict[str, int]]] = {}
+        self.launches = dict.fromkeys(KERNELS, 0)
+        self.uploads = self.downloads = self.download_bytes = 0
+        # set to check the next replay: the body runs first eagerly on
+        # copies of the state and inputs, and ``checks`` gets (key, {state
+        # field: the replay's result bit-equal to the eager run's})
+        self.check_next = False
+        self.checks: List[Tuple[tuple, Dict[str, bool]]] = []
+        # False runs every body eagerly on the card too (the captured
+        # tick's eager baseline)
+        self.capture = True
+        self._pool = None
+
+    def _count(self, before: Dict[str, int]) -> Dict[str, int]:
+        now = kernel_counts()
+        return {k: now[k] - before[k] for k in KERNELS}
+
+    def _add(self, counts: Dict[str, int]) -> None:
+        for k in KERNELS:
+            self.launches[k] += counts[k]
+
+    def run(self, key: tuple, body: Callable, st: TickState,
+            inputs: Sequence[torch.Tensor]) -> None:
+        """One tick of ``body(st, *inputs)``; ``inputs`` are host tensors
+        (pinned on the card), each one upload."""
+        self.uploads += len(inputs)
+        with torch.no_grad():
+            if self.device.type != "cuda":
+                body(st, *inputs)
+            else:
+                self._run_cuda(key, body, st, inputs)
+
+    def _run_cuda(self, key, body, st, inputs) -> None:
+        if not self.capture:
+            before = kernel_counts()
+            body(st, *[x.to(self.device, non_blocking=True) for x in inputs])
+            self._add(self._count(before))
+            return
+        entry = self.graphs.get(key)
+        if entry is None:
+            self._capture(key, body, st, inputs)
+            return
+        graph, static, recorded = entry
+        for s, x in zip(static, inputs):
+            s.copy_(x, non_blocking=True)
+        if self.check_next:
+            self.check_next = False
+            twin = st.clone()
+            body(twin, *[s.clone() for s in static])
+            graph.replay()
+            self.checks.append((key, {f.name: torch.equal(getattr(st, f.name), getattr(twin, f.name))
+                                      for f in dataclasses.fields(st)}))
+        else:
+            graph.replay()
+        self._add(recorded)
+
+    def _capture(self, key, body, st, inputs) -> None:
+        static = [torch.empty(x.shape, dtype=x.dtype, device=self.device) for x in inputs]
+        for s, x in zip(static, inputs):
+            s.copy_(x, non_blocking=True)
+        # this key's first tick runs eagerly on a side stream (warm-up:
+        # plans, tables and libraries load here), then the body is captured
+        before = kernel_counts()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            body(st, *static)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self._add(self._count(before))
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = kernel_counts()
+        # a probe must not keep tensors of the graph's pool, which hold
+        # nothing until a replay
+        owner = getattr(body, "__self__", None)
+        probe, owner.probe = owner.probe, None
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                body(st, *static)
+        finally:
+            owner.probe = probe
+        self.graphs[key] = (graph, static, self._count(before))
+
+    def download(self, packed: torch.Tensor) -> "PackedFetch":
+        """The tick's packed rows to the host: a pinned non-blocking copy
+        and an event the host polls (everything lands at once on the
+        CPU)."""
+        self.downloads += 1
+        self.download_bytes += packed.numel() * packed.element_size()
+        if packed.device.type != "cuda":
+            return PackedFetch(packed.numpy().view(np.uint16).copy(), None, None)
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return PackedFetch(None, host, event)
+
+
+class PackedFetch:
+    """A tick's packed rows on their way to the host."""
+
+    __slots__ = ("_arr", "_host", "_event")
+
+    def __init__(self, arr: Optional[np.ndarray], host: Optional[torch.Tensor], event):
+        self._arr, self._host, self._event = arr, host, event
+
+    def ready(self) -> bool:
+        return self._arr is not None or self._event.query()
+
+    def get(self, block: bool = True) -> Optional[np.ndarray]:
+        """[N, F + 8] uint16, or None while in flight when not blocking."""
+        if self._arr is None:
+            if not block and not self._event.query():
+                return None
+            self._event.synchronize()
+            self._arr = self._host.numpy().view(np.uint16)
+            self._host = self._event = None
+        return self._arr

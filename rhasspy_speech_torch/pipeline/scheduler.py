@@ -1,71 +1,75 @@
 """Batched streaming on one device: many PCM streams, one tick at a time.
 
 Counterpart of ``rhasspy_speech_tpu/pipeline/scheduler.py``
-(``StreamScheduler``), the reference's serving path for many streams, on
-its host-backpointer route: each chunk's backpointers come to the host,
-where the endpoint rules, the silence weights and the final backtrace read
-them. A fixed pool of ``max_streams`` slots (the copied
-``native.StreamPool``) holds each stream's unread PCM, and one ``step()``
-(a tick) runs one pass over every slot:
+(``StreamScheduler``), the reference's serving path for many streams. A
+fixed pool of ``max_streams`` slots (the copied ``native.StreamPool``)
+holds each stream's unread PCM, and one ``step()`` (a tick) runs one pass
+over every slot. A slot is ready when its feature rows cover a chunk
+(``21`` input frames at the default ``chunk_out_frames=7``) and the model's
+right context, or when its stream is finished and rows are left (a partial
+last chunk); its valid output frames ``n_valid`` are 0 when it has nothing
+to do. Slots reopened since the last tick go back to the graph's initial
+alpha and zero i-vector statistics inside the next device step.
 
-1. features: each slot's new PCM (at most the drain cap a tick) joins the
-   samples its featurizer carries, and ONE call of
-   ``ops.mfcc_cuda.mfcc_batch`` at ``[max_streams, L]`` computes every
-   slot's new MFCC rows (row = slot; ``L = _pcm_bucket(longest buffer)``).
-   A frame's row does not depend on how many frames the call holds, so
-   the rows equal the single-stream featurizer's;
-2. readiness: a slot is ready when its rows cover a chunk (``21`` input
-   frames at the default ``chunk_out_frames=7``) and the model's right
-   context, or when its stream is finished and rows are left (a partial
-   last chunk). Every slot gets its window ``[W, D]``, clamped at the
-   edges, and its valid output frames ``n_valid`` (0 for a slot with
-   nothing to do);
-3. the device step, the counterpart of the reference's ``batch_chunk``:
-   slots reopened since the last tick go back to the graph's initial alpha
-   and zero i-vector statistics; the previous tick's pending i-vector
-   windows and weights fold into each slot's ``(gamma, X)`` (a zero weight
-   row leaves a slot's statistics as they were, bit for bit); the chunk
-   plan (``compile_nnet3(spec, chunk_out_frames)``) runs at ``[N, W, D]``;
-   and ONE ``ops.viterbi_cuda.viterbi_decode`` launch decodes every slot
-   with ``alpha0`` the carried alpha ``[N, S]`` and ``lengths = n_valid``
-   (a slot with length 0 gets its alpha back untouched). ``chunk_decoder``
-   is ``"dense"`` (that launch) or, for a graph past the Viterbi kernel's
-   reach on the card, ``"scan"``: the plain ``ops.decoder.viterbi`` with
-   ``alpha0``, and no kernel launch;
-4. host side: each ready slot's backpointer rows ``[:n_valid]`` are kept;
-   its i-vector window and weights are staged for the next tick's fold
-   (with ``silence_weight``, silence frames of the chunk's best path weigh
-   ``silence_weight``); with ``endpointing`` the endpoint rules run on the
-   slot's best path; a finished or endpointed stream is backtraced into
-   its transcript.
+**The route.** The scheduler picks one of three routes with the
+reference's rule (the flags keep the reference's names):
 
-On the CPU the same calls run the kernels' plain twins. On the card a tick
-with new audio makes one MFCC launch (a model with ``snip_edges=false``
-adds one on the tick that flushes a stream's reflected tail), and a tick
-with a ready slot one Viterbi launch within the kernel's reach, none past
-it; a build or launch failure raises.
+- ``_bp_compact``: the graph has <= 65,532 arcs and <= 65,535 states, so a
+  backpointer fits a uint16 ``bp + 3``;
+- ``_iv_inline``: the AM window covers the i-vector tap's splice (the tap
+  is a slice of the window), CMVN of the tap can run on the device
+  (``_iv_cmvn_device``) or is not asked for, and silence weighting, if
+  asked for, runs on the device (``_sw_device``);
+- ``_ep_device``: endpointing rides the device walk;
+- ``_device_bp``: compact, and endpointing and silence weighting (if asked
+  for) on the device. Then each slot's backpointers stay on the device in
+  a ring ``[N, F, S]`` (``F = _ring_frames``, sized from
+  ``pool_capacity_samples``) and each tick ends with one whole-path walk
+  (``ops.path_walk_cuda.path_walk``), whose packed row per slot is the
+  tick's only download: the finalize trace and the endpoint statistics;
+- ``_device_feats``: the device route, ``snip_edges=true`` and an inline
+  tap (or no extractor). Then the features live in a device ring too and
+  the tick is one fused body (``pipeline/device_tick.py``): one ``pcm_meta``
+  upload, one MFCC launch, the chunk AM, one Viterbi launch, one path-walk
+  launch. Without it the host featurizer keeps the features (one MFCC call
+  a tick) and the device step takes the host's windows.
 
-Endpoint timing: the port decides the endpoint on the tick's own
-backpointers, as the reference's host route does. The reference's device
-route decides it from statistics that land one or more chunks later, so
-the tick on which an endpoint fires may differ from the port's; the
-transcripts are the same.
+Everything else takes the host route: each chunk's backpointers come to
+the host, where the endpoint rules, the silence weights and the final
+backtrace read them (a graph past 65,532 arcs; silence weighting whose tap
+the AM window does not cover).
 
-Not here yet (ROADMAP Queue 1, items 12b and 12c): the device-resident
-feature and backpointer rings, the whole-path walk and packed statistics,
-endpointing and silence weighting on the device, the tick captured as one
-CUDA graph, and the background fetches the reference needs on its TPU
-transport. ``mesh`` and the ``mulaw`` / ``adpcm`` wires (item 16), a
-bfloat16 AM and recurrent plans (item 4), GMM models (item 13) and pitch
-features (item 14) raise ``NotImplementedError``.
+On the card the device route's tick runs as a captured CUDA graph, one per
+body and PCM width (``device_tick.TickRunner``); on the CPU the same bodies
+run eagerly with the kernels' plain twins. ``kernel_launches`` counts the
+kernels the ticks ran, captured launches times replays. ``chunk_decoder``
+is ``"dense"`` (the Viterbi kernel) or, for a graph past its reach on the
+card, ``"scan"`` (the plain ``ops.decoder.viterbi``, no kernel launch).
+
+**The lag rule.** On the device route, results and endpoint statistics
+land asynchronously. A tick's packed row is copied into pinned host memory
+behind the tick, and an event marks it landed. At most ``PIPELINE_DEPTH``
+ticks are in flight: a tick waits for the tick two before it. A flushed
+stream's transcript is assembled from the flushing tick's row on a later
+``step()`` or on ``poll()``. The endpoint rules run at the start of each
+tick on the newest landed row (the rows before it are dropped): on the CPU
+everything lands at once, so a tick's statistics decide at the next tick,
+always; on the card they decide as soon as their row has landed, one or
+more ticks later. After ``PIPELINE_DEPTH + 2`` ticks in a row with nothing
+landed, the oldest row is waited for.
+
+The ``mulaw`` / ``adpcm`` wires and ``mesh`` (item 16), a bfloat16 AM and
+recurrent plans (item 4), GMM models (item 13) and pitch features (item 14)
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -76,18 +80,15 @@ from ..grammar.fst import decode_meta
 from ..models.nnet3 import compile_nnet3
 from ..native import StreamPool
 from ..ops import decoder as plain_decoder
+from ..ops.cmvn import CmvnConfig, stats_from_matrix
 from ..ops.decoder import _COMPACT_BP_MAX_ARC, DecodeGraph, backtrace_words
-from ..ops.ivector import (
-    apply_lda,
-    gmm_log_likes,
-    gselect_posteriors,
-    solve_ivector,
-    splice_frames,
-)
+from ..ops.ivector import solve_ivector, window_stats
 from ..ops.mfcc_cuda import mfcc_batch
+from ..ops.path_walk_cuda import PACKED_STAT_COLS
 from ..ops.viterbi_cuda import kernel_states, viterbi_decode
 from ..utils.metrics import StageTimer, get_metrics
 from .artifacts import LangArtifacts
+from .device_tick import META_COLS, DeviceTick, PackedFetch, TickConfig, TickRunner, TickState
 from .endpoint import EndpointConfig, silence_pdfs_from_model, trailing_silence_frames
 from .fuzzy import get_fuzzy_text
 from .streaming_features import (
@@ -107,11 +108,19 @@ CHUNK_OUT_FRAMES = 7
 # stays within a few buckets. Audio past the cap drains on later ticks.
 _DRAIN_CAP = 12800
 
+# The device route keeps backpointers as uint16 bp + 3 (0 no frame, 1
+# unused, 2 dead), and the packed row keeps a state id in uint16.
+_BP_RING_MAX_ARC = 65532
+_BP_RING_MAX_STATE = 65535
+
+# Ticks in flight on the device route before a tick waits for the oldest.
+PIPELINE_DEPTH = 2
+
 
 def _pcm_bucket(n: int, cap: int = _DRAIN_CAP) -> int:
     """Padded PCM width of a tick's MFCC call: 800-sample (0.05 s) steps
     with a 1,600-sample floor, at most the drain cap. Steady serving keeps
-    to one width, which a captured tick needs (ROADMAP item 12b)."""
+    to one width, so to one captured tick."""
     n = min(n, cap)
     return max(1600, -(-n // 800) * 800)
 
@@ -119,13 +128,16 @@ def _pcm_bucket(n: int, cap: int = _DRAIN_CAP) -> int:
 @dataclass
 class _SlotState:
     active: bool = False
-    feats: Optional[np.ndarray] = None  # [T, D] feature rows so far
+    feats: Optional[np.ndarray] = None  # [T, D] feature rows (host features)
     feat_state: object = None  # StreamFeatState
     frames_consumed: int = 0  # input frames given to the AM so far
     out_frames: int = 0
-    bps: List[np.ndarray] = field(default_factory=list)  # [chunk][k, S] int32 arc ids
+    bps: List[np.ndarray] = field(default_factory=list)  # host route: [chunk][k, S] arc ids
     done: bool = False
     result: Optional[List[str]] = None
+    # set when a ring-capacity quarantine finalized the stream; result
+    # still carries the partial transcript
+    error: Optional[str] = None
     flushed_feats: bool = False
     iv_pending_win: Optional[np.ndarray] = None
     iv_pending_w: Optional[np.ndarray] = None
@@ -138,8 +150,9 @@ class StreamScheduler:
     """Admit / feed / step / poll interface over a fixed batch of stream
     slots (see the module docstring)."""
 
-    # Calls of the MFCC batch and of the device step since construction:
-    # a tick makes at most one of each.
+    # Device programs since construction: MFCC calls and chunk steps on the
+    # host route, tick bodies (and the host featurizer's MFCC calls) on the
+    # device route. A tick makes at most one MFCC call and one step.
     device_dispatches = 0
 
     def __init__(
@@ -225,23 +238,170 @@ class StreamScheduler:
             kernel_states=kernel_states(self.device),
         )[0]
         self._compact = self.graph.num_arcs <= _COMPACT_BP_MAX_ARC
+        self._choose_route(pool_capacity_samples)
 
-        # device state of every slot, reset through _pending_reset
-        self._alpha = self.device_graph.init_weight[None, :].repeat(max_streams, 1)
         self._pending_reset = np.zeros(max_streams, dtype=bool)
         ivp = self._ivp
         if ivp is not None:
-            num_gauss, lda_dim = int(ivp.gconsts.shape[0]), int(ivp.lda.shape[0])
-            self._iv_gamma = torch.zeros((max_streams, num_gauss), device=self.device)
-            self._iv_X = torch.zeros((max_streams, num_gauss, lda_dim), device=self.device)
             self._iv_win_shape = (
                 ivp.splice_left + self._chunk_in + ivp.splice_right, cfg.num_ceps
             )
-
         self._fuzzy_cache: Dict[tuple, List[str]] = {}
-        # results of closed streams, keyed by close()'s (sid, gen) ticket
+        # results of closed streams, keyed by close()'s (sid, gen) ticket:
+        # a serving loop recycles a done slot at once, and a result that
+        # lands later still reaches its ticket. Bounded FIFO.
         self._retired: Dict[Tuple[int, int], List[str]] = {}
         self._retired_cap = max(64, 4 * max_streams)
+        # slots whose stream would overrun a device ring this tick: they
+        # finalize with what they have (see _quarantine)
+        self._quarantined: Set[int] = set()
+        if self._device_bp:
+            self._init_device_route()
+        else:
+            # every slot's alpha and i-vector statistics, reset through
+            # _pending_reset
+            self._alpha = self.device_graph.init_weight[None, :].repeat(max_streams, 1)
+            if ivp is not None:
+                num_gauss, lda_dim = int(ivp.gconsts.shape[0]), int(ivp.lda.shape[0])
+                self._iv_gamma = torch.zeros((max_streams, num_gauss), device=self.device)
+                self._iv_X = torch.zeros((max_streams, num_gauss, lda_dim), device=self.device)
+
+    def _choose_route(self, pool_capacity_samples: int) -> None:
+        """The reference's route flags (module docstring)."""
+        ivp = self._ivp
+        self._bp_compact = (
+            self.graph.num_arcs <= _BP_RING_MAX_ARC
+            and self.graph.num_states <= _BP_RING_MAX_STATE
+        )
+        iv_inline_geom = (
+            ivp is not None
+            and self._win_lo <= -ivp.splice_left
+            and self._win_hi >= self._chunk_in + ivp.splice_right
+        )
+        cmvn_stats = self.am.ivector_cmvn_stats
+        self._iv_cmvn_device = iv_inline_geom and cmvn_stats is not None and self._bp_compact
+        cmvn_ok = cmvn_stats is None or self._iv_cmvn_device
+        no_sw = self.silence_weight in (None, 1.0)
+        self._sw_device = not no_sw and iv_inline_geom and cmvn_ok and self._bp_compact
+        self._iv_inline = iv_inline_geom and cmvn_ok and (no_sw or self._sw_device)
+        self._ep_device = (
+            self.endpointing is not None and (no_sw or self._sw_device) and self._bp_compact
+        )
+        self._device_bp = (
+            (self.endpointing is None or self._ep_device)
+            and (no_sw or self._sw_device)
+            and self._bp_compact
+        )
+        self._ring_frames = (
+            -(-pool_capacity_samples // (160 * self.am.subsampling)) + self._chunk_out + 32
+        )
+        self._device_feats = (
+            self._device_bp
+            and self._featurizer.snip  # snip_edges=false: host featurizer
+            and (ivp is None or self._iv_inline)
+        )
+        self._pitch_device = False  # pitch raises (item 14)
+        cfg = self.am.frontend_config
+        # slack past the valid rows covers the largest bucket's scratch rows
+        scratch_rows = 1 + max(0, (self._drain_cap - cfg.frame_length) // cfg.frame_shift)
+        self._feat_ring_frames = (
+            pool_capacity_samples // 160 + self._win_hi + max(160, scratch_rows + 32)
+        )
+
+    def _init_device_route(self) -> None:
+        """Every slot's device state, allocated once, and the tick's
+        bodies."""
+        N, dev, g = self.max_streams, self.device, self.device_graph
+        ivp = self._ivp
+        cfg = self.am.frontend_config
+        C, D = cfg.num_ceps, self._featurizer.feat_dim
+        # the tap window is cut on the device; CMVN'd from the cumulative
+        # ring, which only the fused route keeps (else the host stages it)
+        self._iv_carry_device = self._iv_inline and (
+            not self._iv_cmvn_device or self._device_feats
+        )
+        cmvn_device = self._iv_cmvn_device and self._device_feats
+
+        def zeros(shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        F = self._ring_frames
+        if ivp is not None:
+            num_gauss, lda_dim = int(ivp.gconsts.shape[0]), int(ivp.lda.shape[0])
+            gamma, X = zeros((N, num_gauss)), zeros((N, num_gauss, lda_dim))
+        else:
+            gamma, X = zeros((N, 1)), zeros((N, 1, 1))
+        self._st = TickState(
+            alpha=g.init_weight[None, :].repeat(N, 1),
+            offs=zeros(N, torch.int32),
+            # chunk_out rows of slack: a chunk writes all its rows at the
+            # slot's offset, which the quarantine keeps <= F
+            ring=zeros((N, F + self._chunk_out, g.num_states), torch.int16),
+            packed=zeros((N, F + PACKED_STAT_COLS), torch.int16),
+            gamma=gamma,
+            X=X,
+            iv_carry=zeros((N, *self._iv_win_shape) if self._iv_carry_device else (N, 1, 1)),
+            sw_w=(torch.ones((N, self._chunk_in), device=dev) if self._sw_device
+                  else zeros((N, 1))),
+            feats_ring=zeros((N, self._feat_ring_frames, D) if self._device_feats else (N, 1, 1)),
+            cum_ring=zeros((N, self._feat_ring_frames, C) if cmvn_device else (N, 1, 1)),
+        )
+        # the reference's names for the state the tick updates in place
+        st = self._st
+        self._alpha, self._offs, self._ring = st.alpha, st.offs, st.ring
+        self._iv_gamma, self._iv_X, self._iv_carry = st.gamma, st.X, st.iv_carry
+        self._sw_w, self._feats_ring, self._cum_ring = st.sw_w, st.feats_ring, st.cum_ring
+
+        sil_tab = np.zeros(max(self.graph.num_pdfs, 1), dtype=np.uint8)
+        if self._ep_device or self._sw_device:
+            for p in self._silence_pdfs:
+                if 0 <= p < sil_tab.shape[0]:
+                    sil_tab[p] = 1
+        g_sum, g_count, g_cap, window = None, 0.0, 0.0, 0
+        if cmvn_device:
+            ccfg = CmvnConfig()
+            s_sum, _s_sumsq, g_count = stats_from_matrix(self.am.ivector_cmvn_stats)
+            g_sum = torch.as_tensor(s_sum, dtype=torch.float32, device=dev)
+            g_cap = float(min(g_count, ccfg.global_frames)) if g_count > 0 else 0.0
+            window = ccfg.cmn_window
+        tick_cfg = TickConfig(
+            N=N, ring_frames=F, chunk_out=self._chunk_out, chunk_in=self._chunk_in,
+            win_lo=self._win_lo, win_hi=self._win_hi, num_ceps=C,
+            acoustic_scale=self.acoustic_scale, dense=self.chunk_decoder == "dense",
+            carry_device=self._iv_carry_device, cmvn_device=cmvn_device,
+            sw_device=self._sw_device,
+            sw_factor=float(self.silence_weight) if self._sw_device else 1.0,
+            ep_stats=self._ep_device, subsampling=self.am.subsampling,
+            splice_left=ivp.splice_left if ivp is not None else 0,
+            splice_right=ivp.splice_right if ivp is not None else 0,
+            cmvn_window=window, cmvn_g_count=float(g_count), cmvn_g_cap=g_cap,
+        )
+        self._tick = DeviceTick(
+            tick_cfg, g, self._chunk_model, ivp,
+            self.am.spec.ivector_dim if self._has_ivector else None,
+            self._featurizer.stream_params,
+            g.arc_src.to(torch.int32),
+            torch.as_tensor(sil_tab[self.graph.arc_pdf], device=dev),
+            g_sum,
+        )
+        self._runner = TickRunner(dev)
+        self._feat_counts = np.zeros(N, dtype=np.int32)
+        self._iv_pending_n = np.zeros(N, dtype=np.int32)
+        self._fin_snap: Optional[np.ndarray] = None
+        # per tick (packed fetch, slot gens, out_frames), oldest first
+        self._ep_stats_pending: "collections.deque" = collections.deque()
+        self._ep_stats_deferred = 0
+        self._inflight: "collections.deque" = collections.deque()
+        self._pending_finalize: list = []
+        self._tick_fetch: Optional[PackedFetch] = None
+
+    @property
+    def kernel_launches(self) -> Dict[str, int]:
+        """Kernel launches the device route's ticks made (captured launches
+        times replays); all zero on the host route and on the CPU."""
+        if not self._device_bp:
+            return {"mfcc": 0, "viterbi": 0, "path_walk": 0}
+        return dict(self._runner.launches)
 
     # -- stream lifecycle ------------------------------------------------------
 
@@ -259,10 +419,15 @@ class StreamScheduler:
         state.bps = []
         state.done = False
         state.result = None
+        state.error = None
         state.flushed_feats = False
+        self._quarantined.discard(sid)
         if self._ivp is not None:
             state.iv_pending_win = np.zeros(self._iv_win_shape, np.float32)
             state.iv_pending_w = np.zeros(self._chunk_in, np.float32)
+        if self._device_bp:
+            self._feat_counts[sid] = 0
+            self._iv_pending_n[sid] = 0
         state.gen += 1
         # the slot's device state goes back to the start in the next tick's
         # device step: admission launches nothing
@@ -281,21 +446,28 @@ class StreamScheduler:
         self.pool.finish(sid)
 
     def poll(self, sid: int, block: bool = True) -> Optional[List[str]]:
-        """The stream's transcript once it is decoded; None before. The
-        backtrace runs in the tick that finishes the stream, so ``block``
-        changes nothing here."""
+        """The stream's transcript once it is decoded; None before. On the
+        device route a finished stream's transcript lands a tick after its
+        flush: ``block`` waits for it, ``block=False`` returns None until
+        it has landed."""
         state = self.slots[sid]
-        return state.result if state.done else None
+        if not state.done:
+            return None
+        if state.result is None and self._device_bp and self._pending_finalize:
+            self._harvest_finalizes(block=block)
+        return state.result
 
     def close(self, sid: int) -> Tuple[int, int]:
         """Release the slot for reuse; returns a ``(sid, gen)`` ticket that
-        ``take_result`` redeems for a finished stream's transcript."""
+        ``take_result`` redeems for a finished stream's transcript, also one
+        that lands after the close."""
         state = self.slots[sid]
         ticket = (sid, state.gen)
         if state.done and state.result is not None:
             self._retire(ticket, state.result)
         state.gen += 1
         state.active = False
+        self._quarantined.discard(sid)
         self.pool.close(sid)
         return ticket
 
@@ -308,14 +480,32 @@ class StreamScheduler:
     def take_result(
         self, ticket: Tuple[int, int], block: bool = False
     ) -> Optional[List[str]]:
-        """A closed stream's transcript by close()'s ticket, once; None
-        for a ticket of a stream that had not finished."""
-        return self._retired.pop(ticket, None)
+        """A closed stream's transcript by close()'s ticket, once; None for
+        a stream that had not finished, or (``block=False``) whose result
+        has not landed yet."""
+        res = self._retired.pop(ticket, None)
+        if res is None and self._device_bp and self._pending_finalize:
+            self._harvest_finalizes(block=block)
+            res = self._retired.pop(ticket, None)
+        return res
 
     def error(self, sid: int) -> Optional[str]:
-        """Always None: the reference reports a stream it cut off for
-        outgrowing its device rings, and this route has no such ring."""
-        return None
+        """Non-None when a ring-capacity quarantine finalized the stream
+        (it outlived the device rings sized from ``pool_capacity_samples``);
+        ``poll()`` still returns what it decoded before the cutoff."""
+        return self.slots[sid].error
+
+    def _quarantine(self, sid: int, what: str, capacity: int) -> None:
+        """Finalize one overlong stream with what it has instead of raising
+        out of the tick every slot shares."""
+        msg = (
+            f"stream {sid} exceeds the device {what} ({capacity} frames); "
+            "it was force-finalized with the audio decoded so far — raise "
+            "pool_capacity_samples to the longest expected utterance"
+        )
+        _LOGGER.error(msg)
+        self.slots[sid].error = msg
+        self._quarantined.add(sid)
 
     @property
     def active_streams(self) -> int:
@@ -323,10 +513,27 @@ class StreamScheduler:
 
     # -- the tick --------------------------------------------------------------
 
+    def step(self) -> int:
+        """One tick over every slot; returns the number of slots that
+        decoded a chunk."""
+        if self._device_bp:
+            return self._step_device()
+        return self._step_host()
+
+    def run_until_idle(self, max_steps: int = 10000) -> None:
+        """Step until no slot has work. Streams waiting on more PCM (or an
+        endpoint) stop the loop too; audio left in the pool past a tick's
+        drain cap keeps it going."""
+        for _ in range(max_steps):
+            if self.step() == 0 and not self._pending_drain:
+                return
+
     def _drain_features_all(self) -> None:
         """Move pool PCM into each slot's feature rows: ONE batched MFCC
         call over ``[max_streams, L]`` for every slot with a new frame;
-        then the featurizer's flush for finished streams."""
+        then the featurizer's flush for finished streams. A frame's row
+        does not depend on how many frames the call holds, so the rows
+        equal the single-stream featurizer's."""
         fz = self._featurizer
         pushed = []  # (sid, pcm, (buf, n_frames) or None)
         for sid, state in enumerate(self.slots):
@@ -383,6 +590,8 @@ class StreamScheduler:
         samples = torch.as_tensor(batch, device=self.device)
         return mfcc_batch(self._featurizer.stream_params, samples).cpu().numpy()
 
+    # -- the host route ---------------------------------------------------------
+
     def _ready(self):
         """Each slot's chunk: (windows [N, W, D], n_valid [N] int32, t0 [N],
         have [N], streams to finalize with nothing left to decode)."""
@@ -423,11 +632,17 @@ class StreamScheduler:
 
         if self._ivp is None:
             return up(windows), up(n_valid), None, None
+        iv_wins, iv_ws = self._pending_ivector_inputs()
+        return up(windows), up(n_valid), up(iv_wins), up(iv_ws)
+
+    def _pending_ivector_inputs(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Every slot's staged i-vector window [N, Wiv, C] and weights [N,
+        chunk_in] (zeros for a slot with none)."""
         iv_wins = np.stack([s.iv_pending_win if s.iv_pending_win is not None
                             else np.zeros(self._iv_win_shape, np.float32) for s in self.slots])
         iv_ws = np.stack([s.iv_pending_w if s.iv_pending_w is not None
                           else np.zeros(self._chunk_in, np.float32) for s in self.slots])
-        return up(windows), up(n_valid), up(iv_wins), up(iv_ws)
+        return iv_wins, iv_ws
 
     def _reset_lanes(self) -> None:
         """Slots reopened since the last device step start again from the
@@ -456,12 +671,9 @@ class StreamScheduler:
             return torch.zeros(
                 (self.max_streams, self.am.spec.ivector_dim), dtype=torch.float32, device=self.device
             )
-        sl, sr = ivp.splice_left, ivp.splice_right
-        spliced = splice_frames(iv_wins, sl, sr)[:, sl : sl + self._chunk_in]
-        lda_feats = apply_lda(spliced, ivp)
-        post = gselect_posteriors(gmm_log_likes(lda_feats, ivp), ivp) * iv_ws[:, :, None]
-        self._iv_gamma += post.sum(dim=1)
-        self._iv_X += torch.einsum("nti,ntd->nid", post, lda_feats)
+        gamma, X = window_stats(iv_wins, iv_ws, ivp, self._chunk_in)
+        self._iv_gamma += gamma
+        self._iv_X += X
         return solve_ivector(self._iv_gamma, self._iv_X, ivp)
 
     def _acoustic(self, windows: torch.Tensor, ivec: Optional[torch.Tensor]) -> torch.Tensor:
@@ -472,7 +684,7 @@ class StreamScheduler:
         """Advance every slot's alpha over its ``lengths`` frames; returns
         the first ``rows`` frames' backpointers [rows, N, S] on the device
         (uint16 ``arc + 2`` or int32 arc ids; a slot's rows at or past its
-        length are not defined)."""
+        length are STAY)."""
         if self.chunk_decoder == "dense":
             out = viterbi_decode(
                 self.device_graph, log_probs, self.acoustic_scale, lengths,
@@ -512,9 +724,10 @@ class StreamScheduler:
                     s.iv_pending_w = np.zeros(self._chunk_in, np.float32)
         return self._download(bps)
 
-    def step(self) -> int:
-        """One tick over every slot; returns the number of slots that
-        decoded a chunk."""
+    def _step_host(self) -> int:
+        """The host route's tick: features, readiness, one device step,
+        then per slot the kept backpointers, the staged i-vector window, the
+        endpoint rules and the backtrace of a finished stream."""
         metrics = get_metrics()
         self._pending_drain = False
         with StageTimer("stream_features", metrics):
@@ -556,21 +769,14 @@ class StreamScheduler:
                 self._finalize(sid, alpha_np)
         return lanes
 
-    def run_until_idle(self, max_steps: int = 10000) -> None:
-        """Step until no slot has work. Streams waiting on more PCM (or an
-        endpoint) stop the loop too; audio left in the pool past a tick's
-        drain cap keeps it going."""
-        for _ in range(max_steps):
-            if self.step() == 0 and not self._pending_drain:
-                return
-
-    # -- host side ---------------------------------------------------------------
-
     def _stage_ivector_stats(
-        self, sid: int, t0: int, have: int, rows: np.ndarray, alpha_np: Optional[np.ndarray]
+        self, sid: int, t0: int, have: int, rows: Optional[np.ndarray],
+        alpha_np: Optional[np.ndarray],
     ) -> None:
         """This slot's chunk (window, weights) for the next tick's fold
-        (``pipeline/stream.py`` stages the same for one stream)."""
+        (``pipeline/stream.py`` stages the same for one stream); with
+        ``rows`` the chunk's backpointers, silence frames of its best path
+        weigh ``silence_weight``."""
         state = self.slots[sid]
         ivp = self._ivp
         num_ceps = self.am.frontend_config.num_ceps
@@ -578,7 +784,7 @@ class StreamScheduler:
             state.feats[:, :num_ceps], t0, self._chunk_in, have,
             ivp.splice_left, ivp.splice_right, self.am.ivector_cmvn_stats,
         )
-        if self._weigh_silence:
+        if self._weigh_silence and rows is not None:
             flags = silence_weights_from_chunk(
                 rows, alpha_np[sid], self.graph.arc_pdf, self.graph.arc_src, self._silence_pdf_arr
             )
@@ -590,7 +796,9 @@ class StreamScheduler:
         state.iv_pending_w = w.astype(np.float32)
 
     def _check_endpoint(self, sid: int, alpha_row: np.ndarray) -> bool:
-        """The endpoint rules on one stream after its chunk."""
+        """The endpoint rules on one stream after its chunk (host route:
+        the walk looks back at most 400 frames, as the reference's host
+        route does)."""
         state = self.slots[sid]
         totals = alpha_row + self.graph.final_weight
         best_final = float(totals.min())
@@ -611,6 +819,450 @@ class StreamScheduler:
             relative_cost=relative_cost,
             utterance_length=state.out_frames * out_frame_sec,
         )
+
+    def _finalize(self, sid: int, alpha_np: np.ndarray) -> None:
+        """Backtrace a finished or endpointed stream into its transcript."""
+        state = self.slots[sid]
+        if state.done:
+            return
+        state.done = True
+        get_metrics().add_audio(state.frames_consumed * self._frame_shift / 16000.0, utterances=1)
+        if not state.bps:
+            state.result = []
+            return
+        bp = np.concatenate(state.bps, axis=0)[:, None, :]
+        words, _cost = backtrace_words(
+            self.graph, alpha_np[sid][None, :], bp, 0, num_frames=bp.shape[0]
+        )
+        state.result = [] if words is None else self._words_to_result(words)
+
+    # -- the device route ---------------------------------------------------------
+
+    def _host_buffer(self, shape: Tuple[int, ...], dtype) -> Tuple[torch.Tensor, np.ndarray]:
+        """A zeroed host array for an upload: pinned memory on the card (the
+        copy runs behind the host), and the tensor that owns it."""
+        t = torch.zeros(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
+        return t, t.numpy()
+
+    @staticmethod
+    def _write_meta_cols(batch: np.ndarray, meta: np.ndarray) -> None:
+        """The [N, k <= 8] int32 meta pack into the batch's META_COLS
+        trailing columns as lo / hi 16-bit halves in the PCM dtype (int16
+        wraps modulo 2^16, which the tick masks off; f32 holds the halves
+        exactly)."""
+        k = meta.shape[1]
+        dt = batch.dtype
+        batch[:, -META_COLS:] = 0
+        batch[:, -META_COLS : -META_COLS + 2 * k : 2] = (meta & 0xFFFF).astype(dt)
+        batch[:, -META_COLS + 1 : -META_COLS + 1 + 2 * k : 2] = ((meta >> 16) & 0xFFFF).astype(dt)
+
+    def _prep_features_device(self):
+        """The fused route's drain: every slot's new PCM (after its carried
+        frame tail) into one padded host batch ``[N, L + META_COLS]`` in one
+        pool snapshot and one batched read; the tick's MFCC launch writes the
+        rows into the device feature ring. Returns (batch tensor, batch
+        array, write offsets before this drain, has-new mask), or None when
+        no slot has a new frame. ``_feat_counts`` advances here, so the
+        readiness loop sees the counts after the write."""
+        pool = self.pool
+        fz = self._featurizer
+        N = self.max_streams
+        counts, finished, exact = pool.snapshot()
+        self._fin_snap = finished
+        drain = np.zeros(N, dtype=np.int64)
+        offs = np.zeros(N, dtype=np.int64)
+        for sid, state in enumerate(self.slots):
+            if state.active and not state.done and counts[sid] > 0:
+                off = state.feat_state.mfcc_tail.shape[0]
+                # tail + new stays within the largest PCM bucket; the rest
+                # drains next tick
+                drain[sid] = min(int(counts[sid]), self._drain_cap - off)
+                offs[sid] = off
+                if drain[sid] < counts[sid]:
+                    self._pending_drain = True
+        frame_len, shift = fz.frame_len, fz.frame_shift
+
+        def frames_of(n: int) -> int:
+            return 1 + (n - frame_len) // shift if n >= frame_len else 0
+
+        prep = None
+        sel = drain > 0
+        if sel.any():
+            # quarantine before touching the pool: a slot whose rows would
+            # overrun the feature ring is finalized, its drain skipped
+            buf_lens = offs + drain
+            n_rows = frames_of(_pcm_bucket(int(buf_lens.max()), self._drain_cap))
+            limit = self._feat_ring_frames - n_rows
+            for sid in np.nonzero(sel)[0]:
+                if self._feat_counts[sid] + frames_of(int(buf_lens[sid])) > limit:
+                    self._quarantine(sid, "feature ring", self._feat_ring_frames)
+                    drain[sid] = 0
+                    sel[sid] = False
+        if sel.any():
+            buf_lens = offs + drain
+            max_len = _pcm_bucket(int(buf_lens.max()), self._drain_cap)
+            exact_all = bool(exact[sel].all())
+            batch_t, batch = self._host_buffer(
+                (N, max_len + META_COLS), torch.int16 if exact_all else torch.float32
+            )
+            lanes = np.nonzero(sel)[0]
+            new_frames = np.zeros(N, dtype=np.int64)
+            for sid in lanes:
+                tail = self.slots[sid].feat_state.mfcc_tail
+                if tail.shape[0]:
+                    batch[sid, : tail.shape[0]] = tail.astype(np.int16) if exact_all else tail
+                new_frames[sid] = frames_of(int(buf_lens[sid]))
+            pool.read_into(batch, offs, drain)
+            has_new = sel & (new_frames > 0)
+            if has_new.any():
+                prep = (batch_t, batch, self._feat_counts.copy(), has_new)
+            for sid in lanes:
+                n = int(new_frames[sid])
+                row_tail = batch[sid, n * shift : int(buf_lens[sid])]
+                self.slots[sid].feat_state.mfcc_tail = (
+                    row_tail.astype(np.float32) if exact_all else row_tail.copy()
+                )
+                self._feat_counts[sid] += n
+        for sid, state in enumerate(self.slots):
+            if (
+                state.active
+                and not state.done
+                and not state.flushed_feats
+                and finished[sid]
+                and drain[sid] == counts[sid]
+            ):
+                # everything available drained this tick (no capped
+                # leftover): the finished stream's input is complete
+                state.flushed_feats = True
+        return prep
+
+    def _pace(self) -> None:
+        """Wait for the oldest tick in flight when PIPELINE_DEPTH are."""
+        while len(self._inflight) >= PIPELINE_DEPTH:
+            self._inflight.popleft().get()
+
+    def _after_chunk(self, metrics) -> PackedFetch:
+        """Download the chunk tick's packed rows (the finalize traces and
+        the endpoint statistics), marking the tick in flight."""
+        self.device_dispatches += 1
+        self._pending_reset[:] = False
+        with StageTimer("stream_download", metrics):
+            fetch = self._runner.download(self._st.packed)
+        self._tick_fetch = fetch
+        self._inflight.append(fetch)
+        return fetch
+
+    def _step_fused(self, prep, n_valid, chunk_t0, chunk_have, flushed, metrics) -> None:
+        """The fused tick: ONE upload (the PCM batch with the slot scalars
+        in its trailing columns), ONE device body (MFCC into the feature
+        ring, AM windows, i-vector fold, decode, ring write, walk), ONE
+        download (the packed rows)."""
+        N = self.max_streams
+        if prep is not None:
+            batch_t, batch, counts_before, has_new = prep
+        else:
+            batch_t, batch = self._host_buffer((N, META_COLS), torch.int16)
+            counts_before = np.zeros(N, dtype=np.int32)
+            has_new = np.zeros(N, dtype=bool)
+        meta = np.zeros((N, 7), dtype=np.int32)
+        meta[:, 0] = n_valid
+        meta[:, 1] = self._pending_reset
+        meta[:, 2] = chunk_t0
+        meta[:, 3] = chunk_have
+        meta[:, 4] = counts_before
+        meta[:, 5] = has_new
+        if self._ivp is not None:
+            meta[:, 6] = self._iv_pending_n
+        self._write_meta_cols(batch, meta)
+        with StageTimer("stream_pace", metrics):
+            self._pace()
+        with StageTimer("stream_chunk", metrics):
+            self._runner.run(("fused", batch.shape[1], str(batch.dtype)),
+                             self._tick.body_fused, self._st, [batch_t])
+        fetch = self._after_chunk(metrics)
+        if self._ivp is not None:
+            # everything staged was folded this tick
+            self._iv_pending_n[:] = 0
+        with StageTimer("stream_book", metrics):
+            for sid, state in enumerate(self.slots):
+                k = int(n_valid[sid])
+                if k <= 0:
+                    continue
+                state.out_frames += k
+                if self._ivp is not None:
+                    t0 = int(chunk_t0[sid])
+                    self._iv_pending_n[sid] = max(0, min(self._chunk_in, int(chunk_have[sid]) - t0))
+                state.frames_consumed += self._chunk_in
+                if (
+                    self._fin_snap[sid]
+                    and state.flushed_feats
+                    and state.frames_consumed >= int(self._feat_counts[sid])
+                ):
+                    flushed.append(sid)
+        self._queue_endpoint_stats(fetch)
+
+    def _feed_only_dispatch(self, prep, metrics) -> None:
+        """A tick with audio and no ready slot: only the feature rings are
+        written, with the fused tick's upload layout."""
+        batch_t, batch, counts, has_new = prep
+        meta = np.zeros((batch.shape[0], 6), dtype=np.int32)
+        meta[:, 4] = counts
+        meta[:, 5] = has_new
+        self._write_meta_cols(batch, meta)
+        with StageTimer("stream_chunk", metrics):
+            self._runner.run(("feed", batch.shape[1], str(batch.dtype)),
+                             self._tick.body_feed, self._st, [batch_t])
+        self.device_dispatches += 1
+
+    def _step_chunk(self, windows, n_valid, chunk_t0, chunk_have, flushed, metrics) -> None:
+        """The device route with host features: the host's windows, the
+        slot scalars and the staged i-vector inputs up, the chunk body, the
+        packed rows down."""
+        N = self.max_streams
+        meta = np.stack([n_valid, self._pending_reset, chunk_t0, chunk_have], axis=1)
+        inputs = [windows, meta.astype(np.int32)]
+        if self._ivp is not None:
+            iv_wins, iv_ws = self._pending_ivector_inputs()
+            inputs.append(iv_ws)
+            if not self._iv_carry_device:
+                inputs.append(iv_wins)
+        else:
+            inputs.append(np.zeros((N, self._chunk_in), np.float32))
+        host = []
+        for a in inputs:
+            t, arr = self._host_buffer(a.shape, torch.from_numpy(a).dtype)
+            arr[...] = a
+            host.append(t)
+        with StageTimer("stream_pace", metrics):
+            self._pace()
+        with StageTimer("stream_chunk", metrics):
+            self._runner.run(("chunk",), self._tick.body_chunk, self._st, host)
+        fetch = self._after_chunk(metrics)
+        if self._ivp is not None:
+            for s in self.slots:
+                if s.iv_pending_w is not None:
+                    s.iv_pending_w = np.zeros(self._chunk_in, np.float32)
+        for sid, state in enumerate(self.slots):
+            k = int(n_valid[sid])
+            if k <= 0:
+                continue
+            state.out_frames += k
+            if self._ivp is not None:
+                t0, have = int(chunk_t0[sid]), int(chunk_have[sid])
+                if self._iv_carry_device:
+                    # the window is cut on the device; only the weights of
+                    # the chunk's real frames come from the host
+                    state.iv_pending_w = (
+                        np.arange(t0, t0 + self._chunk_in) < min(t0 + self._chunk_in, have)
+                    ).astype(np.float32)
+                else:
+                    self._stage_ivector_stats(sid, t0, have, None, None)
+            state.frames_consumed += self._chunk_in
+            if (
+                self.pool.is_finished(sid)
+                and state.flushed_feats
+                and state.frames_consumed >= state.feats.shape[0]
+            ):
+                flushed.append(sid)
+        self._queue_endpoint_stats(fetch)
+
+    def _queue_endpoint_stats(self, fetch: PackedFetch) -> None:
+        """Keep the tick's statistics for a later tick's endpoint rules,
+        with the slots' generations and their decoded frames after it."""
+        if self._ep_device:
+            self._ep_stats_pending.append((
+                fetch,
+                [s.gen for s in self.slots],
+                np.array([s.out_frames for s in self.slots], dtype=np.int64),
+            ))
+
+    def _step_device(self) -> int:
+        """The device route's tick (module docstring)."""
+        metrics = get_metrics()
+        N = self.max_streams
+        device_feats = self._device_feats
+        windows = None
+        if not device_feats:
+            W = self._win_hi - self._win_lo
+            windows = np.zeros((N, W, self._featurizer.feat_dim), dtype=np.float32)
+        n_valid = np.zeros(N, dtype=np.int32)
+        chunk_t0 = np.zeros(N, dtype=np.int64)
+        chunk_have = np.zeros(N, dtype=np.int64)
+        flushed: List[int] = []
+        if self._pending_finalize:
+            with StageTimer("stream_finalize", metrics):
+                self._harvest_finalizes(block=False)
+        prep = None
+        self._pending_drain = False
+        self._tick_fetch = None
+        with StageTimer("stream_features", metrics):
+            if device_feats:
+                prep = self._prep_features_device()
+            else:
+                self._drain_features_all()
+        with StageTimer("stream_ep_apply", metrics):
+            ep_fired: Set[int] = (
+                self._apply_endpoint_stats()
+                if self._ep_device and self._ep_stats_pending
+                else set()
+            )
+        need = self._chunk_in + max(self._win_hi - self._chunk_in, 0)
+        with StageTimer("stream_ready", metrics):
+            for sid, state in enumerate(self.slots):
+                if not state.active or state.done:
+                    continue
+                if sid in self._quarantined:
+                    flushed.append(sid)
+                    continue
+                if sid in ep_fired:
+                    _LOGGER.debug("endpoint fired for stream %d", sid)
+                    flushed.append(sid)
+                    continue
+                t0 = state.frames_consumed
+                if device_feats:
+                    have = int(self._feat_counts[sid])
+                    finished = bool(self._fin_snap[sid])
+                else:
+                    have = state.feats.shape[0]
+                    finished = self.pool.is_finished(sid)
+                if have < t0 + need and not (finished and state.flushed_feats and t0 < have):
+                    if finished and state.flushed_feats and t0 >= have:
+                        flushed.append(sid)
+                    continue
+                real_out = self._chunk_out
+                if finished:
+                    real_out = min(real_out, max(0, -(-(have - t0) // self.am.subsampling)))
+                if state.out_frames + real_out > self._ring_frames:
+                    # decoded past the ring, the walk would read overwritten
+                    # rows: finalize with the frames so far instead
+                    self._quarantine(sid, "backpointer ring", self._ring_frames)
+                    flushed.append(sid)
+                    continue
+                if windows is not None:
+                    idx = np.clip(np.arange(t0 + self._win_lo, t0 + self._win_hi), 0,
+                                  max(have - 1, 0))
+                    windows[sid] = state.feats[idx]
+                n_valid[sid] = real_out
+                chunk_t0[sid] = t0
+                chunk_have[sid] = have
+        lanes = int((n_valid > 0).sum())
+        if device_feats:
+            if lanes:
+                self._step_fused(prep, n_valid, chunk_t0, chunk_have, flushed, metrics)
+            elif prep is not None:
+                self._feed_only_dispatch(prep, metrics)
+        elif lanes:
+            self._step_chunk(windows, n_valid, chunk_t0, chunk_have, flushed, metrics)
+        with StageTimer("stream_finalize", metrics):
+            self._finalize_device(flushed)
+        return lanes
+
+    def _apply_endpoint_stats(self) -> Set[int]:
+        """The endpoint rules on the newest landed tick's statistics
+        (trailing-silence frames, contains-nonsilence, exact relative final
+        cost from the packed row), for slots not recycled since (slot
+        generation) and not finalized; the lag rule of the module
+        docstring."""
+        pending = self._ep_stats_pending
+        newest = None
+        for i in range(len(pending) - 1, -1, -1):
+            if pending[i][0].ready():
+                newest = i
+                break
+        if newest is None:
+            if self._ep_stats_deferred >= PIPELINE_DEPTH + 2:
+                newest = 0  # wait for the oldest
+            else:
+                self._ep_stats_deferred += 1
+                return set()
+        fetch, gens, out_snap = pending[newest]
+        for _ in range(newest + 1):
+            pending.popleft()
+        p = fetch.get(block=True)
+        self._ep_stats_deferred = 0
+        F = p.shape[1] - PACKED_STAT_COLS
+        trail, nonsil = p[:, F + 2], p[:, F + 3]
+        rel = (p[:, F + 6].astype(np.uint32) | (p[:, F + 7].astype(np.uint32) << 16)).view(np.float32)
+        fired: Set[int] = set()
+        out_frame_sec = self.am.subsampling * self._frame_shift / 16000.0
+        for sid, state in enumerate(self.slots):
+            if not state.active or state.done or state.gen != gens[sid] or out_snap[sid] <= 0:
+                continue
+            if self.endpointing.should_endpoint(
+                contains_nonsilence=bool(nonsil[sid]),
+                trailing_silence=float(trail[sid]) * out_frame_sec,
+                relative_cost=float(rel[sid]),
+                utterance_length=float(out_snap[sid]) * out_frame_sec,
+            ):
+                fired.add(sid)
+        return fired
+
+    def _finalize_device(self, flushed: List[int]) -> None:
+        """Mark flushed streams done; their transcripts come from this
+        tick's packed rows (the walk ran for every slot), or, on a tick
+        that decoded nothing, from one walk alone. The rows are assembled
+        when they land (``_harvest_finalizes``)."""
+        todo = []
+        for sid in flushed:
+            state = self.slots[sid]
+            if state.done:
+                continue
+            state.done = True
+            get_metrics().add_audio(state.frames_consumed * self._frame_shift / 16000.0,
+                                    utterances=1)
+            if state.out_frames <= 0:
+                state.result = []
+                continue
+            todo.append(sid)
+        if not todo:
+            return
+        fetch = self._tick_fetch
+        if fetch is None:
+            self._runner.run(("finalize",), self._tick.body_finalize, self._st, [])
+            self.device_dispatches += 1
+            fetch = self._tick_fetch = self._runner.download(self._st.packed)
+        self._pending_finalize.append((
+            todo,
+            [self.slots[sid].gen for sid in todo],
+            [self.slots[sid].out_frames for sid in todo],
+            fetch,
+        ))
+
+    def _harvest_finalizes(self, block: bool = True) -> None:
+        """Words of every finalized stream whose packed row has landed
+        (``block`` waits for the rest). A slot closed since its flush gets
+        its result in the retired store, under close()'s ticket."""
+        graph = self.graph
+        pending, self._pending_finalize = self._pending_finalize, []
+        for entry in pending:
+            group, gens, frames, fetch = entry
+            with StageTimer("stream_fin_wait", get_metrics()):
+                packed = fetch.get(block=block)
+            if packed is None:
+                self._pending_finalize.append(entry)
+                continue
+            F = packed.shape[1] - PACKED_STAT_COLS
+            for sid, gen, n in zip(group, gens, frames):
+                res: Optional[List[str]] = None
+                trace = packed[sid, :n].astype(np.int32) - 2
+                if packed[sid, F + 1] == 0 or (trace == -1).any():
+                    res = []  # no final state reached, or a dead frame
+                else:
+                    real = trace[trace >= 0]
+                    first = int(graph.arc_src[real[0]]) if real.shape[0] else int(packed[sid, F])
+                    words: List[int] = list(graph.words_of(int(graph.init_wseq[first])))
+                    wseqs = graph.arc_wseq[real]
+                    for wid in wseqs[wseqs != 0]:
+                        words.extend(graph.words_of(int(wid)))
+                    words.extend(graph.words_of(int(graph.final_wseq[int(packed[sid, F])])))
+                    res = self._words_to_result(words)
+                state = self.slots[sid]
+                if state.gen != gen:
+                    self._retire((sid, gen), res)
+                else:
+                    state.result = res
+
+    # -- results -------------------------------------------------------------------
 
     _FUZZY_CACHE_MAX = 4096
 
@@ -637,19 +1289,3 @@ class StreamScheduler:
             self._fuzzy_cache.clear()
         self._fuzzy_cache[key] = result
         return list(result)
-
-    def _finalize(self, sid: int, alpha_np: np.ndarray) -> None:
-        """Backtrace a finished or endpointed stream into its transcript."""
-        state = self.slots[sid]
-        if state.done:
-            return
-        state.done = True
-        get_metrics().add_audio(state.frames_consumed * self._frame_shift / 16000.0, utterances=1)
-        if not state.bps:
-            state.result = []
-            return
-        bp = np.concatenate(state.bps, axis=0)[:, None, :]
-        words, _cost = backtrace_words(
-            self.graph, alpha_np[sid][None, :], bp, 0, num_frames=bp.shape[0]
-        )
-        state.result = [] if words is None else self._words_to_result(words)

@@ -218,12 +218,15 @@ def _decode_one(s, sid, pcm):
     return s.poll(sid)
 
 
-def test_admission_limit_and_slot_recycling(trained):
+def test_admission_limit_and_slot_recycling(trained, monkeypatch):
     """Two slots admit two streams; a closed slot is the next one opened,
     and its second stream decodes chunk for chunk like a fresh
-    scheduler's."""
+    scheduler's (on the host route, whose backpointers come to the host;
+    tests/test_torch_scheduler_device.py holds the device route's)."""
     _root, profile, _graph_dir, pcms = trained
+    monkeypatch.setattr(sched_mod, "_BP_RING_MAX_ARC", -1)
     s = _port(trained, max_streams=2)
+    assert not s._device_bp
     a, b = s.open_stream(), s.open_stream()
     assert a >= 0 and b >= 0 and s.open_stream() == -1
     assert s.active_streams == 2
