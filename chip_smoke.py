@@ -6,8 +6,9 @@ at the full width of the benchmarked model -- TDNN-F 768 x 9, 40-dim MFCC,
 100-dim i-vector from a 512-Gaussian UBM, 3,072 pdfs, random weights from a
 seed -- over the flagship decode graph, then its n-best, silence-weighting
 and lattice paths, the windowed-relaxation entry point and the stream
-scheduler, and checks the four hand-written kernels against their plain
-PyTorch twins:
+scheduler, then the two other acoustic-model families at full width (a
+Kaldi tri1 GMM system and a DeepSpeech-width Coqui STT model), and checks
+the four hand-written kernels against their plain PyTorch twins:
 
 1. builds ``csrc/mfcc.cu``, ``csrc/viterbi.cu``, ``csrc/windowed_relax.cu``
    and ``csrc/path_walk.cu`` with nvcc for sm_90a, in parallel;
@@ -104,7 +105,33 @@ PyTorch twins:
    transcript on both routes, plain and with ``silence_weight`` (which must
    weigh at least one frame), each stream's endpoint tick printed beside
    the host route's;
-13. checks that no module of ``jax`` or ``rhasspy_speech_tpu`` was imported
+13. the Kaldi GMM family at the width of mini_librispeech's tri1
+   (``testing/full_width.py``: 2,000 pdfs, 10,000 diagonal Gaussians, 13
+   cepstra from 23 mel bins + deltas and delta-deltas; the flagship graph's
+   transition model) over the flagship graph and the generated grammar:
+   the 32 utterances through ``transcribe_pcm_batch``, counted (one MFCC
+   and one Viterbi launch), transcripts equal to the plain twins' path, K1
+   held to its twin at 13 / 23 and K2 bit-equal to its twin at [32, 304,
+   2000] (298 frames a stream), the call's stages with the deltas and the
+   GMM log-likelihoods on their own, the log-likelihoods timed beside
+   their bound; 8 utterances streamed (one MFCC launch a push, one Viterbi
+   launch a 7-frame chunk; feature rows bit-equal to the batch rows; all 8
+   transcripts equal the batch's); the scheduler's device route on both
+   graphs, captured, as in 12 with all 32 transcripts equal to the single
+   stream's and the host route's; the synthetic GMM profile's spoken
+   sentences endpointing to themselves on both routes;
+14. the Coqui STT family: a DeepSpeech 0.9 English-width model (2,048
+   hidden, an LSTM of 2,048 cells, 29 labels; 47.2 M parameters) written as
+   ``model.tflite`` and converted on load; ``transcribe_pcm`` on 4 of the
+   utterances, counted (one MFCC launch each); probs on the card against
+   the port on the CPU on one (atol 1e-3); the stream triple in 1,024-sample
+   chunks, its probs equal to ``compute_probs`` within the JAX package's
+   streaming tolerance (rtol 2e-5 / atol 2e-6); K1 held to its twin at 26
+   cepstra from 40 mel bins over 512 / 320-sample frames; ``compute_probs``
+   and ``decode_probs`` ms beside the LSTM's bytes bound, the stream's
+   real-time factor; and the synthetic CTC profile's spelled texts decoding
+   to themselves on the card, batch and streamed;
+15. checks that no module of ``jax`` or ``rhasspy_speech_tpu`` was imported
    (the card's machine has JAX installed; the port must not reach it).
 
 Each kernel's entry in the ``kernels`` line carries ``bound_ms``, the least
@@ -146,7 +173,22 @@ from rhasspy_speech_torch.pipeline import scheduler as sched_mod  # noqa: E402
 from rhasspy_speech_torch.pipeline.scheduler import StreamScheduler  # noqa: E402
 from rhasspy_speech_torch.pipeline.train import train_model_sync  # noqa: E402
 from rhasspy_speech_torch.testing import build_synthetic_profile, synthesize_sentence  # noqa: E402
-from rhasspy_speech_torch.testing.synthetic import _silence_wave  # noqa: E402
+from rhasspy_speech_torch.testing.synthetic import (  # noqa: E402
+    _silence_wave,
+    build_synthetic_ctc_profile,
+    build_synthetic_gmm_profile,
+    synthesize_ctc_text,
+)
+from rhasspy_speech_torch.testing.full_width import (  # noqa: E402
+    TRI1_GAUSS as GMM_GAUSS,
+    write_deepspeech_model_dir,
+    write_tri1_model_dir,
+)
+from rhasspy_speech_torch.io.kaldi_io import KaldiReader  # noqa: E402
+from rhasspy_speech_torch.io.transition_model import KaldiTransitionModel  # noqa: E402
+from rhasspy_speech_torch.models import gmm as gmm_mod  # noqa: E402
+from rhasspy_speech_torch.ops.deltas import add_deltas  # noqa: E402
+from rhasspy_speech_torch.pipeline.coqui import CoquiSttTranscriber  # noqa: E402
 from rhasspy_speech_torch.testing.big_grammar import (  # noqa: E402
     train_big_grammar,
     write_big_grammar_model_dir,
@@ -214,6 +256,16 @@ SPEECH_LEXICON = {
 SPEECH_GRAMMAR = ["turn (on|off) [the] (light|fan) [never mind]", "never mind"]
 SPEECH_TEXTS = ["turn on the light", "never mind", "turn off the fan", "turn on fan",
                 "turn off light never mind", "turn on the fan", "turn off the light", "never mind"]
+COQUI_UTTS = 4
+# DeepSpeech probs, card vs CPU: the MFCC kernel against its twin (max |d|
+# ~2e-4 on cepstra of magnitude ~10-50), then cuBLAS against the CPU's f32
+# sums over rows 494 to 4,096 wide and 149 LSTM steps, into a softmax
+COQUI_CPU_ATOL = 1e-3
+STREAM_RTOL, STREAM_ATOL = 2e-5, 2e-6  # tests/test_coqui.py's streaming tolerance
+COQUI_CHARS = sorted(set("turnonofflightstop"))
+COQUI_SENTENCES = ["turn (on|off) light", "stop"]
+COQUI_TEXTS = ["turn on light", "stop", "turn off light"]
+COQUI_PRUNE = 30.0  # synthetic char boundaries are harsher than speech (tests/test_coqui.py)
 KERNELS = ("mfcc", "viterbi", "windowed_relax", "path_walk")
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM, 700 W
 
@@ -1104,12 +1156,13 @@ def path_walk_numbers(name, sched, dev):
     return out
 
 
-def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy):
+def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy, min_equal=SCHED_MIN_EQUAL):
     """The scheduler at 32 slots on one graph, on the device route and
     captured: counted run with every replay held bit-equal to the eager
     body, the kernels' inputs at the tick's shapes probed; transcripts
-    against the single stream and the host route; tick times captured and
-    eager; stage times. Returns (launch counts, probes, scheduler)."""
+    against the single stream and the host route (at least ``min_equal``
+    of 32 equal); tick times captured and eager; stage times. Returns
+    (launch counts, probes, scheduler)."""
     sched = StreamScheduler(model_dir, graph_dir, max_streams=BATCH, device=dev, **fuzzy)
     g = sched.device_graph
     check(sched._device_bp and sched._device_feats, f"{name}: not on the device route")
@@ -1176,12 +1229,12 @@ def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy):
     st = Nnet3StreamTranscriber(model_dir, graph_dir, device=dev)
     single = [st.transcribe_pcm(p, chunk_samples=STREAM_CHUNK, **fuzzy) for p in pcms]
     same = sum(a == b for a, b in zip(texts, single))
-    check(same >= SCHED_MIN_EQUAL, f"{name}: only {same} of {BATCH} scheduled transcripts equal the "
+    check(same >= min_equal, f"{name}: only {same} of {BATCH} scheduled transcripts equal the "
           f"single stream's: {texts} vs {single}")
     host = host_route_scheduler(model_dir, graph_dir, max_streams=BATCH, device=dev, **fuzzy)
     host_texts, host_ticks, host_wall = sched_run(host, pcms)
     same_host = sum(a == b for a, b in zip(texts, host_texts))
-    check(same_host >= SCHED_MIN_EQUAL, f"{name}: only {same_host} of {BATCH} device-route transcripts "
+    check(same_host >= min_equal, f"{name}: only {same_host} of {BATCH} device-route transcripts "
           f"equal the host route's: {texts} vs {host_texts}")
     del host
 
@@ -1294,41 +1347,47 @@ def speech_endpoints(sched, pcms):
     return texts, fired, ticks, weighed
 
 
-def speech_part(root, dev):
+def speech_part(root, dev, gmm=False):
     """The port's synthetic speech profile (an AM context that covers the
-    i-vector tap, and the extractor's CMVN stats: the device route in full):
-    8 spoken sentences with trailing silence, never finished, must endpoint
-    to the spoken sentence and the batch transcript, plain and with
-    silence_weight; each stream's endpoint tick beside the host route's."""
-    profile = build_synthetic_profile(os.path.join(root, "speech_model"), SPEECH_LEXICON,
-                                      with_ivector=True, with_context=True, with_ivector_cmvn=True)
+    i-vector tap, and the extractor's CMVN stats: the device route in full),
+    or with ``gmm`` its GMM profile (no i-vector): 8 spoken sentences with
+    trailing silence, never finished, must endpoint to the spoken sentence
+    and the batch transcript, plain and (nnet3) with silence_weight; each
+    stream's endpoint tick beside the host route's."""
+    kind = "gmm_speech" if gmm else "speech"
+    if gmm:
+        profile = build_synthetic_gmm_profile(os.path.join(root, f"{kind}_model"), SPEECH_LEXICON)
+    else:
+        profile = build_synthetic_profile(os.path.join(root, f"{kind}_model"), SPEECH_LEXICON,
+                                          with_ivector=True, with_context=True,
+                                          with_ivector_cmvn=True)
     intents = {"language": "en", "intents": {"Main": {"data": [{"sentences": SPEECH_GRAMMAR}]}}}
-    train_model_sync("en", intents, os.path.join(root, "speech_train"), profile.model_dir,
+    train_model_sync("en", intents, os.path.join(root, f"{kind}_train"), profile.model_dir,
                      lang_suffixes=[LangSuffix.GRAMMAR])
-    graph_dir = os.path.join(root, "speech_train", lang_dir_name(LangSuffix.GRAMMAR))
+    graph_dir = os.path.join(root, f"{kind}_train", lang_dir_name(LangSuffix.GRAMMAR))
     rng = np.random.RandomState(SEED + 11)
     pcms = [np.concatenate([synthesize_sentence(profile, text, seed=SEED + i),
                             _silence_wave(16000 + 2000 * i, rng)]).astype(np.float32)
             for i, text in enumerate(SPEECH_TEXTS)]
     spoken = [[t] for t in SPEECH_TEXTS]
     batch = Nnet3WavTranscriber(profile.model_dir, graph_dir, device=dev).transcribe_pcm_batch(pcms)
-    check(batch == spoken, f"speech profile: batch transcripts {batch}")
-    for kw in ({}, {"silence_weight": SILENCE_WEIGHT}):
+    check(batch == spoken, f"{kind} profile: batch transcripts {batch}")
+    for kw in ({},) if gmm else ({}, {"silence_weight": SILENCE_WEIGHT}):
         args = (profile.model_dir, graph_dir)
         kwargs = dict(max_streams=len(pcms), endpointing=EndpointConfig(), device=dev, **kw)
         sched = StreamScheduler(*args, **kwargs)
         check(sched._device_bp and sched._device_feats and sched._ep_device
-              and sched._sw_device == bool(kw), f"speech profile {kw}: not on the device route")
+              and sched._sw_device == bool(kw), f"{kind} profile {kw}: not on the device route")
         before = sched.kernel_launches
         texts, fired, ticks, weighed = speech_endpoints(sched, pcms)
         counts = {k: v - before[k] for k, v in sched.kernel_launches.items()}
         host_texts, host_fired, _t, _w = speech_endpoints(host_route_scheduler(*args, **kwargs), pcms)
-        check(texts == batch, f"speech profile {kw}: endpointed transcripts {texts} vs batch {batch}")
-        check(host_texts == batch, f"speech profile {kw}: host-route transcripts {host_texts}")
-        check(all(v > 0 for v in counts.values()), f"speech profile: launches {counts}")
+        check(texts == batch, f"{kind} profile {kw}: endpointed transcripts {texts} vs batch {batch}")
+        check(host_texts == batch, f"{kind} profile {kw}: host-route transcripts {host_texts}")
+        check(all(v > 0 for v in counts.values()), f"{kind} profile: launches {counts}")
         if kw:
             check(weighed > 0, "silence weighting weighed no frame")
-        print(f"scheduler on the synthetic speech profile {kw or '(plain)'}, device route: "
+        print(f"scheduler on the synthetic {kind} profile {kw or '(plain)'}, device route: "
               f"{len(pcms)} streams with 1-2 s of trailing silence, never finished, all endpointed "
               f"within {ticks} ticks to the spoken sentences and the batch transcripts; launches "
               f"{counts}; input frames weighed {SILENCE_WEIGHT} as silence on the device: {weighed}; "
@@ -1355,6 +1414,365 @@ def scheduler_phase(model_dir, graph_dir, big_dirs, root, dev, pcms, fuzzy):
     del big, big_probes
     speech_part(root, dev)
     return counts, k1, k2, k4, k4_big
+
+
+def gmm_stage_ms(t, pcms, fuzzy):
+    """The GMM batch call once more, stage by stage, each stage ended by a
+    synchronize: ``AcousticModel.log_probs``' two steps, the deltas and the
+    log-likelihoods, are stages of their own."""
+    out = {}
+    last = time.perf_counter()
+
+    def mark(name):
+        nonlocal last
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out[name] = round((now - last) * 1000.0, 3)
+        last = now
+
+    pcm, _feat_lengths, lengths, n_out = t._pad_batch(pcms)
+    mark("pad_upload")
+    feats = t.am.features(pcm)
+    mark("mfcc")
+    full = add_deltas(feats, order=2)
+    idx = torch.as_tensor(np.clip(np.arange(n_out), 0, feats.shape[1] - 1), device=pcm.device)
+    full = full[:, idx]
+    mark("deltas")
+    log_probs = t.am.gmm.log_likes(full)
+    mark("gmm_log_likes")
+    trace, final_state, cost = t._decode_traces(log_probs, lengths)
+    mark("decode_and_copy")
+    words = twin_decoder.traces_to_words_batch(t.artifacts.graph, trace, final_state, cost)
+    mark("word_assembly")
+    t._texts([[] if w is None else [(w, c)] for w, c in words], None, require_fuzzy=False, **fuzzy)
+    mark("fuzzy_tail")
+    return out, full
+
+
+def gmm_batch_part(tri1_dir, graph_dir, dev, pcms, fuzzy):
+    """The tri1 model's batch call, counted; transcripts against the plain
+    twins' path; K1 at 13 / 23 and K2 at [32, 304, 2000] (298 frames a
+    stream) against their twins; the GMM log-likelihoods timed beside their
+    bound. Returns (launches, K1 numbers, K2 numbers, the transcriber)."""
+    t = Nnet3WavTranscriber(tri1_dir, graph_dir, device=dev)
+    cfg = t.am.frontend_config
+    check(t.am.gmm is not None and t.am.subsampling == 1 and t.am.ivector_params is None
+          and (cfg.num_ceps, cfg.num_mel_bins) == (13, 23), "tri1: not the GMM route at 13 / 23")
+    gmm = t.am.gmm
+    for _ in range(2):  # warm-up at the measured shape
+        t.transcribe_pcm_batch(pcms, **fuzzy)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.time()
+    texts = t.transcribe_pcm_batch(pcms, **fuzzy)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts()
+    check(launches["mfcc"] == 1 and launches["viterbi"] == 1, f"tri1 batch launches {launches}")
+    check(len(texts) == BATCH and all(len(x) == 1 for x in texts), f"tri1 transcripts {texts[:3]}")
+    stages, full = gmm_stage_ms(t, pcms, fuzzy)
+    print(f"tri1 GMM ({gmm.num_pdfs} pdfs, {GMM_GAUSS} Gaussians padded to {gmm.num_comps} a pdf, "
+          f"{gmm.dim} dims) batch: {BATCH} x {SECONDS} s in {wall * 1000:.1f} ms; launches "
+          f"{launches}; stages (ms, host clock, synchronized): {stages}")
+
+    pcm, _fl, lengths, n_out = t._pad_batch(pcms)
+    feats_plain = mfcc_batch_torch(t.am.frontend_params, pcm)
+    lp_plain = t.am.log_probs(feats_plain, n_out)
+    res = twin_decoder.viterbi_decode(t.device_graph, lp_plain, t.acoustic_scale, lengths)
+    words = twin_decoder.traces_to_words_batch(t.artifacts.graph, *[r.cpu().numpy() for r in res])
+    plain_texts = t._texts([[] if w is None else [(w, c)] for w, c in words], None,
+                           require_fuzzy=False, **fuzzy)
+    check(plain_texts == texts, "tri1: transcripts differ between kernels and plain twins")
+
+    params = t.am.frontend_params
+    feats_k = mfcc_batch(params, pcm)
+    torch.cuda.synchronize()
+    k1_err = float((feats_k - feats_plain).abs().max())
+    check(torch.allclose(feats_k, feats_plain, rtol=MFCC_RTOL, atol=MFCC_ATOL),
+          f"tri1: mfcc kernel vs twin at 13 / 23: max |d| {k1_err}")
+    k1 = {"max_abs_err": k1_err, "ms": cuda_ms(lambda: mfcc_batch(params, pcm)),
+          "plain_ms": cuda_ms(lambda: mfcc_batch_torch(params, pcm))}
+    k1["bound_ms"], k1["bound_by"] = bound(*mfcc_work(params, BATCH, pcm.shape[1], feats_k.shape[1]))
+
+    g, scale = t.device_graph, t.acoustic_scale
+    lp = t.am.log_probs(feats_k, n_out)
+    compact = g.num_arcs <= twin_decoder._COMPACT_BP_MAX_ARC
+
+    def twin():
+        alpha, bps = twin_decoder.viterbi(g, lp, scale, lengths, compact_bp=compact)
+        return twin_decoder.backtrace(g, alpha, bps) + (alpha, bps)
+
+    got = viterbi_decode(g, lp, scale, lengths, return_forward=True)
+    want = twin()
+    torch.cuda.synchronize()
+    check(decode_outputs_equal(got, want), "tri1: K2 differs from its twin at the batch shape")
+    k2 = {"max_abs_err": float((got[3] - want[3]).abs().max()),
+          "ms": cuda_ms(lambda: viterbi_decode(g, lp, scale, lengths)),
+          "plain_ms": cuda_ms(twin, iters=2)}
+    k2["bound_ms"], k2["bound_by"] = bound(*viterbi_work(g, *lp.shape, lengths))
+
+    ll_ms = cuda_ms(lambda: gmm.log_likes(full))
+    rows = full.shape[0] * full.shape[1]
+    ll_bound = bound(4 * (rows * gmm.dim + rows * gmm.num_pdfs + GMM_GAUSS * (2 * gmm.dim + 1)),
+                     2 * 2 * rows * GMM_GAUSS * gmm.dim)
+    for name, k, shape in (("K1 mfcc", k1, f"{list(pcm.shape)} -> {list(feats_k.shape)}"),
+                           ("K2 viterbi", k2, f"{list(lp.shape)}, lengths {int(lengths.max())}")):
+        print(f"tri1 {name} {shape}: max |d| {k['max_abs_err']:.3e}; kernel {k['ms']:.4f} ms, "
+              f"plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.6f} ms ({k['bound_by']})")
+    print(f"tri1 GMM log-likelihoods {list(full.shape)} -> [{full.shape[0]}, {full.shape[1]}, "
+          f"{gmm.num_pdfs}] (cuBLAS f32, row blocks of {gmm_mod.BLOCK_ELEMS // (gmm.num_pdfs * gmm.num_comps)}): "
+          f"{ll_ms:.4f} ms (CUDA events), bound {ll_bound[0]:.4f} ms ({ll_bound[1]}, "
+          f"{GMM_GAUSS} Gaussians); transcripts equal the plain twins' path; first: {texts[0]}")
+    return launches, k1, k2, t
+
+
+def gmm_stream_part(tri1_dir, graph_dir, t, dev, pcms):
+    """The tri1 model streamed: one K1 launch a push and one K2 launch a
+    chunk on one utterance, counted; feature rows bit-equal to the batch
+    rows; 8 streamed transcripts equal to the batch's; a chunk's stages and
+    the stream's real-time factor."""
+    utts = pcms[:STREAMS]
+    st = Nnet3StreamTranscriber(tri1_dir, graph_dir, device=dev)
+    check(st.chunk_decoder == "dense" and st._chunk_in == CHUNK_FRAMES, "tri1 stream: chunk decoder")
+    stream_pcm(st, utts[0])  # warm-up
+    zero_counts()
+    texts0, state, pushes = stream_pcm(st, utts[0])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    chunks = -(-state.feats.shape[0] // st._chunk_in)
+    check(counts["mfcc"] == pushes and counts["viterbi"] == chunks == len(state.bps),
+          f"tri1 stream launches {counts} for {pushes} pushes and {chunks} chunks")
+    batch_rows = t.am.features(torch.as_tensor(utts[0][None], device=dev))[0]
+    check(torch.equal(torch.as_tensor(state.feats, device=dev), batch_rows),
+          "tri1: streamed feature rows differ from the batch rows")
+    streamed = [texts0] + [st.transcribe_pcm(p, chunk_samples=STREAM_CHUNK) for p in utts[1:]]
+    batch = t.transcribe_pcm_batch(utts)
+    same = sum(a == b for a, b in zip(streamed, batch))
+    check(same == STREAMS, f"tri1: streamed transcripts {streamed} vs batch {batch}")
+    stage_s = {}
+    names = ("_upload", "_acoustic", "_decode_chunk", "_download")
+    for name in names:
+        setattr(st, name, timed_stage(getattr(st, name), stage_s, name.lstrip("_")))
+    _texts, state, _p = stream_pcm(st, utts[-1])
+    for name in names:
+        delattr(st, name)
+    stages = {k: round(v * 1000.0 / len(state.bps), 4) for k, v in stage_s.items()}
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st.transcribe_pcm(utts[-1], chunk_samples=STREAM_CHUNK)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"tri1 stream: launches {counts} for {pushes} pushes and {chunks} chunks; feature rows "
+          f"bit-equal to the batch rows; {same} of {STREAMS} streamed transcripts equal the "
+          f"batch's; ms a chunk (host clock, each stage synchronized) {stages}; one {SECONDS} s "
+          f"stream {min(walls) * 1000:.1f} ms (min of 3; real-time factor {min(walls) / SECONDS:.5f})")
+    return counts
+
+
+def gmm_phase(root, model_dir, graph_dir, big_dirs, dev, pcms, fuzzy):
+    """The Kaldi tri1 GMM system at full width (testing/full_width.py) over
+    the flagship graph (a) and the generated grammar (c): batch, one
+    stream, the scheduler's captured device route, and the synthetic GMM
+    profile's speech endpointing. Returns the kernels-line entries."""
+    t0 = time.time()
+    with open(os.path.join(model_dir, "model", "final.mdl"), "rb") as f:
+        ktm = KaldiTransitionModel.read(KaldiReader(f))
+    with open(os.path.join(model_dir, "model", "phones.txt"), encoding="utf-8") as f:
+        phones_text = f.read()
+    tri1_dir = write_tri1_model_dir(os.path.join(root, "tri1"), ktm, phones_text, seed=SEED + 21)
+    print(f"tri1 model dir (the flagship graph's transition model) written in {time.time() - t0:.1f} s")
+    launches, k1, k2, t = gmm_batch_part(tri1_dir, graph_dir, dev, pcms, fuzzy)
+    stream_counts = gmm_stream_part(tri1_dir, graph_dir, t, dev, pcms)
+    del t
+    counts, probes, sched = sched_graph_part("tri1 flagship", tri1_dir, graph_dir, dev, pcms, fuzzy,
+                                             min_equal=BATCH)
+    k1_tick, k2_tick = sched_kernel_numbers(sched, probes, dev)
+    k4 = path_walk_numbers("tri1 flagship", sched, dev)
+    del sched, probes
+    big_counts, _probes, big = sched_graph_part("tri1 13789", tri1_dir, big_dirs[1], dev, pcms, {},
+                                                min_equal=BATCH)
+    del big, _probes
+    print(f"tri1 scheduler launches: flagship graph {counts}, 13,789-state graph {big_counts}; "
+          f"one streamed utterance {stream_counts}")
+    speech_part(root, dev, gmm=True)
+    entry = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": "mfcc_tri1", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
+         "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122", "launches": launches["mfcc"],
+         **entry, **k1},
+        {"name": "viterbi_tri1", "source": "rhasspy_speech_torch/csrc/viterbi.cu",
+         "replaces": "rhasspy_speech_tpu/ops/pallas_decoder.py:370", "launches": launches["viterbi"],
+         **entry, **k2},
+        {"name": "mfcc_tri1_sched_tick", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
+         "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122", "launches": counts["mfcc"],
+         **entry, **k1_tick},
+        {"name": "viterbi_tri1_sched_tick", "source": "rhasspy_speech_torch/csrc/viterbi.cu",
+         "replaces": "rhasspy_speech_tpu/ops/pallas_decoder.py:370", "launches": counts["viterbi"],
+         **entry, **k2_tick},
+        {"name": "path_walk_tri1", "source": "rhasspy_speech_torch/csrc/path_walk.cu",
+         "replaces": "rhasspy_speech_tpu/pipeline/scheduler.py:838", "launches": counts["path_walk"],
+         **entry, **k4},
+    ]
+
+
+def coqui_deepspeech_part(root, dev, pcms):
+    """The DeepSpeech-width model through model.tflite: transcribe_pcm on 4
+    utterances, counted; probs against the CPU port on one; the stream
+    triple against compute_probs; K1 at 26 / 40 (512 / 320) against its
+    twin. Returns the kernels-line entries' numbers."""
+    t0 = time.time()
+    ds_dir = write_deepspeech_model_dir(os.path.join(root, "deepspeech"), seed=SEED + 31)
+    size = os.path.getsize(os.path.join(ds_dir, "model.tflite"))
+    intents = {"language": "en", "intents": {"Main": {"data": [{"sentences": SPEECH_GRAMMAR}]}}}
+    train_dir = os.path.join(root, "deepspeech_train")
+    train_model_sync("en", intents, train_dir, ds_dir)
+    built = time.time() - t0
+    t0 = time.time()
+    t = CoquiSttTranscriber(ds_dir, train_dir, device=dev)
+    loaded = time.time() - t0
+    m = t.model
+    n_params = sum(int(v.numel()) for v in m.params.values())
+    check(os.path.exists(os.path.join(ds_dir, "model.npz")), "the tflite model was not converted")
+    check((m.num_labels, m.context, m.has_lstm, m.lstm_hidden) == (29, 9, True, 2048)
+          and tuple(m.params["lstm_kernel"].shape) == (4096, 8192), "DeepSpeech shapes")
+    print(f"DeepSpeech model.tflite ({size / 1e6:.1f} MB, {n_params / 1e6:.2f} M parameters) written "
+          f"and a grammar trained in {built:.1f} s; converted to model.npz and loaded on the card in "
+          f"{loaded:.1f} s")
+    utts = pcms[:COQUI_UTTS]
+    t.transcribe_pcm(utts[0])  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    texts = [t.transcribe_pcm(p) for p in utts]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches["mfcc"] == COQUI_UTTS, f"DeepSpeech transcribe_pcm launches {launches}")
+    probs_ms, decode_ms = [], []
+    for p in utts:
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        probs = t.compute_probs(p)
+        b = time.perf_counter()
+        t.decode_probs(probs)
+        probs_ms.append((b - a) * 1000.0)
+        decode_ms.append((time.perf_counter() - b) * 1000.0)
+    probs = t.compute_probs(utts[0])
+    check(probs.shape == (149, 29) and np.isfinite(probs).all(), f"probs {probs.shape}")
+    tc = CoquiSttTranscriber(ds_dir, train_dir, device="cpu")
+    cpu_err = float(np.abs(probs - tc.compute_probs(utts[0])).max())
+    check(cpu_err <= COQUI_CPU_ATOL, f"DeepSpeech probs, card vs CPU: max |d| {cpu_err}")
+    del tc
+    def stream_probs(pcm):
+        """The stream triple's acoustic side (pushes, then the flush of the
+        frame tail): (state, pushes, pushes that completed a frame)."""
+        state = t.start_stream()
+        framed = pushes = 0
+        for off in range(0, pcm.shape[0], STREAM_CHUNK):
+            chunk = pcm[off : off + STREAM_CHUNK]
+            framed += state.sample_tail.shape[0] + chunk.shape[0] >= t.frontend_config.frame_length
+            t.process_chunk(state, chunk)
+            pushes += 1
+        t._advance(state, final=True)
+        return state, pushes, framed
+
+    stream_probs(utts[1])  # warm-up: the 16-frame window's shapes
+    torch.cuda.synchronize()
+    zero_counts()
+    state, pushes, framed = stream_probs(utts[0])
+    text = t.finish_stream(state)
+    stream_counts = read_counts()
+    check(stream_counts["mfcc"] == framed > 0, f"DeepSpeech stream launches {stream_counts}")
+    check(text == texts[0], f"DeepSpeech stream text {text!r} vs transcribe_pcm's {texts[0]!r}")
+    streamed = np.concatenate(state.probs)
+    check(np.allclose(streamed, probs, rtol=STREAM_RTOL, atol=STREAM_ATOL),
+          f"streamed probs vs compute_probs: max |d| {float(np.abs(streamed - probs).max())}")
+    walls = []
+    for _ in range(3):
+        a = time.perf_counter()
+        stream_probs(utts[0])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - a)
+    stream_s = min(walls)
+    T = probs.shape[0]
+    lstm_bytes = 4 * (int(m.params["lstm_kernel"].numel()) + int(m.params["lstm_bias"].numel()))
+    rest = 4 * n_params - lstm_bytes
+    bound_batch = (T * lstm_bytes + rest) / HBM_BYTES_PER_S * 1e3
+    bound_window = (CoquiSttTranscriber.STREAM_WINDOW * lstm_bytes + rest) / HBM_BYTES_PER_S * 1e3
+    windows = -(-T // CoquiSttTranscriber.STREAM_WINDOW)
+    print(f"DeepSpeech transcribe_pcm x {COQUI_UTTS} ({SECONDS} s each): launches {launches}; "
+          f"compute_probs ms (host clock) {[round(x, 3) for x in probs_ms]}, bound {bound_batch:.3f} "
+          f"ms (the LSTM kernel, {lstm_bytes / 1e6:.1f} MB, read each of {T} steps; the rest once); "
+          f"decode_probs ms {[round(x, 3) for x in decode_ms]}; probs card vs CPU max |d| "
+          f"{cpu_err:.3e} (atol {COQUI_CPU_ATOL}); texts {texts}")
+    print(f"DeepSpeech stream: {pushes} pushes, launches {stream_counts}; probs equal compute_probs "
+          f"(rtol {STREAM_RTOL} / atol {STREAM_ATOL}, max |d| "
+          f"{float(np.abs(streamed - probs).max()):.3e}); pushes and flush without the decode "
+          f"{stream_s * 1000:.1f} ms (min of 3; real-time factor {stream_s / SECONDS:.5f}; "
+          f"{windows} windows of {CoquiSttTranscriber.STREAM_WINDOW} frames, bound "
+          f"{bound_window:.3f} ms a window), with finish_stream's decode_probs real-time factor "
+          f"{(stream_s + min(decode_ms) / 1000.0) / SECONDS:.5f}")
+
+    params = t.frontend_params
+    one = torch.as_tensor(utts[0][None], device=dev)
+    got, want = mfcc_batch(params, one), mfcc_batch_torch(params, one)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=MFCC_RTOL, atol=MFCC_ATOL),
+          f"mfcc kernel vs twin at 26 / 40 (512 / 320): max |d| {err}")
+    k1 = {"max_abs_err": err, "ms": device_ms(lambda: mfcc_batch(params, one)),
+          "plain_ms": cuda_ms(lambda: mfcc_batch_torch(params, one))}
+    k1["bound_ms"], k1["bound_by"] = bound(*mfcc_work(params, 1, one.shape[1], got.shape[1]))
+    n = STREAM_CHUNK + 320  # a push and a carried tail
+    push = one[:, :n].contiguous()
+    gp, wp = mfcc_batch(params, push), mfcc_batch_torch(params, push)
+    torch.cuda.synchronize()
+    perr = float((gp - wp).abs().max())
+    check(torch.allclose(gp, wp, rtol=MFCC_RTOL, atol=MFCC_ATOL), f"mfcc at a push: max |d| {perr}")
+    k1_push = {"max_abs_err": perr, "ms": device_ms(lambda: mfcc_batch(params, push)),
+               "plain_ms": cuda_ms(lambda: mfcc_batch_torch(params, push))}
+    k1_push["bound_ms"], k1_push["bound_by"] = bound(*mfcc_work(params, 1, n, gp.shape[1]))
+    for name, k, shape in (("", k1, f"{list(one.shape)} -> {list(got.shape)}"),
+                           (" at a push", k1_push, f"{list(push.shape)} -> {list(gp.shape)}")):
+        print(f"K1 mfcc at 26 / 40, 512 / 320{name} {shape}: max |d| {k['max_abs_err']:.3e}; kernel "
+              f"{k['ms']:.4f} ms of device time, plain {k['plain_ms']:.4f} ms, bound "
+              f"{k['bound_ms']:.6f} ms ({k['bound_by']})")
+    return launches, k1, stream_counts, k1_push
+
+
+def coqui_synthetic_part(root, dev):
+    """The synthetic CTC profile on the card: spelled texts decode to
+    themselves, batch and streamed."""
+    profile = build_synthetic_ctc_profile(os.path.join(root, "ctc_model"), COQUI_CHARS)
+    with open(os.path.join(profile.model_dir, "config.json"), "w", encoding="utf-8") as f:
+        json.dump({"type": "coqui"}, f)
+    train_dir = os.path.join(root, "ctc_train")
+    train_model_sync("en", {"language": "en", "intents": {"Main": {"data": [
+        {"sentences": COQUI_SENTENCES}]}}}, train_dir, profile.model_dir)
+    t = CoquiSttTranscriber(profile.model_dir, train_dir, device=dev)
+    for i, text in enumerate(COQUI_TEXTS):
+        pcm = synthesize_ctc_text(profile, text, seed=SEED + 40 + i)
+        got = t.transcribe_pcm(pcm, prune_threshold=COQUI_PRUNE)
+        state = t.start_stream()
+        for off in range(0, pcm.shape[0], STREAM_CHUNK):
+            t.process_chunk(state, pcm[off : off + STREAM_CHUNK])
+        streamed = t.finish_stream(state, prune_threshold=COQUI_PRUNE)
+        check(got == streamed == text, f"synthetic CTC profile: {got!r} / {streamed!r} vs {text!r}")
+    print(f"synthetic CTC profile on the card: {len(COQUI_TEXTS)} spelled texts decode to "
+          f"themselves, batch and streamed: {COQUI_TEXTS}")
+
+
+def coqui_phase(root, dev, pcms):
+    """Coqui STT: the DeepSpeech-width model, then the synthetic profile."""
+    launches, k1, stream_counts, k1_push = coqui_deepspeech_part(root, dev, pcms)
+    coqui_synthetic_part(root, dev)
+    entry = {"route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
+             "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122", "library_ms": None}
+    return [
+        {"name": "mfcc_deepspeech", "launches": launches["mfcc"], **entry, **k1},
+        {"name": "mfcc_deepspeech_stream_push", "launches": stream_counts["mfcc"], **entry,
+         **k1_push},
+    ]
 
 
 def main():
@@ -1463,6 +1881,11 @@ def main():
         sched_counts, k1_tick, k2_tick, k4_tick, k4_big = scheduler_phase(
             model_dir, graph_dir, big_dirs, root, dev, pcms, fuzzy)
 
+        # -- the Kaldi GMM family (tri1) on the batch, stream and scheduler
+        # routes; the Coqui CTC family (DeepSpeech) ---------------------------
+        gmm_entries = gmm_phase(root, model_dir, graph_dir, big_dirs, dev, pcms, fuzzy)
+        coqui_entries = coqui_phase(root, dev, pcms)
+
     # -- K3: the windowed relaxation's entry point ----------------------------
     k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = windowed_relax_phase(dev)
 
@@ -1475,7 +1898,10 @@ def main():
     # per slot), their launches (and path_walk's) counted by the scheduler
     # over the flagship graph's captured run; path_walk_13789 is K4 on the
     # big graph's ring, its launches that graph's run's. K4 has no TPU
-    # kernel: "replaces" names the XLA scan it stands in for.
+    # kernel: "replaces" names the XLA scan it stands in for. The "tri1"
+    # entries are K1, K2 and K4 on the GMM family's batch call and
+    # scheduler run, the "deepspeech" entries K1 at the Coqui frontend's
+    # shapes (an utterance, a push), each counted over its own path's run.
     kernels = [
         {"name": "mfcc", "route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
          "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122",
@@ -1509,6 +1935,8 @@ def main():
          "replaces": "examples/pallas_windowed_cost.py:59",
          "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
+        *gmm_entries,
+        *coqui_entries,
     ]
     loaded = sorted(m for m in sys.modules if m.partition(".")[0] in ("jax", "jaxlib", "rhasspy_speech_tpu"))
     check(not loaded, f"the port imported JAX or the JAX package: {loaded[:5]}")

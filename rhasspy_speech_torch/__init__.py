@@ -5,10 +5,15 @@ words -> fuzzy match; ``Nnet3WavTranscriber``) and single-stream streaming
 transcription (``Nnet3StreamTranscriber``: one MFCC launch a push, one
 Viterbi launch a 7-frame chunk with the alpha carried on the device) and
 many streams at once (``pipeline.scheduler.StreamScheduler``: one MFCC and
-one Viterbi launch a tick over every stream slot) run on
-one CUDA device through two hand-written Hopper kernels (``csrc/mfcc.cu``,
-``csrc/viterbi.cu``); every kernel has a plain PyTorch twin that runs for
-CPU tensors. The host layers
+one Viterbi launch a tick over every stream slot, captured as a CUDA graph
+with one path-walk launch) run on one CUDA device through four hand-written
+Hopper kernels (``csrc/mfcc.cu``, ``csrc/viterbi.cu``, ``csrc/path_walk.cu``
+and ``csrc/windowed_relax.cu``, the last reached through
+``examples/windowed_cost.py``); every kernel has a plain PyTorch twin that
+runs for CPU tensors. Kaldi GMM models (MFCC + deltas -> diagonal-GMM
+log-likelihoods, ``models/gmm.py``) take the same three paths, and Coqui
+STT CTC models (``models/ctc.py``, ``io/tflite.py``) train and transcribe
+through ``pipeline/coqui.py``. The host layers
 (grammar, FST, lang, lexicon, graph, io, native, training) are the port's
 own copies of the JAX package's host modules, which hold no JAX code; the
 port imports nothing of the JAX package.

@@ -425,6 +425,10 @@ class CompiledNnet3(nn.Module):
     def ranges(self) -> Dict[str, Tuple[int, int]]:
         return self.plan.ranges
 
+    @property
+    def right_context(self) -> int:
+        return self.plan.right_context
+
     def component_params(self, name: str) -> Dict[str, torch.Tensor]:
         return {k: getattr(self, buf) for k, buf in self._keys.get(name, {}).items()}
 

@@ -58,9 +58,13 @@ always; on the card they decide as soon as their row has landed, one or
 more ticks later. After ``PIPELINE_DEPTH + 2`` ticks in a row with nothing
 landed, the oldest row is waited for.
 
+A GMM model's chunk model is ``models.gmm.GmmChunkModel`` (deltas over
+the window's +-4 context frames, the per-pdf log-likelihoods, no i-vector,
+subsampling 1); it takes either route by the same rule.
+
 The ``mulaw`` / ``adpcm`` wires and ``mesh`` (item 16), a bfloat16 AM and
-recurrent plans (item 4), GMM models (item 13) and pitch features (item 14)
-raise ``NotImplementedError``.
+recurrent plans (item 4) and pitch features (item 14) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -77,7 +81,6 @@ import torch
 from ..device import resolve_device
 from ..fst.core import SymbolTable
 from ..grammar.fst import decode_meta
-from ..models.nnet3 import compile_nnet3
 from ..native import StreamPool
 from ..ops import decoder as plain_decoder
 from ..ops.cmvn import CmvnConfig, stats_from_matrix
@@ -180,7 +183,7 @@ class StreamScheduler:
             raise ValueError(f"wire must be 'i16', 'mulaw' or 'adpcm', got {wire!r}")
         self.device = resolve_device(device)
         self._chunk_out = int(chunk_out_frames)
-        # raises for bf16 (item 4), GMM (item 13) and pitch (item 14) models
+        # raises for bf16 (item 4) and pitch (item 14) models
         self.am = AcousticModel(Path(model_dir), compute_dtype=compute_dtype, device=self.device)
         self.artifacts = LangArtifacts.load(graph_dir)
         if self.artifacts.graph is None:
@@ -200,9 +203,7 @@ class StreamScheduler:
         self.slots: List[_SlotState] = [_SlotState() for _ in range(max_streams)]
         self._featurizer = StreamFeaturizer(self.am)
         # raises for a recurrent plan (item 4)
-        self._chunk_model = compile_nnet3(
-            self.am.spec, self._chunk_out, subsampling=self.am.subsampling, device=self.device
-        )
+        self._chunk_model = self.am.chunk_model(self._chunk_out)
         self._win_lo, self._win_hi = self._chunk_model.ranges["input"]
         self._chunk_in = self._chunk_out * self.am.subsampling
         cfg = self.am.frontend_config

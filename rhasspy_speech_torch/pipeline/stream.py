@@ -35,9 +35,14 @@ weights of the next fold are read from them), as the reference does. Each
 of those stages is a method of its own (``_upload``, ``_fold_ivector``,
 ``_acoustic``, ``_decode_chunk``, ``_download``), so a caller can time them.
 
-GMM acoustic models (ROADMAP Queue 1, item 13), pitch features (item 14) and
-recurrent nnet3 plans (item 4) are not ported: ``AcousticModel`` and
-``compile_nnet3`` raise ``NotImplementedError`` naming them.
+A GMM model's chunk model is ``models.gmm.GmmChunkModel`` (deltas over the
+window's +-4 context frames, then the per-pdf log-likelihoods; no
+i-vector): one MFCC launch a push and one Viterbi launch a 7-frame chunk,
+as for nnet3.
+
+Pitch features (ROADMAP Queue 1, item 14) and recurrent nnet3 plans (item
+4) are not ported: ``AcousticModel`` and ``compile_nnet3`` raise
+``NotImplementedError`` naming them.
 """
 
 from __future__ import annotations
@@ -54,7 +59,6 @@ from ..device import resolve_device
 from ..fst.core import SymbolTable
 from ..grammar.fst import decode_meta
 from ..graph.dense import NEG_INF_F32
-from ..models.nnet3 import compile_nnet3
 from ..ops import decoder as plain_decoder
 from ..ops.decoder import (
     _COMPACT_BP_MAX_ARC,
@@ -138,10 +142,8 @@ class Nnet3StreamTranscriber:
             raise ValueError(f"no graph.npz in {graph_dir}")
         self.device_graph = DecodeGraph.from_dense(self.artifacts.graph, self.device)
         self._featurizer = StreamFeaturizer(self.am)
-        self._chunk_model = compile_nnet3(
-            self.am.spec, CHUNK_OUT_FRAMES, subsampling=self.am.subsampling, device=self.device
-        )
-        self._rc = self._chunk_model.plan.right_context
+        self._chunk_model = self.am.chunk_model(CHUNK_OUT_FRAMES)
+        self._rc = self._chunk_model.right_context
         self._chunk_in = CHUNK_OUT_FRAMES * self.am.subsampling
         self._has_ivector = self.am._has_ivector
         self._ivp = self.am.ivector_params if self._has_ivector else None

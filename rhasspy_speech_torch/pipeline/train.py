@@ -117,9 +117,21 @@ def train_model_sync(
     # the same mkgraph.sh --self-loop-scale 1.0 for every model type
     # (kaldi.py:409-425); decode-side GMM support lives in AcousticModel.
     if model_type == "coqui":
-        raise NotImplementedError(
-            "Coqui CTC models are not ported yet (ROADMAP Queue 1, item 15)"
+        # CTC backend (train.py:85-88): compile the grammar and build the
+        # token->sentence decode cascade; no lexicon/lang step.
+        from ..lexicon.g2p import LexiconDatabase as _LexDb
+        from .coqui import CoquiSttTrainer
+
+        intents_obj = _load_intents(intents)
+        ctx = compile_intents(
+            intents_obj,
+            io.StringIO(),
+            _LexDb(),
+            number_language=language,
+            word_casing=word_casing,
         )
+        CoquiSttTrainer(model_dir).train(ctx, train_dir)
+        return
 
     # Lexicon + user words (train.py:41-50)
     lexicon_db = model_dir / "lexicon.db"

@@ -29,9 +29,13 @@ first-pass 1-best decode marks the silence frames, their weight in the
 i-vector statistics drops to ``silence_weight``, and the batch is scored
 again (the JAX package's OnlineSilenceWeighting equivalent).
 
+A Kaldi GMM model dir (``final.mdl`` holding an AmDiagGmm) runs MFCC ->
+deltas + delta-deltas -> per-pdf diagonal-GMM log-likelihoods
+(``models/gmm.py``) -> the same decoders, with no i-vector and no frame
+subsampling.
+
 Not ported yet, and raising ``NotImplementedError`` rather than answering
-differently: GMM models, pitch features and bfloat16 compute (ROADMAP
-Queue 1).
+differently: pitch features and bfloat16 compute (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -49,13 +53,15 @@ import torch
 from ..device import resolve_device
 from ..fst.core import SymbolTable
 from ..grammar.fst import decode_meta
-from ..io.gmm_am import is_gmm_model
+from ..io.gmm_am import is_gmm_model, read_am_diag_gmm
 from ..io.ivector import DiagGmm, IvectorExtractor, OnlineIvectorConfig, parse_conf
 from ..io.kaldi_io import read_kaldi_object
 from ..io.lattice_io import compact_lattice_from_decode, determinize_lattice_phone_pruned
 from ..io.nnet3_file import read_am_nnet3
+from ..models.gmm import GmmAm, GmmChunkModel
 from ..models.nnet3 import CompiledNnet3, compile_nnet3
 from ..ops.cmvn import online_cmvn
+from ..ops.deltas import add_deltas
 from ..ops import decoder as plain_decoder
 from ..ops.decoder import (
     _COMPACT_BP_MAX_ARC,
@@ -108,12 +114,15 @@ def read_wav(path: Union[str, Path]) -> np.ndarray:
 
 
 class AcousticModel:
-    """A loaded nnet3 acoustic model, its MFCC frontend and i-vector
-    extractor, on one device.
+    """A loaded nnet3 or diagonal-GMM acoustic model, its MFCC frontend and
+    i-vector extractor, on one device.
 
     model_dir layout: model/final.mdl, optional model/frontend.json or
     model/conf/mfcc*.conf, model/frame_subsampling_factor, and extractor/
-    (final.ie, final.dubm, final.mat, optional global_cmvn.stats)."""
+    (final.ie, final.dubm, final.mat, optional global_cmvn.stats). A
+    ``final.mdl`` that carries an AmDiagGmm after its TransitionModel
+    (``ModelType.gmm``) loads into ``gmm`` (``spec`` is None): subsampling
+    1, no i-vector."""
 
     def __init__(
         self,
@@ -133,9 +142,15 @@ class AcousticModel:
             model_dir = model_dir / "model"
             mdl_path = model_dir / "model" / "final.mdl"
         self._resolved_model_dir = model_dir
+        self.gmm: Optional[GmmAm] = None
+        self.spec = None
         if is_gmm_model(str(mdl_path)):
-            raise _not_ported("GMM acoustic models", "item 13")
-        self.transition_model, self.spec = read_am_nnet3(str(mdl_path))
+            self.transition_model, gmms = read_am_diag_gmm(str(mdl_path))
+            self.gmm = GmmAm.from_diag_gmms(gmms, self.device)
+            if subsampling is None:
+                subsampling = 1
+        else:
+            self.transition_model, self.spec = read_am_nnet3(str(mdl_path))
 
         if subsampling is None:
             fsf = model_dir / "model" / "frame_subsampling_factor"
@@ -167,7 +182,9 @@ class AcousticModel:
             raise _not_ported("pitch features", "item 14")
 
         self._buckets: Dict[int, CompiledNnet3] = {}
-        self._has_ivector = any(n.kind == "input" and n.name == "ivector" for n in self.spec.nodes)
+        self._has_ivector = self.spec is not None and any(
+            n.kind == "input" and n.name == "ivector" for n in self.spec.nodes
+        )
         self.ivector_params = None
         self.ivector_cmvn_stats = None
         ext_dir = model_dir / "extractor"
@@ -187,7 +204,7 @@ class AcousticModel:
             if cmvn_path.exists():
                 self.ivector_cmvn_stats = np.asarray(read_kaldi_object(str(cmvn_path)))
         self._log_priors = None
-        if self.spec.priors is not None and self.spec.priors.shape[0]:
+        if self.spec is not None and self.spec.priors is not None and self.spec.priors.shape[0]:
             self._log_priors = torch.log(
                 torch.as_tensor(np.asarray(self.spec.priors), dtype=torch.float32, device=self.device)
             )
@@ -197,6 +214,11 @@ class AcousticModel:
         return self.transition_model.num_pdfs
 
     def compiled(self, num_out_frames: int) -> CompiledNnet3:
+        if self.spec is None:
+            raise ValueError(
+                "a GMM acoustic model has no nnet3 plan: batch decoding runs through "
+                "log_probs, streaming through chunk_model"
+            )
         model = self._buckets.get(num_out_frames)
         if model is None:
             model = compile_nnet3(
@@ -204,6 +226,14 @@ class AcousticModel:
             )
             self._buckets[num_out_frames] = model
         return model
+
+    def chunk_model(self, chunk_out: int):
+        """The streaming chunk model for ``chunk_out`` output frames: a
+        ``GmmChunkModel`` for a GMM, else the ``compile_nnet3`` plan (which
+        raises for a recurrent plan, ROADMAP Queue 1, item 4)."""
+        if self.gmm is not None:
+            return GmmChunkModel(self.gmm, chunk_out)
+        return compile_nnet3(self.spec, chunk_out, subsampling=self.subsampling, device=self.device)
 
     def features(self, pcm: torch.Tensor) -> torch.Tensor:
         """[B, samples] f32 on this model's device -> [B, T, num_ceps]."""
@@ -222,9 +252,14 @@ class AcousticModel:
         [B, T] scales each frame's weight in the i-vector stats (silence
         weighting); ``feat_lengths`` [B] masks each stream's padding out of
         the i-vector stats; log-priors are subtracted when the model
-        carries them."""
-        model = self.compiled(num_out_frames)
+        carries them. A GMM scores deltas + delta-deltas of every frame."""
         T = feats.shape[1]
+        if self.gmm is not None:
+            full = add_deltas(feats, order=2)
+            idx = torch.as_tensor(np.clip(np.arange(num_out_frames), 0, max(T - 1, 0)),
+                                  device=feats.device)
+            return self.gmm.log_likes(full[:, idx])
+        model = self.compiled(num_out_frames)
         lo, hi = model.ranges["input"]
         idx = torch.as_tensor(np.clip(np.arange(lo, hi), 0, max(T - 1, 0)), device=feats.device)
         ivec = None

@@ -1,0 +1,161 @@
+"""Full-width model directories of the two other acoustic-model families,
+written from a seed (no download): the published shapes, random weights.
+
+- ``write_tri1_model_dir``: Kaldi's delta-feature triphone GMM system, tri1
+  of ``egs/mini_librispeech/s5/run.sh`` (``steps/train_deltas.sh
+  --boost-silence 1.25 2000 10000``, ``conf/mfcc.conf`` with
+  ``--use-energy=false``): 2,000 pdfs and 10,000 diagonal Gaussians (1 to
+  10 a pdf, mean 5) over 13 cepstra from 23 mel bins at 25 ms / 10 ms plus
+  deltas and delta-deltas, 39 dimensions. ``model/conf/mfcc.conf`` spells
+  out Kaldi's ``MfccOptions`` defaults, because the port's
+  ``FrontendConfig`` defaults are the hires ones. The transition model is
+  the caller's (the decode graph's, e.g. the flagship graph's monophone
+  chain): pdfs past the graph's are scored every frame and never read, as
+  a chain model computes all its outputs. Means and variances are drawn
+  around the statistics of MFCC + deltas of seeded noise, so the
+  log-likelihoods have a trained model's scale.
+- ``write_deepspeech_model_dir``: Coqui STT / DeepSpeech 0.9 English, from
+  Coqui STT's training flags (``n_hidden`` 2048, ``n_input`` 26,
+  ``n_context`` 9, ``feature_win_len`` 32 ms, ``feature_win_step`` 20 ms,
+  ``n_steps`` 16): ``layer_1..3`` dense 2,048 over the 494-wide spliced
+  input, an LSTM of 2,048 cells (kernel [4096, 8192]), ``layer_5`` 2,048,
+  ``layer_6`` 29 (28 characters + blank): 47.2 M parameters, 189 MB in
+  f32. It is written as a ``model.tflite`` with the tensor names Coqui's
+  export carries (``layer_N/weights``, ``cudnn_lstm/.../kernel``), so the
+  transcriber's TFLite load path converts it, beside ``alphabet.txt`` and
+  a ``frontend.json`` of 26 cepstra from 40 mel bins at 32 ms / 20 ms.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Union
+
+import numpy as np
+
+from ..io.gmm_am import write_am_diag_gmm
+from ..io.ivector import DiagGmm
+from ..io.tflite import build_tflite
+from ..io.transition_model import KaldiTransitionModel
+from ..ops.deltas import delta_kernels
+from ..ops.frontend import FrontendConfig, frontend_from_mfcc_conf, mfcc_numpy
+
+TRI1_PDFS = 2000
+TRI1_GAUSS = 10000
+TRI1_MAX_GAUSS = 10
+# Kaldi's MfccOptions defaults: 23 mel bins, 13 cepstra, 20 Hz to Nyquist
+TRI1_MFCC_CONF = (
+    "--use-energy=false\n--num-mel-bins=23\n--num-ceps=13\n--low-freq=20\n--high-freq=0\n"
+)
+
+DEEPSPEECH_ALPHABET = [" "] + [chr(c) for c in range(ord("a"), ord("z") + 1)] + ["'"]
+DEEPSPEECH_LSTM = "cudnn_lstm/rnn/multi_rnn_cell/cell_0/cudnn_compatible_lstm_cell/"
+
+
+def gauss_counts(rng: np.random.RandomState, pdfs: int, total: int, most: int) -> np.ndarray:
+    """Per-pdf Gaussian counts in [1, most] summing to ``total``."""
+    counts = rng.randint(1, most + 1, size=pdfs)
+    while counts.sum() != total:
+        i = rng.randint(pdfs)
+        step = 1 if counts.sum() < total else -1
+        if 1 <= counts[i] + step <= most:
+            counts[i] += step
+    return counts
+
+
+def _deltas_numpy(feats: np.ndarray) -> np.ndarray:
+    """[T, D] -> [T, 3D], add-deltas with edge clamping (float64)."""
+    T = feats.shape[0]
+    outs = []
+    for kernel in delta_kernels(2, 2):
+        offset = (kernel.shape[0] - 1) // 2
+        outs.append(sum(c * feats[np.clip(np.arange(T) + i - offset, 0, T - 1)]
+                        for i, c in enumerate(kernel) if c != 0.0))
+    return np.concatenate(outs, axis=1)
+
+
+def write_tri1_model_dir(
+    model_dir: Union[str, Path],
+    transition_model: KaldiTransitionModel,
+    phones_text: str,
+    seed: int = 0,
+    num_pdfs: int = TRI1_PDFS,
+    num_gauss: int = TRI1_GAUSS,
+) -> Path:
+    """Write model/final.mdl (the transition model + an AmDiagGmm),
+    model/phones.txt (``phones_text``), model/conf/mfcc.conf and
+    config.json; returns ``model_dir``."""
+    model_dir = Path(model_dir)
+    (model_dir / "model" / "conf").mkdir(parents=True, exist_ok=True)
+    conf = model_dir / "model" / "conf" / "mfcc.conf"
+    conf.write_text(TRI1_MFCC_CONF, encoding="utf-8")
+    rng = np.random.RandomState(seed)
+    noise = 1000.0 * rng.randn(16000)
+    feats = _deltas_numpy(mfcc_numpy(frontend_from_mfcc_conf(conf), noise))
+    mu, sd = feats.mean(axis=0), feats.std(axis=0) + 1e-3
+    dim = feats.shape[1]
+    gmms = []
+    for n in gauss_counts(rng, num_pdfs, num_gauss, TRI1_MAX_GAUSS):
+        means = mu + 0.5 * sd * rng.randn(n, dim)
+        variances = (sd * sd) * rng.uniform(0.5, 1.5, size=(n, dim))
+        gmms.append(DiagGmm.from_means_vars(rng.dirichlet(np.ones(n)), means, variances))
+    write_am_diag_gmm(str(model_dir / "model" / "final.mdl"), transition_model, gmms)
+    (model_dir / "model" / "phones.txt").write_text(phones_text, encoding="utf-8")
+    with open(model_dir / "config.json", "w", encoding="utf-8") as f:
+        json.dump({"type": "gmm", "lexicon": {"casing": "lower"},
+                   "sil_phone": "SIL", "spn_phone": "SPN"}, f)
+    return model_dir
+
+
+def deepspeech_weights(
+    rng: np.random.RandomState, n_hidden: int = 2048, n_input: int = 26, n_context: int = 9,
+    labels: int = len(DEEPSPEECH_ALPHABET) + 1,
+) -> dict:
+    """The DeepSpeech graph's named weights, random: each layer scaled by
+    its fan-in, the output layer widened so the softmax is peaked (a few
+    characters a frame carry the mass, as a trained model's do)."""
+    d_in = n_input * (2 * n_context + 1)
+    shapes = {
+        "layer_1": (d_in, n_hidden), "layer_2": (n_hidden, n_hidden),
+        "layer_3": (n_hidden, n_hidden), "layer_5": (n_hidden, n_hidden),
+        "layer_6": (n_hidden, labels),
+    }
+    out = {}
+    for name, (fan_in, width) in shapes.items():
+        gain = 8.0 if name == "layer_6" else 1.0
+        out[f"{name}/weights"] = (rng.randn(fan_in, width) * (gain / np.sqrt(fan_in))).astype(np.float32)
+        out[f"{name}/bias"] = (0.1 * rng.randn(width)).astype(np.float32)
+    out[DEEPSPEECH_LSTM + "kernel"] = (
+        rng.randn(2 * n_hidden, 4 * n_hidden) / np.sqrt(2 * n_hidden)).astype(np.float32)
+    out[DEEPSPEECH_LSTM + "bias"] = (0.1 * rng.randn(4 * n_hidden)).astype(np.float32)
+    return out
+
+
+def write_deepspeech_model_dir(
+    model_dir: Union[str, Path],
+    seed: int = 0,
+    n_hidden: int = 2048,
+    n_input: int = 26,
+    n_context: int = 9,
+    n_steps: int = 16,
+) -> Path:
+    """Write model.tflite, alphabet.txt, frontend.json and config.json;
+    returns ``model_dir``."""
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    weights = deepspeech_weights(np.random.RandomState(seed), n_hidden, n_input, n_context)
+    (model_dir / "model.tflite").write_bytes(
+        build_tflite(weights, input_shape=[1, n_steps, 2 * n_context + 1, n_input],
+                     description="DeepSpeech 0.9 English shapes, random weights"))
+    (model_dir / "alphabet.txt").write_text(
+        "# DeepSpeech English alphabet\n" + "".join(c + "\n" for c in DEEPSPEECH_ALPHABET),
+        encoding="utf-8")
+    frontend = FrontendConfig(num_ceps=n_input, frame_length_ms=32.0, frame_shift_ms=20.0)
+    with open(model_dir / "frontend.json", "w", encoding="utf-8") as f:
+        json.dump({"num_mel_bins": frontend.num_mel_bins, "num_ceps": frontend.num_ceps,
+                   "frame_length_ms": frontend.frame_length_ms,
+                   "frame_shift_ms": frontend.frame_shift_ms}, f)
+    with open(model_dir / "config.json", "w", encoding="utf-8") as f:
+        json.dump({"type": "coqui"}, f)
+    return model_dir

@@ -643,8 +643,50 @@ def build_synthetic_ctc_profile(
 ) -> SyntheticCtcProfile:
     """Coqui-style model dir: alphabet.txt + model.npz (Gaussian char
     classifier over MFCC centroids, with blank = silence) + frontend.json."""
-    raise NotImplementedError(
-        "Coqui CTC models are not ported yet (ROADMAP Queue 1, item 15)"
+    from ..models.ctc import CtcModel
+
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    if frontend is None:
+        frontend = FrontendConfig(num_mel_bins=20, num_ceps=20)
+    rng = np.random.RandomState(seed)
+
+    ordered = [" "] + sorted(c for c in chars if c != " ")
+    char_freqs = _phone_freqs([c for c in ordered])
+
+    centroids = []
+    for c in ordered:
+        wave = _phone_wave(char_freqs[c], SAMPLE_RATE, rng)
+        centroids.append(mfcc_numpy(frontend, wave).mean(axis=0))
+    # blank = silence
+    centroids.append(mfcc_numpy(frontend, _silence_wave(SAMPLE_RATE, rng)).mean(axis=0))
+    C = np.stack(centroids)  # [L, D]
+
+    out_w = (2.0 * C / tau).T.astype(np.float32)  # [D, L]
+    out_b = (-np.sum(C * C, axis=1) / tau).astype(np.float32)
+    model = CtcModel(
+        params={"out_w": out_w, "out_b": out_b},
+        num_labels=C.shape[0],
+        context=0,
+        has_lstm=False,
+    )
+    model.save(str(model_dir / "model.npz"))
+
+    with open(model_dir / "alphabet.txt", "w", encoding="utf-8") as f:
+        for c in ordered:
+            f.write(("" if c == " " else c) + "\n")
+    with open(model_dir / "frontend.json", "w", encoding="utf-8") as f:
+        json.dump(
+            {"num_mel_bins": frontend.num_mel_bins,
+             "num_ceps": frontend.num_ceps,
+             "dither": frontend.dither},
+            f,
+        )
+    return SyntheticCtcProfile(
+        model_dir=model_dir,
+        frontend=frontend,
+        chars=ordered,
+        char_freqs=char_freqs,
     )
 
 

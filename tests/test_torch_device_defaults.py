@@ -12,10 +12,13 @@ import torch
 
 from rhasspy_speech_torch.io.ivector import DiagGmm, IvectorExtractor
 from rhasspy_speech_torch.models import nnet3
+from rhasspy_speech_torch.models.ctc import CtcModel
+from rhasspy_speech_torch.models.gmm import GmmAm
 from rhasspy_speech_torch.ops import frontend, ivector
 from rhasspy_speech_torch import Nnet3StreamTranscriber, Nnet3WavTranscriber
 from rhasspy_speech_torch.ops.decoder import DecodeGraph
 from rhasspy_speech_torch.ops.frontier import FrontierGraph
+from rhasspy_speech_torch.pipeline.coqui import CoquiSttTranscriber
 from rhasspy_speech_torch.pipeline.scheduler import StreamScheduler
 from rhasspy_speech_torch.testing.decode_graphs import random_decode_graph
 from rhasspy_speech_torch.testing.tdnnf import build_tdnnf_spec
@@ -46,6 +49,8 @@ def _tensors(x):
         return [t for v in x.values() for t in _tensors(v)]
     if hasattr(x, "__dataclass_fields__"):
         return [t for f in x.__dataclass_fields__ for t in _tensors(getattr(x, f))]
+    if isinstance(x, GmmAm):
+        return [x.gconsts, x.means_invvars, x.inv_vars]
     return []
 
 
@@ -70,6 +75,11 @@ CONSTRUCTORS = {
     "make_ivector_params": lambda **kw: ivector.make_ivector_params(*_ivector_system(), **kw),
     "make_frontend_params": lambda **kw: frontend.make_frontend_params(
         frontend.FrontendConfig(), **kw),
+    "GmmAm.from_numpy": lambda **kw: GmmAm.from_numpy(
+        np.zeros((2, 3), np.float32), np.ones((2, 3, 4), np.float32), np.ones((2, 3, 4), np.float32),
+        **kw),
+    "CtcModel.from_numpy": lambda **kw: CtcModel.from_numpy(
+        {"out_w": np.ones((4, 3)), "out_b": np.zeros(3)}, **kw),
 }
 
 
@@ -88,8 +98,8 @@ def test_constructor_runs_on_the_cpu_when_asked(monkeypatch, name, device):
     assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
-@pytest.mark.parametrize("cls", [Nnet3WavTranscriber, Nnet3StreamTranscriber, StreamScheduler],
-                         ids=lambda c: c.__name__)
+@pytest.mark.parametrize("cls", [Nnet3WavTranscriber, Nnet3StreamTranscriber, StreamScheduler,
+                                 CoquiSttTranscriber], ids=lambda c: c.__name__)
 def test_transcriber_defaults_to_the_card_and_raises_without_one(monkeypatch, tmp_path, cls):
     """The device is resolved before a file is read: without a card the
     default raises, whatever the directories hold."""

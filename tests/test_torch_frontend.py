@@ -33,6 +33,10 @@ CONFIGS = {
     "energy_raw": dict(use_energy=True),
     "energy_windowed_floor": dict(use_energy=True, raw_energy=False, energy_floor=1.0),
     "no_snip": dict(snip_edges=False),
+    # Kaldi's MfccOptions defaults (a tri1 GMM system's mfcc.conf)
+    "tri1_13x23": dict(num_mel_bins=23, num_ceps=13, high_freq=0.0),
+    # a DeepSpeech frontend: 26 cepstra, 32 ms / 20 ms frames (512 / 320)
+    "coqui_26x40": dict(num_ceps=26, frame_length_ms=32.0, frame_shift_ms=20.0),
 }
 
 
@@ -63,7 +67,7 @@ def test_mfcc_twin_matches_jax(name):
     np.testing.assert_allclose(got[0], ref, rtol=2e-3, atol=2e-2)
 
 
-@pytest.mark.parametrize("name", ["hires", "20x20", "no_snip"])
+@pytest.mark.parametrize("name", ["hires", "20x20", "no_snip", "tri1_13x23", "coqui_26x40"])
 def test_mfcc_twin_matches_pallas_interpret(name):
     # mfcc_pallas has no use_energy branch (ROADMAP Queue 3, R4), so only
     # energy-free configs are compared with it

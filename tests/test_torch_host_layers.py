@@ -36,7 +36,7 @@ COPIED = [
         "__init__", "context", "dense", "from_kaldi", "hclg", "topology", "transitions")),
     *(f"io/{m}.py" for m in (
         "__init__", "gmm_am", "ivector", "kaldi_io", "lattice_io", "nnet3_file", "openfst",
-        "transition_model", "tree")),
+        "tflite", "transition_model", "tree")),
     *(f"lang/{m}.py" for m in ("__init__", "graphs", "lexicon_fst", "ngram")),
     *(f"lexicon/{m}.py" for m in ("__init__", "g2p", "g2p_decoder")),
     "native/__init__.py",
@@ -54,36 +54,44 @@ COPIED = [
 # path of a local checkout; the copies cite them relative to it.
 _CHECKOUT_PREFIX = re.compile(r'(?<=[\s("])/\w+/reference/')
 
-# The copies' only other edits, as (original, copy) snippets. The five
-# lazy branches into JAX modules raise or reach the port's own module
-# (the flagship's and the synthetic profile's CMVN branches import
-# ``..ops.cmvn`` unchanged), the first g++ attempt of the native build also
-# catches a missing compiler (ROADMAP Queue 3, R2), the flagship graph
-# builds its fallback grammar without looking for the upstream checkout's
-# test_en.yaml, and the tools shim names the port.
+# The copies' only other edits, as (original, copy) snippets. The two
+# lazy branches into the NumPy wire encoders raise; the other lazy branches
+# into JAX modules reach the port's own module unchanged (the flagship's and
+# the synthetic profile's CMVN branches ``..ops.cmvn``, the Coqui trainer
+# ``.coqui``, the synthetic CTC profile ``..models.ctc``); the TFLite
+# converter builds the port's ``CtcModel`` on a device; the first g++
+# attempt of the native build also catches a missing compiler (ROADMAP
+# Queue 3, R2), the flagship graph builds its fallback grammar without
+# looking for the upstream checkout's test_en.yaml, and the tools shim
+# names the port.
 EDITS = {
-    "pipeline/train.py": [(
-        """        # CTC backend (train.py:85-88): compile the grammar and build the
-        # token->sentence decode cascade; no lexicon/lang step.
-        from ..lexicon.g2p import LexiconDatabase as _LexDb
-        from .coqui import CoquiSttTrainer
+    "io/tflite.py": [
+        (
+            """    alphabet_path: Optional[Union[str, Path]] = None,
+):
+    \"\"\"model.tflite → CtcModel (optionally persisting model.npz and an
+    embedded alphabet). Returns the loaded :class:`~..models.ctc.CtcModel`.\"\"\"""",
+            """    alphabet_path: Optional[Union[str, Path]] = None,
+    device="cuda",
+):
+    \"\"\"model.tflite → CtcModel on ``device`` (optionally persisting
+    model.npz and an embedded alphabet). Returns the loaded
+    :class:`~..models.ctc.CtcModel`.\"\"\"""",
+        ),
+        (
+            """    import jax.numpy as jnp
 
-        intents_obj = _load_intents(intents)
-        ctx = compile_intents(
-            intents_obj,
-            io.StringIO(),
-            _LexDb(),
-            number_language=language,
-            word_casing=word_casing,
-        )
-        CoquiSttTrainer(model_dir).train(ctx, train_dir)
-        return
+    ctc = CtcModel(
+        params={k: jnp.asarray(v) for k, v in params.items()},
+        num_labels=int(params["out_w"].shape[-1]),
+        context=context,
+        has_lstm="lstm_kernel" in params,
+    )
 """,
-        """        raise NotImplementedError(
-            "Coqui CTC models are not ported yet (ROADMAP Queue 1, item 15)"
-        )
+            """    ctc = CtcModel.from_numpy(params, context, device)
 """,
-    )],
+        ),
+    ],
     "native/runtime.py": [
         (
             """    except subprocess.CalledProcessError:
@@ -151,62 +159,6 @@ EDITS = {
 """,
         ),
     ],
-    "testing/synthetic.py": [(
-        """    from ..models.ctc import CtcModel
-
-    model_dir = Path(model_dir)
-    model_dir.mkdir(parents=True, exist_ok=True)
-    if frontend is None:
-        frontend = FrontendConfig(num_mel_bins=20, num_ceps=20)
-    rng = np.random.RandomState(seed)
-
-    ordered = [" "] + sorted(c for c in chars if c != " ")
-    char_freqs = _phone_freqs([c for c in ordered])
-
-    centroids = []
-    for c in ordered:
-        wave = _phone_wave(char_freqs[c], SAMPLE_RATE, rng)
-        centroids.append(mfcc_numpy(frontend, wave).mean(axis=0))
-    # blank = silence
-    centroids.append(mfcc_numpy(frontend, _silence_wave(SAMPLE_RATE, rng)).mean(axis=0))
-    C = np.stack(centroids)  # [L, D]
-
-    out_w = (2.0 * C / tau).T.astype(np.float32)  # [D, L]
-    out_b = (-np.sum(C * C, axis=1) / tau).astype(np.float32)
-    model = CtcModel(
-        params={"out_w": out_w, "out_b": out_b},
-        num_labels=C.shape[0],
-        context=0,
-        has_lstm=False,
-    )
-    model.save(str(model_dir / "model.npz"))
-
-    with open(model_dir / "alphabet.txt", "w", encoding="utf-8") as f:
-        for c in ordered:
-            f.write(("" if c == " " else c) + "\\n")
-    with open(model_dir / "frontend.json", "w", encoding="utf-8") as f:
-        json.dump(
-            {"num_mel_bins": frontend.num_mel_bins,
-             "num_ceps": frontend.num_ceps,
-             "dither": frontend.dither},
-            f,
-        )
-    return SyntheticCtcProfile(
-        model_dir=model_dir,
-        frontend=frontend,
-        chars=ordered,
-        char_freqs=char_freqs,
-    )
-
-
-""",
-        """    raise NotImplementedError(
-        "Coqui CTC models are not ported yet (ROADMAP Queue 1, item 15)"
-    )
-
-
-""",
-    )],
     "tools.py": [
         (
             "framework runs everything in-process — on TPU for the numeric path, host",
@@ -231,8 +183,11 @@ def test_copy_equals_original(rel):
 
 # Imports of a module that is JAX in the original package but the port's own
 # module in the copy, which carries what the copy imports from it
-# (``FrontendConfig`` and ``mfcc_numpy``, pinned by tests/test_torch_frontend.py).
-OWN_MODULE_IMPORTS = {("testing/synthetic.py", "..ops.frontend")}
+# (``FrontendConfig`` and ``mfcc_numpy``, pinned by tests/test_torch_frontend.py;
+# ``CtcModel``, whose constructor, ``save`` and ``from_numpy`` the synthetic
+# CTC profile and the TFLite converter call, pinned by tests/test_torch_ctc.py).
+OWN_MODULE_IMPORTS = {("testing/synthetic.py", "..ops.frontend"),
+                      ("testing/synthetic.py", "..models.ctc"), ("io/tflite.py", "..models.ctc")}
 
 
 def test_copies_import_no_jax_module():
@@ -320,11 +275,27 @@ _DRIVE = textwrap.dedent(
         sched.step()
     sched.finish(sid)
     sched.run_until_idle()
+
+    from rhasspy_speech_torch.pipeline.coqui import CoquiSttTranscriber
+    from rhasspy_speech_torch.testing.synthetic import (
+        build_synthetic_ctc_profile, build_synthetic_gmm_profile, synthesize_ctc_text)
+
+    gmm = build_synthetic_gmm_profile(root / "gmm", lexicon)
+    train_model_sync("en", intents, root / "gmm_train", gmm.model_dir,
+                     lang_suffixes=[LangSuffix.GRAMMAR])
+    gmm_texts = Nnet3WavTranscriber(
+        gmm.model_dir, root / "gmm_train" / lang_dir_name(LangSuffix.GRAMMAR), device="cpu"
+    ).transcribe_pcm_batch([synthesize_sentence(gmm, "turn on the light", seed=4)])
+    ctc = build_synthetic_ctc_profile(root / "ctc", sorted(set("turnonthelightnevermind")))
+    (ctc.model_dir / "config.json").write_text('{"type": "coqui"}', encoding="utf-8")
+    train_model_sync("en", intents, root / "ctc_train", ctc.model_dir)
+    ctc_text = CoquiSttTranscriber(ctc.model_dir, root / "ctc_train", device="cpu").transcribe_pcm(
+        synthesize_ctc_text(ctc, "never mind", seed=5), prune_threshold=30.0)
     loaded = [m for m in sys.modules if m.partition(".")[0] in ("jax", "rhasspy_speech_tpu")]
     assert not loaded, loaded
     print(json.dumps({"model_dir": str(model_dir), "graph_dir": str(graph_dir), "texts": texts,
                       "synth_model_dir": str(profile.model_dir), "synth_graph_dir": str(synth_graph),
-                      "streamed": sched.poll(sid)}))
+                      "streamed": sched.poll(sid), "gmm": gmm_texts, "ctc": ctc_text}))
     """
 )
 
@@ -335,7 +306,8 @@ def test_port_trains_and_transcribes_with_jax_package_blocked(tmp_path):
     the port trains a grammar graph for it and transcribes seeded noise on
     the CPU; the port's synthetic profile is built and trained, and a
     sentence streamed through the port's ``StreamScheduler`` decodes to
-    itself. The JAX package's transcriber, reading the same files here,
+    itself, as do sentences through the synthetic GMM profile and the
+    synthetic Coqui CTC profile. The JAX package's transcriber, reading the same files here,
     gives the same transcripts."""
     pcm = (1000.0 * np.random.RandomState(0).randn(16000)).astype(np.float32)
     np.save(tmp_path / "pcm.npy", pcm)
@@ -349,5 +321,6 @@ def test_port_trains_and_transcribes_with_jax_package_blocked(tmp_path):
     jt = JaxTranscriber(out["model_dir"], out["graph_dir"])
     assert jt.transcribe_pcm_batch([pcm], max_fuzzy_cost=1e9) == out["texts"]
     assert out["streamed"] == ["turn on the light"]
+    assert out["gmm"] == [["turn on the light"]] and out["ctc"] == "never mind"
     js = JaxTranscriber(out["synth_model_dir"], out["synth_graph_dir"])
     assert js.transcribe_pcm_batch([np.load(tmp_path / "speech.npy")]) == [out["streamed"]]

@@ -139,9 +139,11 @@ def assert_decode_bit_exact(dense, device, B=5, T=11, lengths=None, scale=0.7, s
         FrontendConfig(round_to_power_of_two=False),
         FrontendConfig(samp_freq=8000.0, num_mel_bins=23, num_ceps=13, high_freq=-200.0,
                        round_to_power_of_two=False, use_energy=True),
+        FrontendConfig(num_mel_bins=23, num_ceps=13, high_freq=0.0),
+        FrontendConfig(num_ceps=26, frame_length_ms=32.0, frame_shift_ms=20.0),
     ],
     ids=["hires", "20x20", "energy_raw", "energy_windowed", "no_snip", "8k_n256", "n400",
-         "8k_n200_energy"],
+         "8k_n200_energy", "tri1_13x23", "coqui_26x40_n512"],
 )
 def test_mfcc_kernel_matches_plain(cuda, cfg):
     rng = np.random.RandomState(1)

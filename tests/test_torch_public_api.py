@@ -2,9 +2,9 @@
 
 ``rhasspy_speech_torch`` and ``rhasspy_speech_torch.pipeline`` export every
 name the JAX package's ``__all__`` lists, less the names still to port
-(``PENDING``, each with its ROADMAP item). The transcriber and the stream
-scheduler take the reference's arguments in the reference's order, then
-``device``; ``aot_dir`` and ``save_aot`` raise ``NotImplementedError``
+(``PENDING``, each with its ROADMAP item). The transcriber, the stream
+scheduler and the Coqui transcriber take the reference's arguments in the
+reference's order, then ``device``; ``aot_dir`` and ``save_aot`` raise ``NotImplementedError``
 naming item 17, and ``aot_dir=None`` changes nothing.
 """
 
@@ -15,12 +15,14 @@ import pytest
 
 import rhasspy_speech_tpu
 import rhasspy_speech_tpu.pipeline
+from rhasspy_speech_tpu.pipeline.coqui import CoquiSttTranscriber as JaxCoqui
 from rhasspy_speech_tpu.pipeline.scheduler import StreamScheduler as JaxScheduler
 
 import rhasspy_speech_torch
 import rhasspy_speech_torch.pipeline
 from rhasspy_speech_torch.const import LangSuffix
 from rhasspy_speech_torch.pipeline import Nnet3WavTranscriber, lang_dir_name
+from rhasspy_speech_torch.pipeline.coqui import CoquiSttTranscriber
 from rhasspy_speech_torch.pipeline.scheduler import StreamScheduler
 from rhasspy_speech_torch.pipeline.train import train_model_sync
 from rhasspy_speech_torch.testing import build_synthetic_profile, synthesize_sentence
@@ -56,7 +58,8 @@ def test_version_and_public_types_equal_the_reference():
 @pytest.mark.parametrize("ours,theirs", [
     (Nnet3WavTranscriber, rhasspy_speech_tpu.Nnet3WavTranscriber),
     (StreamScheduler, JaxScheduler),
-], ids=["transcriber", "scheduler"])
+    (CoquiSttTranscriber, JaxCoqui),
+], ids=["transcriber", "scheduler", "coqui"])
 def test_signature_is_the_reference_plus_device(ours, theirs):
     want = list(inspect.signature(theirs.__init__).parameters.items())
     got = list(inspect.signature(ours.__init__).parameters.items())
