@@ -7,11 +7,13 @@ at the full width of the benchmarked model -- TDNN-F 768 x 9, 40-dim MFCC,
 seed -- over the flagship decode graph, then its n-best, silence-weighting
 and lattice paths, the windowed-relaxation entry point and the stream
 scheduler, then the two other acoustic-model families at full width (a
-Kaldi tri1 GMM system and a DeepSpeech-width Coqui STT model), and checks
-the four hand-written kernels against their plain PyTorch twins:
+Kaldi tri1 GMM system and a DeepSpeech-width Coqui STT model) and a chain
+model with Kaldi pitch features, and checks the five hand-written kernels
+against their plain PyTorch twins:
 
-1. builds ``csrc/mfcc.cu``, ``csrc/viterbi.cu``, ``csrc/windowed_relax.cu``
-   and ``csrc/path_walk.cu`` with nvcc for sm_90a, in parallel;
+1. builds ``csrc/mfcc.cu``, ``csrc/viterbi.cu``, ``csrc/windowed_relax.cu``,
+   ``csrc/path_walk.cu`` and ``csrc/pitch_viterbi.cu`` with nvcc for
+   sm_90a, in parallel;
 2. transcribes 32 seeded 3 s utterances (1-best) with the launch counters
    zeroed just before and read just after, and requires the MFCC and
    Viterbi kernels to have run;
@@ -132,7 +134,29 @@ the four hand-written kernels against their plain PyTorch twins:
    real-time factor; and the synthetic CTC profile's spelled texts decoding
    to themselves on the card, batch and streamed;
 15. checks that no module of ``jax`` or ``rhasspy_speech_tpu`` was imported
-   (the card's machine has JAX installed; the port must not reach it).
+   (the card's machine has JAX installed; the port must not reach it),
+   every module the run loaded included (the pitch modules of 16 too);
+16. Kaldi pitch features: a chain model in the layout of Kaldi's aishell
+   s5 recipe at the flagship's widths (``testing/full_width.py:
+   write_pitch_model_dir``: TDNN-F 768 x 9 over 40 MFCC + 3 pitch inputs,
+   the i-vector over the MFCCs) on the flagship graph and the same 32
+   utterances: the batch call counted (one K1, one K2 and one K5 launch),
+   transcripts and pitch columns equal to the plain twins' path, K5
+   bit-equal to its twin at [32, 296, 417] (and below at a push's [1, 196,
+   417] and the tick's [32, 196, 417]), each timed beside its bound and the
+   downsample + NCCF + interpolation; the card
+   against CPU tensors on 2 utterances (MFCC columns at K1's tolerance, at
+   most 2% of the frames taking another lag, the POV and delta columns of
+   the others within 1e-3) and on the tone and sweep fixtures (lags
+   equal); the call's stages with ``pitch`` on its own beside the
+   pitch-free call's; 8 utterances streamed (at most one K5 launch a push;
+   rows and transcripts against the same streams on CPU tensors; chunk ms
+   and RTF); the scheduler's captured device route with the pitch lane as
+   in 12 (at most one K1, K2, K4 and K5 launch a tick, replays bit-equal,
+   at least 30 of 32 transcripts equal to the single stream's and the host
+   route's, tick times), K5 bit-equal on the tick's probed windows, and one
+   voiced stream at one push a tick whose feature-ring rows equal the
+   featurizer's within the JAX package's bound (rtol 2e-2 / atol 5e-3).
 
 Each kernel's entry in the ``kernels`` line carries ``bound_ms``, the least
 time the card could take for the same work: the larger of its bytes (each
@@ -182,6 +206,7 @@ from rhasspy_speech_torch.testing.synthetic import (  # noqa: E402
 from rhasspy_speech_torch.testing.full_width import (  # noqa: E402
     TRI1_GAUSS as GMM_GAUSS,
     write_deepspeech_model_dir,
+    write_pitch_model_dir,
     write_tri1_model_dir,
 )
 from rhasspy_speech_torch.io.kaldi_io import KaldiReader  # noqa: E402
@@ -189,6 +214,21 @@ from rhasspy_speech_torch.io.transition_model import KaldiTransitionModel  # noq
 from rhasspy_speech_torch.models import gmm as gmm_mod  # noqa: E402
 from rhasspy_speech_torch.ops.deltas import add_deltas  # noqa: E402
 from rhasspy_speech_torch.pipeline.coqui import CoquiSttTranscriber  # noqa: E402
+from rhasspy_speech_torch.pipeline.transcribe import AcousticModel  # noqa: E402
+from rhasspy_speech_torch.device import cached_index  # noqa: E402
+from rhasspy_speech_torch.fst.core import SymbolTable  # noqa: E402
+from rhasspy_speech_torch.ops import pitch as pitch_mod  # noqa: E402
+from rhasspy_speech_torch.ops.pitch import (  # noqa: E402
+    make_lags,
+    pitch_batch,
+    pitch_local,
+    pitch_track,
+)
+from rhasspy_speech_torch.ops.pitch_viterbi_cuda import (  # noqa: E402
+    pitch_viterbi,
+    pitch_viterbi_torch,
+    transition_costs,
+)
 from rhasspy_speech_torch.testing.big_grammar import (  # noqa: E402
     train_big_grammar,
     write_big_grammar_model_dir,
@@ -266,7 +306,16 @@ COQUI_CHARS = sorted(set("turnonofflightstop"))
 COQUI_SENTENCES = ["turn (on|off) light", "stop"]
 COQUI_TEXTS = ["turn on light", "stop", "turn off light"]
 COQUI_PRUNE = 30.0  # synthetic char boundaries are harsher than speech (tests/test_coqui.py)
-KERNELS = ("mfcc", "viterbi", "windowed_relax", "path_walk")
+KERNELS = ("mfcc", "viterbi", "windowed_relax", "path_walk", "pitch_viterbi")
+# Pitch, card vs CPU tensors: the POV feature and the delta of frames whose
+# lags agree within 1e-3 (tests/test_torch_pitch.py's tolerance against the
+# JAX package; f32 sums in another order, the POV's 0.15 power amplifying
+# NCCF differences near 1). On the seeded noise at most 2% of the frames
+# (batch) or rows (stream) may take another lag, for near ties in a
+# 300-frame min-plus recursion: the H100 took another lag on none of 592
+# frames and 2,384 rows (PERF.md); the tone and sweep fixtures allow none
+PITCH_ATOL = 1e-3
+PITCH_LAG_SHARE = 0.02
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM, 700 W
 
 
@@ -390,9 +439,13 @@ def stage_ms(t, pcms, fuzzy):
 
     pcm, feat_lengths, lengths, n_out = t._pad_batch(pcms)
     mark("pad_upload")
-    feats = t.am.features(pcm)
+    feats = mfcc_batch(t.am.frontend_params, pcm)
     mark("mfcc")
-    extract_ivectors(feats, t.am.ivector_params, lengths=feat_lengths)
+    if t.am.pitch_config is not None:
+        feats = t.am._append_pitch(feats, pcm)
+        mark("pitch")
+    extract_ivectors(feats[..., : t.am.frontend_config.num_ceps], t.am.ivector_params,
+                     lengths=feat_lengths)
     mark("ivector_alone")
     log_probs = t.am.log_probs(feats, n_out, feat_lengths=feat_lengths)
     mark("ivector_and_am")
@@ -425,13 +478,14 @@ def build_profile(root):
 
 
 def zero_counts():
-    for fn in (mfcc_batch, viterbi_decode, windowed_relax, path_walk):
+    for fn in (mfcc_batch, viterbi_decode, windowed_relax, path_walk, pitch_viterbi):
         fn.launches = 0
 
 
 def read_counts():
     return {"mfcc": mfcc_batch.launches, "viterbi": viterbi_decode.launches,
-            "windowed_relax": windowed_relax.launches, "path_walk": path_walk.launches}
+            "windowed_relax": windowed_relax.launches, "path_walk": path_walk.launches,
+            "pitch_viterbi": pitch_viterbi.launches}
 
 
 def viterbi_phase(t, lp_k, lengths, dev):
@@ -1183,6 +1237,8 @@ def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy, min_equal=SCH
             if kind is not None and kind not in probes:
                 probes[kind] = p["viterbi"]
             probes.setdefault("pcm", p.get("mfcc"))
+            if p.get("pitch") is not None:
+                probes.setdefault("pitch", p["pitch"])
         sched._tick.probe = {}
         runner.check_next = True
 
@@ -1199,7 +1255,7 @@ def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy, min_equal=SCH
     counts = sched.kernel_launches
     checks = runner.checks[n_checks:]
     check(all(max(t[2].values()) <= 1 for t in ticks),
-          f"{name}: a tick launched more than one MFCC, Viterbi or path-walk kernel")
+          f"{name}: a tick launched more than one MFCC, Viterbi, path-walk or pitch-Viterbi kernel")
     check(all(t[3] <= 1 and t[4] <= 1 for t in ticks), f"{name}: a tick made more than one upload or download")
     check(all(v > 0 for v in counts.values()), f"{name}: kernels not launched: {counts}")
     chunk_ticks = sum(1 for t in ticks if t[1] > 0)
@@ -1775,6 +1831,268 @@ def coqui_phase(root, dev, pcms):
     ]
 
 
+def pitch_work(B, T, NL):
+    """(bytes, f32 operations) of the pitch-lag Viterbi: local costs and
+    the distance table in, states out; an add and a compare a candidate j
+    for each output i of each step."""
+    return 4 * B * T * NL + 4 * NL + 4 * B * T, 2 * B * (T - 1) * NL * NL
+
+
+def plain_pitch(fn, *args):
+    """``fn(*args)`` with ``ops.pitch`` calling the pitch-Viterbi twin: the
+    plain path, on the same device."""
+    saved = pitch_mod.pitch_viterbi
+    pitch_mod.pitch_viterbi = pitch_viterbi_torch
+    try:
+        return fn(*args)
+    finally:
+        pitch_mod.pitch_viterbi = saved
+
+
+def k5_numbers(label, cfg, pcm):
+    """K5 on the local costs of ``pcm``'s pitch tracks: bit-equal to its
+    twin, timed beside the twin, its bound and the local costs' own time
+    (downsample, NCCF, interpolation)."""
+    local, _phi = pitch_local(cfg, pcm)
+    dist = cached_index(transition_costs(local.shape[2], cfg.delta_pitch, cfg.penalty_factor),
+                        pcm.device)
+    got, want = pitch_viterbi(local, dist), pitch_viterbi_torch(local, dist)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"{label}: the pitch-Viterbi kernel differs from its twin")
+    out = {"ms": cuda_ms(lambda: pitch_viterbi(local, dist)),
+           "plain_ms": cuda_ms(lambda: pitch_viterbi_torch(local, dist), iters=3),
+           "max_abs_err": float((got - want).abs().max())}
+    out["bound_ms"], out["bound_by"] = bound(*pitch_work(*local.shape))
+    local_ms = cuda_ms(lambda: pitch_local(cfg, pcm))
+    batch_ms = cuda_ms(lambda: pitch_batch(cfg, pcm))
+    print(f"K5 pitch_viterbi {label} {list(local.shape)}: states bit-equal to the twin; kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound {out['bound_ms']:.6f} ms "
+          f"({out['bound_by']}); downsample + NCCF + interpolation {local_ms:.4f} ms; whole "
+          f"pitch_batch {batch_ms:.4f} ms (CUDA events)")
+    return out
+
+
+def lag_states(cfg, pcm):
+    """Each frame's lag index, read back from pitch_track's Hz."""
+    pitch, _nccf = pitch_track(cfg, pcm)
+    lags = torch.as_tensor(make_lags(cfg).astype(np.float32), device=pcm.device)
+    return torch.argmin((1.0 / pitch[:, :, None] - lags).abs(), dim=2)
+
+
+def pitch_batch_part(pitch_dir, graph_dir, dev, pcms, fuzzy, plain_stages):
+    """The pitch model's batch call: counted (one K1, K2 and K5 launch),
+    transcripts equal to the plain twins' path, K5 bit-equal at the batch
+    and tick shapes, the card against CPU tensors (2 utterances, the tone
+    and sweep fixtures), stages beside the pitch-free call's."""
+    t = Nnet3WavTranscriber(pitch_dir, graph_dir, device=dev)
+    cfg = t.am.pitch_config
+    C = t.am.frontend_config.num_ceps
+    in_dim = next(n.dim for n in t.am.spec.nodes if n.kind == "input" and n.name == "input")
+    check(cfg is not None and in_dim == C + 3, "the pitch model dir does not load as a pitch model")
+    for _ in range(2):
+        t.transcribe_pcm_batch(pcms, **fuzzy)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.time()
+    texts = t.transcribe_pcm_batch(pcms, **fuzzy)
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1000.0
+    launches = read_counts()
+    check(launches["mfcc"] == 1 and launches["viterbi"] == 1 and launches["pitch_viterbi"] == 1,
+          f"pitch batch call launches {launches}: expected one K1, one K2 and one K5")
+    check(len(texts) == BATCH and all(len(x) == 1 for x in texts), f"pitch transcripts {texts[:3]}")
+    print(f"pitch batch: {BATCH} x {SECONDS} s in {wall_ms:.1f} ms; launches {launches}")
+
+    # -- the same batch through the plain twins on the card -------------------
+    pcm, feat_lengths, lengths, n_out = t._pad_batch(pcms)
+    feats_plain = plain_pitch(t.am._append_pitch, mfcc_batch_torch(t.am.frontend_params, pcm), pcm)
+    lp_plain = t.am.log_probs(feats_plain, n_out, feat_lengths=feat_lengths)
+    res = twin_decoder.viterbi_decode(t.device_graph, lp_plain, t.acoustic_scale, lengths)
+    words = twin_decoder.traces_to_words_batch(t.artifacts.graph, *[r.cpu().numpy() for r in res])
+    plain_texts = t._texts([[] if w is None else [(w, c)] for w, c in words], None,
+                           require_fuzzy=False, **fuzzy)
+    check(plain_texts == texts, "pitch: transcripts differ between the kernels and the plain twins")
+    feats = t.am.features(pcm)
+    check(feats.shape[2] == C + 3 and torch.equal(feats[..., C:], feats_plain[..., C:]),
+          "pitch: the kernel's pitch columns differ from the twin's")
+    print(f"pitch batch: transcripts equal to the plain twins' path; pitch columns {list(feats.shape)} "
+          f"bit-equal; first: {texts[0]}")
+
+    # -- K5 at the batch's shape (the tick's is held in the scheduler part) ---
+    k5 = k5_numbers("batch", cfg, pcm)
+
+    # -- the card against CPU tensors ------------------------------------------
+    am_cpu = AcousticModel(pitch_dir, device="cpu")
+    two = pcm[:2]
+    f_dev, f_cpu = t.am.features(two).cpu(), am_cpu.features(two.cpu())
+    s_dev, s_cpu = lag_states(cfg, two).cpu(), lag_states(cfg, two.cpu())
+    same = s_dev == s_cpu
+    err_mfcc = float((f_dev[..., :C] - f_cpu[..., :C]).abs().max())
+    check(torch.allclose(f_dev[..., :C], f_cpu[..., :C], rtol=MFCC_RTOL, atol=MFCC_ATOL),
+          f"pitch: MFCC columns card vs CPU max |d| {err_mfcc}")
+    share = 1.0 - float(same.float().mean())
+    check(share <= PITCH_LAG_SHARE, f"pitch: {share:.3f} of the frames take another lag on the card")
+    # per-frame columns (POV feature, delta) on frames whose lag and whose
+    # neighbours' lags agree (the delta spans +-2 frames)
+    Tp = s_dev.shape[1]
+    pf_dev, pf_cpu = pitch_batch(cfg, two), pitch_batch(cfg, two.cpu())
+    ok = same.clone()
+    for d in (-2, -1, 1, 2):
+        ok &= same[:, (torch.arange(Tp) + d).clamp(0, Tp - 1)]
+    err_pitch = float((pf_dev.cpu()[ok][:, [0, 2]] - pf_cpu[ok][:, [0, 2]]).abs().max())
+    check(err_pitch <= PITCH_ATOL, f"pitch: POV / delta columns card vs CPU max |d| {err_pitch}")
+    print(f"pitch card vs CPU tensors on 2 utterances: MFCC columns max |d| {err_mfcc:.3e}; "
+          f"{share * 100:.2f}% of {same.numel()} frames take another lag; POV and delta columns on "
+          f"the frames whose lags agree max |d| {err_pitch:.3e} (atol {PITCH_ATOL})")
+    t_ = np.arange(16000) / 16000.0
+    fixtures = [0.5 * np.sin(2 * np.pi * f0 * t_) for f0 in (80.0, 120.0, 200.0, 333.0)]
+    f0 = 100.0 * np.exp(np.log(3.0) * t_)
+    fixtures.append(0.5 * np.sin(2 * np.pi * np.cumsum(f0) / 16000.0))
+    fx = torch.as_tensor(np.stack(fixtures).astype(np.float32))
+    check(torch.equal(lag_states(cfg, fx.to(dev)).cpu(), lag_states(cfg, fx)),
+          "pitch: the card's lags differ from the CPU's on the tone and sweep fixtures")
+    print("pitch: lags on the tone (80-333 Hz) and sweep (100 -> 300 Hz) fixtures equal the CPU's")
+
+    stages = stage_ms(t, pcms, fuzzy)
+    print(f"pitch batch stages (ms, host clock, synchronized): {stages}; the pitch-free flagship "
+          f"call's: {plain_stages}")
+    return launches, k5
+
+
+def pitch_stream_part(pitch_dir, graph_dir, dev, pcms, fuzzy):
+    """8 utterances streamed in STREAM_CHUNK pushes: at most one K5 launch
+    a push, rows and transcripts against the same streams on CPU tensors;
+    chunk ms and RTF; K5 at a push's shape. Returns (one utterance's
+    launches, K5's numbers)."""
+    utts = pcms[:STREAMS]
+    st = Nnet3StreamTranscriber(pitch_dir, graph_dir, device=dev)
+    stc = Nnet3StreamTranscriber(pitch_dir, graph_dir, device="cpu")
+    C = st.am.frontend_config.num_ceps
+    stream_pcm(st, utts[0], **fuzzy)  # warm-up
+    texts, rows_err, lag_rows, n_rows = [], 0.0, 0, 0
+    for i, pcm in enumerate(utts):
+        pitch_viterbi.launches = 0
+        k0 = (mfcc_batch.launches, viterbi_decode.launches)
+        got, state, pushes = stream_pcm(st, pcm, **fuzzy)
+        torch.cuda.synchronize()
+        check(pitch_viterbi.launches <= pushes + 1 and mfcc_batch.launches - k0[0] == pushes,
+              f"pitch stream {i}: {pitch_viterbi.launches} K5 launches for {pushes} pushes")
+        if i == 0:
+            counts = {"mfcc": mfcc_batch.launches - k0[0], "viterbi": viterbi_decode.launches - k0[1],
+                      "pitch_viterbi": pitch_viterbi.launches}
+        want, cstate, _ = stream_pcm(stc, pcm, **fuzzy)
+        check(got == want, f"pitch stream {i}: {got} on the card, {want} on CPU tensors")
+        check(state.feats.shape == cstate.feats.shape, f"pitch stream {i}: row counts differ")
+        check(np.allclose(state.feats[:, :C], cstate.feats[:, :C], rtol=MFCC_RTOL, atol=MFCC_ATOL),
+              f"pitch stream {i}: MFCC columns differ from the CPU's")
+        d = np.abs(state.feats[:, C:] - cstate.feats[:, C:]).max(axis=1)
+        lag_rows += int((d > PITCH_ATOL).sum())
+        n_rows += d.shape[0]
+        rows_err = max(rows_err, float(d[d <= PITCH_ATOL].max(initial=0.0)))
+        texts.append(got)
+    check(lag_rows <= PITCH_LAG_SHARE * n_rows,
+          f"pitch streams: {lag_rows} of {n_rows} rows' pitch columns differ past {PITCH_ATOL}")
+    stage_s = {}
+    names = ("_extract_feats", "_upload", "_fold_ivector", "_acoustic", "_decode_chunk", "_download")
+    for name in names:
+        setattr(st, name, timed_stage(getattr(st, name), stage_s, name.lstrip("_")))
+    _t, state, pushes = stream_pcm(st, utts[-1], **fuzzy)
+    for name in names:
+        delattr(st, name)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st.transcribe_pcm(utts[-1], chunk_samples=STREAM_CHUNK, **fuzzy)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    feats_ms = stage_s.pop("extract_feats") * 1000.0 / pushes
+    stages = {k: round(v * 1000.0 / len(state.bps), 4) for k, v in stage_s.items()}
+    print(f"pitch streams: {STREAMS} x {SECONDS} s in {STREAM_CHUNK}-sample pushes; one utterance's "
+          f"launches {counts} for {-(-utts[0].shape[0] // STREAM_CHUNK)} pushes; transcripts equal "
+          f"the same streams on CPU tensors ({texts[0]}); MFCC columns within rtol {MFCC_RTOL} / "
+          f"atol {MFCC_ATOL}; {lag_rows} of {n_rows} rows' pitch columns past atol {PITCH_ATOL} (a "
+          f"lag taken differently), the rest max |d| {rows_err:.3e}; a push's features (K1 + K5 "
+          f"window) {feats_ms:.4f} ms; chunk stages (ms a chunk, synchronized) {stages}; one "
+          f"{SECONDS} s stream {min(walls) * 1000:.1f} ms (min of 3; real-time factor "
+          f"{min(walls) / SECONDS:.5f})")
+    window = torch.as_tensor(utts[0][None, : st._featurizer.pitch_window], device=dev)
+    return counts, k5_numbers("push", st.am.pitch_config, window)
+
+
+def pitch_ring_check(sched, dev):
+    """One voiced stream at one push a tick: the device feature ring's rows
+    (MFCC and the pitch lane's columns) against the featurizer's own rows
+    on the card, within the JAX package's bound for the same comparison
+    (rtol 2e-2 / atol 5e-3, tests/test_stream_ivector.py)."""
+    n = int(16000 * SECONDS)
+    tt = np.arange(n) / 16000.0
+    phase = 2 * np.pi * np.cumsum(110.0 + 70.0 * tt / tt[-1]) / 16000.0
+    pcm = (3000 * np.sin(phase) + 1500 * np.sin(2 * phase)
+           + 200 * np.random.RandomState(SEED + 5).randn(n)).astype(np.float32)
+    fz = sched._featurizer
+    hs = fz.new_state()
+    host = []
+    sid = sched.open_stream()
+    for off in range(0, n, STREAM_CHUNK):
+        chunk = pcm[off : off + STREAM_CHUNK]
+        check(sched.feed(sid, chunk) == chunk.shape[0], "the ring check's push was refused")
+        sched.step()
+        host.append(fz.push(hs, chunk))
+    sched.finish(sid)
+    host.append(fz.push(hs, np.zeros(0, np.float32), flush=True))
+    for _ in range(200):
+        if sched.poll(sid) is not None:
+            break
+        sched.step()
+    want = np.concatenate([r for r in host if r.shape[0]])
+    got = sched._feats_ring[sid, : want.shape[0]].cpu().numpy()
+    sched.close(sid)
+    err = np.abs(got - want).max(axis=0)
+    check(np.allclose(got, want, rtol=2e-2, atol=5e-3),
+          f"pitch: the feature ring's rows differ from the featurizer's: max |d| by column {err}")
+    print(f"pitch lane: {want.shape[0]} feature-ring rows of one voiced stream at one push a tick "
+          f"equal the featurizer's within rtol 2e-2 / atol 5e-3 (max |d| MFCC {err[:-3].max():.3e}, "
+          f"pitch columns {err[-3:].tolist()})")
+
+
+def pitch_phase(root, model_dir, graph_dir, graph, dev, pcms, fuzzy, plain_stages):
+    """Phase 16: the pitch model (testing/full_width.write_pitch_model_dir,
+    TDNN-F 768 x 9 over 43 inputs) on the flagship graph: batch, stream and
+    the scheduler's captured device route. Returns the kernels-line
+    entries."""
+    t0 = time.time()
+    with open(os.path.join(model_dir, "model", "phones.txt"), encoding="utf-8") as f:
+        phones = SymbolTable.read_text(f)
+    max_phone = max(pid for (p, pid) in phones if pid != 0 and not p.startswith("#"))
+    pitch_dir = write_pitch_model_dir(
+        os.path.join(root, "pitch_model"), num_pdfs=graph.num_pdfs, max_phone=max_phone,
+        hidden_dim=HIDDEN, num_tdnnf_layers=LAYERS, ivector_dim=IVEC_DIM, ubm_gauss=UBM_GAUSS,
+        seed=SEED + 11,
+    )
+    shutil.copy(os.path.join(model_dir, "model", "phones.txt"), os.path.join(pitch_dir, "model"))
+    print(f"pitch model dir (TDNN-F {HIDDEN}x{LAYERS} over 40 MFCC + 3 pitch, ivector {IVEC_DIM} "
+          f"over the MFCCs) written in {time.time() - t0:.1f} s")
+    launches, k5 = pitch_batch_part(pitch_dir, graph_dir, dev, pcms, fuzzy, plain_stages)
+    stream_counts, k5_push = pitch_stream_part(pitch_dir, graph_dir, dev, pcms, fuzzy)
+    counts, probes, sched = sched_graph_part("pitch flagship", pitch_dir, graph_dir, dev, pcms, fuzzy)
+    check(sched._pitch_device and counts.get("pitch_viterbi", 0) > 0,
+          f"pitch: the scheduler has no pitch lane on the card ({counts})")
+    check("pitch" in probes, "pitch: no tick probed the pitch lane's windows")
+    cfg = sched.am.pitch_config
+    k5_tick = k5_numbers("tick", cfg, probes["pitch"])
+    pitch_ring_check(sched, dev)
+    del sched, probes
+    entry = {"route": "cuda", "source": "rhasspy_speech_torch/csrc/pitch_viterbi.cu",
+             "replaces": "rhasspy_speech_tpu/ops/pitch.py:255", "library_ms": None}
+    return [
+        {"name": "pitch_viterbi", "launches": launches["pitch_viterbi"], **entry, **k5},
+        {"name": "pitch_viterbi_stream_push", "launches": stream_counts["pitch_viterbi"], **entry,
+         **k5_push},
+        {"name": "pitch_viterbi_sched_tick", "launches": counts["pitch_viterbi"], **entry, **k5_tick},
+    ]
+
+
 def main():
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -1819,7 +2137,8 @@ def main():
         check(launches["mfcc"] > 0 and launches["viterbi"] > 0, f"kernels not launched: {launches}")
         check(len(main_texts) == BATCH and all(len(x) == 1 for x in main_texts),
               f"expected one transcript per utterance, got {main_texts[:3]}")
-        print(f"main path stages (ms, host clock, synchronized): {stage_ms(t, pcms, fuzzy)}")
+        main_stages = stage_ms(t, pcms, fuzzy)
+        print(f"main path stages (ms, host clock, synchronized): {main_stages}")
 
         # -- the same batch through the plain twins on the card ---------------
         pcm, feat_lengths, lengths, n_out = t._pad_batch(pcms)
@@ -1886,12 +2205,16 @@ def main():
         gmm_entries = gmm_phase(root, model_dir, graph_dir, big_dirs, dev, pcms, fuzzy)
         coqui_entries = coqui_phase(root, dev, pcms)
 
+        # -- Kaldi pitch features (K5) on the batch, stream and scheduler
+        # routes ------------------------------------------------------------
+        pitch_entries = pitch_phase(root, model_dir, graph_dir, graph, dev, pcms, fuzzy, main_stages)
+
     # -- K3: the windowed relaxation's entry point ----------------------------
     k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = windowed_relax_phase(dev)
 
     # no single PyTorch call computes Kaldi's MFCC, a Viterbi pass, the
-    # windowed relaxation or a backpointer walk: library_ms is null for all
-    # four. The two "stream" entries are K1 and K2 at the streaming path's
+    # windowed relaxation, a backpointer walk or a pitch-lag Viterbi:
+    # library_ms is null for all five. The two "stream" entries are K1 and K2 at the streaming path's
     # shapes (a push, a 7-frame chunk with a carried alpha), their launches
     # counted over one streamed utterance; the two "sched_tick" entries at
     # the scheduler tick's ([32, L] PCM; [32, 7, P] with alpha0 and a length
@@ -1902,6 +2225,11 @@ def main():
     # entries are K1, K2 and K4 on the GMM family's batch call and
     # scheduler run, the "deepspeech" entries K1 at the Coqui frontend's
     # shapes (an utterance, a push), each counted over its own path's run.
+    # The "pitch_viterbi" entries are K5 (no TPU kernel either: it stands in
+    # for pitch_track's XLA scans) on the pitch model's batch call ([32,
+    # 296, 417]), on a push's 2 s window ([1, 196, 417]; its launches one
+    # streamed utterance's) and on the tick's probed windows ([32, 196,
+    # 417]; its launches the scheduler's count).
     kernels = [
         {"name": "mfcc", "route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
          "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122",
@@ -1937,6 +2265,7 @@ def main():
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
         *gmm_entries,
         *coqui_entries,
+        *pitch_entries,
     ]
     loaded = sorted(m for m in sys.modules if m.partition(".")[0] in ("jax", "jaxlib", "rhasspy_speech_tpu"))
     check(not loaded, f"the port imported JAX or the JAX package: {loaded[:5]}")

@@ -8,14 +8,17 @@ alpha ``[N, S]``, the backpointer ring ``[N, F + chunk, S]`` (uint16
 ``bp + 3`` bits: 0 no frame, 2 dead, arc + 3), its write offsets, the
 i-vector statistics and carried tap window, the silence weights, and on the
 fused route the feature ring ``[N, FT, D]`` with its cumulative-sum twin for
-the i-vector CMVN. A tick's bodies update it in place:
+the i-vector CMVN, and for a pitch model a PCM history ring. A tick's bodies
+update it in place:
 
 - ``body_fused``: one ``pcm_meta`` upload ``[N, L + 16]`` (PCM and seven
-  int32 slot scalars as 16-bit halves) -> one MFCC launch writing the new
-  rows into the feature rings -> AM windows gathered from the ring -> reset
-  of reopened slots -> i-vector fold -> chunk AM -> one Viterbi launch with
-  the carried alpha -> silence weights -> ring write -> one path-walk
-  launch, whose packed row ``[N, F + 8]`` is the tick's only download;
+  int32 slot scalars as 16-bit halves; ``[N, L + 24]`` and ten scalars for a
+  pitch model) -> one MFCC launch writing the new rows into the feature
+  rings -> for a pitch model, the pitch lane (``feed_pitch``: one
+  pitch-Viterbi launch) -> AM windows gathered from the ring -> reset of
+  reopened slots -> i-vector fold -> chunk AM -> one Viterbi launch with the
+  carried alpha -> silence weights -> ring write -> one path-walk launch,
+  whose packed row ``[N, F + 8]`` is the tick's only download;
 - ``body_feed``: the feature rings only (a tick with audio and no chunk);
 - ``body_chunk``: the chunk step on windows the host assembled (a model
   whose features stay on the host: ``snip_edges=false``, or an i-vector tap
@@ -46,18 +49,22 @@ from ..ops import decoder as plain_decoder
 from ..ops.ivector import solve_ivector, window_stats
 from ..ops.mfcc_cuda import mfcc_batch
 from ..ops.path_walk_cuda import path_walk, walk_start
+from ..ops.pitch import PitchConfig, num_pitch_frames, pitch_batch, pitch_tables
+from ..ops.pitch_viterbi_cuda import pitch_viterbi
 from ..ops.viterbi_cuda import viterbi_decode
 
-# trailing int16 / f32 columns of the pcm_meta upload: 8 int32 slots as
-# lo / hi 16-bit halves (7 used: n_valid, reset, t0, have, feature-ring
-# write offset, has new audio, pending i-vector frames)
-META_COLS = 16
-KERNELS = ("mfcc", "viterbi", "path_walk")
+# trailing int16 / f32 columns of the pcm_meta upload: 12 int32 slots as
+# lo / hi 16-bit halves (10 used: n_valid, reset, t0, have, feature-ring
+# write offset, has new audio, pending i-vector frames, and for the pitch
+# lane the window's start sample, the pitch frames already final and the
+# flush flag; zero without a pitch lane)
+META_COLS = 24
+KERNELS = ("mfcc", "viterbi", "path_walk", "pitch_viterbi")
 
 
 def kernel_counts() -> Dict[str, int]:
     return {"mfcc": mfcc_batch.launches, "viterbi": viterbi_decode.launches,
-            "path_walk": path_walk.launches}
+            "path_walk": path_walk.launches, "pitch_viterbi": pitch_viterbi.launches}
 
 
 @dataclass
@@ -75,6 +82,7 @@ class TickState:
     sw_w: torch.Tensor  # [N, chunk_in] f32: next fold's silence weights
     feats_ring: torch.Tensor  # [N, FT, D] f32
     cum_ring: torch.Tensor  # [N, FT, C] f32: cumulative feature sums
+    pcm_ring: torch.Tensor  # [N, Wp + R] f32: sample s at s + Wp (pitch)
 
     def clone(self) -> "TickState":
         return TickState(**{f.name: getattr(self, f.name).clone()
@@ -105,6 +113,8 @@ class TickConfig:
     cmvn_window: int
     cmvn_g_count: float
     cmvn_g_cap: float
+    pitch: Optional[PitchConfig] = None  # the pitch lane runs when set
+    pitch_window: int = 0  # Wp: samples of the sliding pitch window
 
 
 class DeviceTick:
@@ -124,6 +134,12 @@ class DeviceTick:
         self.cmvn_g_sum = cmvn_g_sum
         dev = graph.device
         self.lanes = torch.arange(cfg.N, device=dev)
+        if cfg.pitch is not None:
+            self.pitch_frames = num_pitch_frames(cfg.pitch, cfg.pitch_window)
+            # the pitch lane's constant tensors, held here: a captured tick
+            # reads them by address, whatever later evicts them from the
+            # shared table cache
+            self.pitch_tables = pitch_tables(cfg.pitch, cfg.pitch_window, dev)
         # filled by an eager run while set: each kernel's inputs at the
         # tick's shapes (chip_smoke.py times the kernels on them)
         self.probe: Optional[dict] = None
@@ -132,42 +148,91 @@ class DeviceTick:
 
     @staticmethod
     def unpack(pcm_meta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[N, L + META_COLS] int16 or f32 -> (PCM [N, L] f32, meta [N, 8]
-        int32)."""
+        """[N, L + META_COLS] int16 or f32 -> (PCM [N, L] f32, meta [N, 12]
+        int32; negative scalars round-trip)."""
         enc = pcm_meta[:, -META_COLS:].to(torch.int64)
-        meta = ((enc[:, 0::2] & 0xFFFF) | ((enc[:, 1::2] & 0xFFFF) << 16)).to(torch.int32)
+        meta = (enc[:, 0::2] & 0xFFFF) | ((enc[:, 1::2] & 0xFFFF) << 16)
+        meta = torch.where(meta >= 1 << 31, meta - (1 << 32), meta).to(torch.int32)
         return pcm_meta[:, :-META_COLS].to(torch.float32), meta
 
-    def _ring_write(self, ring: torch.Tensor, rows: torch.Tensor, counts: torch.Tensor,
-                    has_new: torch.Tensor) -> None:
-        """rows [N, Lf, D] into ring [N, FT, D] at each slot's ``counts``
-        where ``has_new``; other slots keep their rows."""
+    def _ring_write(self, ring: torch.Tensor, rows: torch.Tensor, at: torch.Tensor,
+                    mask: torch.Tensor, col: int = 0) -> None:
+        """rows [N, L, k] into ring [N, FT, D] at rows ``at`` [N, L] int64,
+        columns ``col .. col + k``, where ``mask``; other slots, and the
+        other columns, keep their values."""
         N, FT, D = ring.shape
-        Lf = rows.shape[1]
-        at = (counts.to(torch.int64)[:, None]
-              + torch.arange(Lf, device=ring.device)[None, :]).clamp(max=FT - 1)
+        L, k = rows.shape[1], rows.shape[2]
         flat = (self.lanes[:, None] * FT + at).reshape(-1)
         view = ring.view(N * FT, D)
-        cur = view.index_select(0, flat).view(N, Lf, D)
-        view.index_copy_(0, flat, torch.where(has_new[:, None, None], rows, cur).reshape(N * Lf, D))
+        cur = view.index_select(0, flat).view(N, L, D)
+        new = rows if k == D else torch.cat([cur[..., :col], rows, cur[..., col + k:]], dim=-1)
+        view.index_copy_(0, flat, torch.where(mask[:, None, None], new, cur).reshape(N * L, D))
 
-    def feed_feats(self, st: TickState, pcm: torch.Tensor, counts: torch.Tensor,
-                   has_new: torch.Tensor) -> None:
-        """One MFCC launch over the tick's PCM; each slot's new rows go to
-        its feature ring (and their running sums to the cumulative ring) at
-        its frame count. Rows past a slot's real frames are scratch that a
-        later write overwrites; reads clamp to the real count."""
-        if pcm.shape[1] == 0:
-            return
+    def feed_feats(self, st: TickState, pcm: torch.Tensor, meta: torch.Tensor) -> None:
+        """One MFCC launch over the tick's PCM; each slot with new audio
+        (meta column 5) gets its new rows in its feature ring's MFCC columns
+        (and their running sums in the cumulative ring) at its frame count
+        (column 4). Rows past a slot's real frames are scratch that a later
+        write overwrites; reads clamp to the real count. A pitch model's
+        pitch lane runs after, also on a tick with no audio: a flush
+        completes a finished slot's pitch rows."""
+        counts, has_new = meta[:, 4], meta[:, 5] != 0
+        if pcm.shape[1] > 0:
+            if self.probe is not None:
+                self.probe["mfcc"] = pcm.clone()
+            rows = mfcc_batch(self.stream_params, pcm)  # [N, Lf, C]
+            FT = st.feats_ring.shape[1]
+            at = (counts.to(torch.int64)[:, None]
+                  + torch.arange(rows.shape[1], device=pcm.device)[None, :]).clamp(max=FT - 1)
+            self._ring_write(st.feats_ring, rows, at, has_new)
+            if self.cfg.cmvn_device:
+                last = st.cum_ring[self.lanes, (counts.to(torch.int64) - 1).clamp_min(0)]
+                prev = torch.where((counts > 0)[:, None], last, 0.0)
+                self._ring_write(st.cum_ring, prev[:, None, :] + torch.cumsum(rows, dim=1),
+                                 at, has_new)
+        if self.cfg.pitch is not None:
+            self.feed_pitch(st, pcm, meta)
+
+    def feed_pitch(self, st: TickState, pcm: torch.Tensor, meta: torch.Tensor) -> None:
+        """The pitch lane (the reference's ``feed_pitch``): the tick's PCM
+        into each slot's history ring at its buffer's first sample, ONE
+        sliding window a slot ending at its window start (meta column 7)
+        plus ``Wp`` -> one ``pitch_batch`` over ``[N, Wp]`` (one
+        pitch-Viterbi launch) -> a block of ``t_w`` rows into the feature
+        ring's 3 pitch columns from the slot's pitch-done frame (column 8).
+        Window rows past the newest repeat it: scratch for a live slot (the
+        next, overlapping block rewrites them before the matched count lets
+        the AM read them), and the flush semantics for a finished one
+        (column 9), as the host featurizer repeats its last pitch row. Start
+        indices clamp as ``jax.lax.dynamic_update_slice`` clamps them."""
+        cfg = self.cfg
+        Wp, t_w = cfg.pitch_window, self.pitch_frames
+        shift = self.stream_params.cfg.frame_shift
+        dev = meta.device
+        a_samp = meta[:, 7].to(torch.int64)
+        pdone = meta[:, 8].to(torch.int64)
+        pflush = meta[:, 9] != 0
+        ring = st.pcm_ring
+        R = ring.shape[1]
+        if pcm.shape[1] > 0:
+            L = pcm.shape[1]
+            start = (meta[:, 4].to(torch.int64) * shift + Wp).clamp(0, R - L)
+            at = start[:, None] + torch.arange(L, device=dev)[None, :]
+            cur = torch.gather(ring, 1, at)
+            ring.scatter_(1, at, torch.where((meta[:, 5] != 0)[:, None], pcm, cur))
+        w_at = (a_samp + Wp).clamp(0, R - Wp)[:, None] + torch.arange(Wp, device=dev)[None, :]
+        win = torch.gather(ring, 1, w_at)
         if self.probe is not None:
-            self.probe["mfcc"] = pcm.clone()
-        rows = mfcc_batch(self.stream_params, pcm)  # [N, Lf, C]
-        self._ring_write(st.feats_ring, rows, counts, has_new)
-        if self.cfg.cmvn_device:
-            last = st.cum_ring[self.lanes, (counts.to(torch.int64) - 1).clamp_min(0)]
-            prev = torch.where((counts > 0)[:, None], last, 0.0)
-            self._ring_write(st.cum_ring, prev[:, None, :] + torch.cumsum(rows, dim=1),
-                             counts, has_new)
+            self.probe["pitch"] = win.clone()
+        rows3 = pitch_batch(cfg.pitch, win, self.pitch_tables)  # [N, t_w, 3]
+        a_frames = torch.div(a_samp, shift, rounding_mode="floor")
+        arange_t = torch.arange(t_w, device=dev)[None, :]
+        idx = ((pdone - a_frames)[:, None] + arange_t).clamp(0, t_w - 1)
+        sel = torch.gather(rows3, 1, idx[:, :, None].expand(-1, -1, 3))
+        wmask = (a_frames + t_w > pdone) | pflush
+        FT = st.feats_ring.shape[1]
+        at = pdone.clamp(0, FT - t_w)[:, None] + arange_t
+        self._ring_write(st.feats_ring, sel, at, wmask, col=cfg.num_ceps)
 
     def gather_windows(self, st: TickState, t0s: torch.Tensor, haves: torch.Tensor) -> torch.Tensor:
         """AM windows [N, W, D] from the feature ring, edge-clamped as the
@@ -300,7 +365,7 @@ class DeviceTick:
     def body_fused(self, st: TickState, pcm_meta: torch.Tensor) -> None:
         pcm, meta = self.unpack(pcm_meta)
         n_valid, reset, t0s, haves = meta[:, 0], meta[:, 1] != 0, meta[:, 2], meta[:, 3]
-        self.feed_feats(st, pcm, meta[:, 4], meta[:, 5] != 0)
+        self.feed_feats(st, pcm, meta)
         iv_ws = (torch.arange(self.cfg.chunk_in, device=meta.device)[None, :]
                  < meta[:, 6:7]).to(torch.float32)
         windows = self.gather_windows(st, t0s, haves)
@@ -308,7 +373,7 @@ class DeviceTick:
 
     def body_feed(self, st: TickState, pcm_meta: torch.Tensor) -> None:
         pcm, meta = self.unpack(pcm_meta)
-        self.feed_feats(st, pcm, meta[:, 4], meta[:, 5] != 0)
+        self.feed_feats(st, pcm, meta)
 
     def body_chunk(self, st: TickState, windows: torch.Tensor, meta: torch.Tensor,
                    iv_ws: torch.Tensor, iv_wins: Optional[torch.Tensor] = None) -> None:

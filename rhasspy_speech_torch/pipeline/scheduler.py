@@ -62,9 +62,20 @@ A GMM model's chunk model is ``models.gmm.GmmChunkModel`` (deltas over
 the window's +-4 context frames, the per-pdf log-likelihoods, no i-vector,
 subsampling 1); it takes either route by the same rule.
 
-The ``mulaw`` / ``adpcm`` wires and ``mesh`` (item 16), a bfloat16 AM and
-recurrent plans (item 4) and pitch features (item 14) raise
-``NotImplementedError``.
+**Pitch.** A pitch model's rows pair each MFCC row with 3 pitch columns,
+as the reference pairs them. On the host route (and on the device route
+with host features) the featurizer keeps them: one batched pitch call a
+tick (``_drain_pitch_all``: ``[n, Wp]`` windows of the slots with unpaired
+MFCC rows, one pitch-Viterbi launch on a card), and the finish-time flush
+repeats the last pitch row over the MFCC tail. On the fused route
+(``_pitch_device``, the reference's rule) the tick's pitch lane
+(``device_tick.DeviceTick.feed_pitch``) keeps a PCM history ring a slot,
+computes one sliding window a slot (one launch a tick) and writes the new
+rows into the feature ring's pitch columns; the ready loop reads only rows
+whose pitch is written (``_plan_pitch``).
+
+The ``mulaw`` / ``adpcm`` wires and ``mesh`` (item 16), and a bfloat16 AM
+and recurrent plans (item 4) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -88,10 +99,19 @@ from ..ops.decoder import _COMPACT_BP_MAX_ARC, DecodeGraph, backtrace_words
 from ..ops.ivector import solve_ivector, window_stats
 from ..ops.mfcc_cuda import mfcc_batch
 from ..ops.path_walk_cuda import PACKED_STAT_COLS
+from ..ops.pitch import num_pitch_frames, pitch_batch
 from ..ops.viterbi_cuda import kernel_states, viterbi_decode
 from ..utils.metrics import StageTimer, get_metrics
 from .artifacts import LangArtifacts
-from .device_tick import META_COLS, DeviceTick, PackedFetch, TickConfig, TickRunner, TickState
+from .device_tick import (
+    KERNELS,
+    META_COLS,
+    DeviceTick,
+    PackedFetch,
+    TickConfig,
+    TickRunner,
+    TickState,
+)
 from .endpoint import EndpointConfig, silence_pdfs_from_model, trailing_silence_frames
 from .fuzzy import get_fuzzy_text
 from .streaming_features import (
@@ -183,7 +203,7 @@ class StreamScheduler:
             raise ValueError(f"wire must be 'i16', 'mulaw' or 'adpcm', got {wire!r}")
         self.device = resolve_device(device)
         self._chunk_out = int(chunk_out_frames)
-        # raises for bf16 (item 4) and pitch (item 14) models
+        # raises for a bf16 AM (item 4)
         self.am = AcousticModel(Path(model_dir), compute_dtype=compute_dtype, device=self.device)
         self.artifacts = LangArtifacts.load(graph_dir)
         if self.artifacts.graph is None:
@@ -301,7 +321,22 @@ class StreamScheduler:
             and self._featurizer.snip  # snip_edges=false: host featurizer
             and (ivp is None or self._iv_inline)
         )
-        self._pitch_device = False  # pitch raises (item 14)
+        # The pitch lane on the device (the reference's rule): one drain
+        # must never advance the window past the rows one block write
+        # covers; else the features stay on the host
+        self._pitch_device = False
+        fz = self._featurizer
+        if self._device_feats and fz.has_pitch:
+            t_w = num_pitch_frames(self.am.pitch_config, fz.pitch_window)
+            if t_w >= 2 and self._drain_cap <= (t_w - 1) * fz.frame_shift:
+                self._pitch_device = True
+                self._pitch_t_w = t_w
+            else:
+                _LOGGER.warning(
+                    "pitch window too short for the drain cap (t_w=%d, cap=%d); pitch "
+                    "rides the host feature path", t_w, self._drain_cap,
+                )
+                self._device_feats = False
         cfg = self.am.frontend_config
         # slack past the valid rows covers the largest bucket's scratch rows
         scratch_rows = 1 + max(0, (self._drain_cap - cfg.frame_length) // cfg.frame_shift)
@@ -315,7 +350,8 @@ class StreamScheduler:
         N, dev, g = self.max_streams, self.device, self.device_graph
         ivp = self._ivp
         cfg = self.am.frontend_config
-        C, D = cfg.num_ceps, self._featurizer.feat_dim
+        fz = self._featurizer
+        C, D = cfg.num_ceps, fz.feat_dim
         # the tap window is cut on the device; CMVN'd from the cumulative
         # ring, which only the fused route keeps (else the host stages it)
         self._iv_carry_device = self._iv_inline and (
@@ -346,6 +382,13 @@ class StreamScheduler:
                   else zeros((N, 1))),
             feats_ring=zeros((N, self._feat_ring_frames, D) if self._device_feats else (N, 1, 1)),
             cum_ring=zeros((N, self._feat_ring_frames, C) if cmvn_device else (N, 1, 1)),
+            # sample s of a slot at s + Wp (the window of a stream's start
+            # reads the leading zeros); room for every feature-ring frame's
+            # samples plus the largest PCM bucket
+            pcm_ring=zeros(
+                (N, fz.pitch_window + self._feat_ring_frames * fz.frame_shift + self._drain_cap)
+                if self._pitch_device else (N, 1)
+            ),
         )
         # the reference's names for the state the tick updates in place
         st = self._st
@@ -376,6 +419,8 @@ class StreamScheduler:
             splice_left=ivp.splice_left if ivp is not None else 0,
             splice_right=ivp.splice_right if ivp is not None else 0,
             cmvn_window=window, cmvn_g_count=float(g_count), cmvn_g_cap=g_cap,
+            pitch=self.am.pitch_config if self._pitch_device else None,
+            pitch_window=fz.pitch_window if self._pitch_device else 0,
         )
         self._tick = DeviceTick(
             tick_cfg, g, self._chunk_model, ivp,
@@ -388,6 +433,11 @@ class StreamScheduler:
         self._runner = TickRunner(dev)
         self._feat_counts = np.zeros(N, dtype=np.int32)
         self._iv_pending_n = np.zeros(N, dtype=np.int32)
+        # the pitch lane's bookkeeping: samples in a slot's PCM ring, pitch
+        # frames already final, and this tick's plan (_plan_pitch)
+        self._pcm_total = np.zeros(N, dtype=np.int64)
+        self._pitch_done = np.zeros(N, dtype=np.int64)
+        self._pitch_plan = None
         self._fin_snap: Optional[np.ndarray] = None
         # per tick (packed fetch, slot gens, out_frames), oldest first
         self._ep_stats_pending: "collections.deque" = collections.deque()
@@ -399,10 +449,12 @@ class StreamScheduler:
     @property
     def kernel_launches(self) -> Dict[str, int]:
         """Kernel launches the device route's ticks made (captured launches
-        times replays); all zero on the host route and on the CPU."""
+        times replays), by the kernels the tick runs (``pitch_viterbi`` with
+        the pitch lane only); all zero on the host route and on the CPU."""
+        names = [k for k in KERNELS if k != "pitch_viterbi" or self._pitch_device]
         if not self._device_bp:
-            return {"mfcc": 0, "viterbi": 0, "path_walk": 0}
-        return dict(self._runner.launches)
+            return dict.fromkeys(names, 0)
+        return {k: self._runner.launches[k] for k in names}
 
     # -- stream lifecycle ------------------------------------------------------
 
@@ -429,6 +481,8 @@ class StreamScheduler:
         if self._device_bp:
             self._feat_counts[sid] = 0
             self._iv_pending_n[sid] = 0
+            self._pcm_total[sid] = 0
+            self._pitch_done[sid] = 0
         state.gen += 1
         # the slot's device state goes back to the start in the next tick's
         # device step: admission launches nothing
@@ -531,10 +585,11 @@ class StreamScheduler:
 
     def _drain_features_all(self) -> None:
         """Move pool PCM into each slot's feature rows: ONE batched MFCC
-        call over ``[max_streams, L]`` for every slot with a new frame;
-        then the featurizer's flush for finished streams. A frame's row
-        does not depend on how many frames the call holds, so the rows
-        equal the single-stream featurizer's."""
+        call over ``[max_streams, L]`` for every slot with a new frame (a
+        frame's row does not depend on how many frames the call holds, so
+        the rows equal the single-stream featurizer's); for a pitch model
+        ONE batched pitch call (``_drain_pitch_all``); then the
+        featurizer's flush for finished streams."""
         fz = self._featurizer
         pushed = []  # (sid, pcm, (buf, n_frames) or None)
         for sid, state in enumerate(self.slots):
@@ -569,6 +624,10 @@ class StreamScheduler:
             rows = fz.push_with_base(state.feat_state, pcm, base_rows.get(sid, empty))
             if rows.shape[0]:
                 state.feats = np.concatenate([state.feats, rows], axis=0)
+        if fz.has_pitch:
+            self._drain_pitch_all()
+        # finished streams: the featurizer's flush, once (a pitch model
+        # repeats its last pitch row over an unpaired MFCC tail)
         for sid, state in enumerate(self.slots):
             if (
                 state.active
@@ -581,6 +640,30 @@ class StreamScheduler:
                 if rows.shape[0]:
                     state.feats = np.concatenate([state.feats, rows], axis=0)
                 state.flushed_feats = True
+
+    def _drain_pitch_all(self) -> None:
+        """ONE batched pitch call over ``[n, Wp]`` windows, one a slot with
+        unpaired MFCC rows and a new pitch frame; the rows pair with the
+        pending MFCC rows."""
+        fz = self._featurizer
+        want = []  # (sid, window)
+        for sid, state in enumerate(self.slots):
+            if not state.active or state.done or state.feat_state.mfcc_pending.shape[0] == 0:
+                continue
+            window = fz.pitch_window_array(state.feat_state)
+            if window is not None:
+                want.append((sid, window))
+        if not want:
+            return
+        self.device_dispatches += 1
+        batch = torch.as_tensor(np.stack([w for _s, w in want]), device=self.device)
+        rows = pitch_batch(self.am.pitch_config, batch).cpu().numpy()
+        for i, (sid, _w) in enumerate(want):
+            state = self.slots[sid]
+            new = fz.consume_pitch_rows(state.feat_state, rows[i])
+            out = fz.merge_pitch(state.feat_state, new)
+            if out.shape[0]:
+                state.feats = np.concatenate([state.feats, out], axis=0)
 
     def _features(self, batch: np.ndarray) -> np.ndarray:
         """MFCC rows [N, T, C] of the tick's PCM batch [N, L]: upload, one
@@ -847,7 +930,7 @@ class StreamScheduler:
 
     @staticmethod
     def _write_meta_cols(batch: np.ndarray, meta: np.ndarray) -> None:
-        """The [N, k <= 8] int32 meta pack into the batch's META_COLS
+        """The [N, k <= 12] int32 meta pack into the batch's META_COLS
         trailing columns as lo / hi 16-bit halves in the PCM dtype (int16
         wraps modulo 2^16, which the tick masks off; f32 holds the halves
         exactly)."""
@@ -917,6 +1000,12 @@ class StreamScheduler:
             has_new = sel & (new_frames > 0)
             if has_new.any():
                 prep = (batch_t, batch, self._feat_counts.copy(), has_new)
+                # samples in the device PCM ring once the upload lands (a
+                # slot without a new frame keeps its total: its samples
+                # stay in the tail and ride the next upload)
+                self._pcm_total[has_new] = (
+                    self._feat_counts.astype(np.int64)[has_new] * shift + buf_lens[has_new]
+                )
             for sid in lanes:
                 n = int(new_frames[sid])
                 row_tail = batch[sid, n * shift : int(buf_lens[sid])]
@@ -965,7 +1054,7 @@ class StreamScheduler:
             batch_t, batch = self._host_buffer((N, META_COLS), torch.int16)
             counts_before = np.zeros(N, dtype=np.int32)
             has_new = np.zeros(N, dtype=bool)
-        meta = np.zeros((N, 7), dtype=np.int32)
+        meta = np.zeros((N, 10), dtype=np.int32)
         meta[:, 0] = n_valid
         meta[:, 1] = self._pending_reset
         meta[:, 2] = chunk_t0
@@ -974,12 +1063,14 @@ class StreamScheduler:
         meta[:, 5] = has_new
         if self._ivp is not None:
             meta[:, 6] = self._iv_pending_n
+        self._stage_pitch_meta(meta)
         self._write_meta_cols(batch, meta)
         with StageTimer("stream_pace", metrics):
             self._pace()
         with StageTimer("stream_chunk", metrics):
             self._runner.run(("fused", batch.shape[1], str(batch.dtype)),
                              self._tick.body_fused, self._st, [batch_t])
+        self._commit_pitch_meta()
         fetch = self._after_chunk(metrics)
         if self._ivp is not None:
             # everything staged was folded this tick
@@ -1006,14 +1097,60 @@ class StreamScheduler:
         """A tick with audio and no ready slot: only the feature rings are
         written, with the fused tick's upload layout."""
         batch_t, batch, counts, has_new = prep
-        meta = np.zeros((batch.shape[0], 6), dtype=np.int32)
+        meta = np.zeros((batch.shape[0], 10), dtype=np.int32)
         meta[:, 4] = counts
         meta[:, 5] = has_new
+        self._stage_pitch_meta(meta)
         self._write_meta_cols(batch, meta)
         with StageTimer("stream_chunk", metrics):
             self._runner.run(("feed", batch.shape[1], str(batch.dtype)),
                              self._tick.body_feed, self._st, [batch_t])
+        self._commit_pitch_meta()
         self.device_dispatches += 1
+
+    def _plan_pitch(self) -> Optional[np.ndarray]:
+        """This tick's pitch-lane plan (the reference's ``_plan_pitch``):
+        each slot's window start sample, the absolute pitch frames the
+        window reaches, and the flush mask (finished slots whose MFCC rows
+        outrun their pitch rows: the block write repeats the newest row over
+        them). Returns the pitch-matched frame count the ready loop reads,
+        or None without the pitch lane."""
+        if not self._pitch_device:
+            return None
+        shift = self._featurizer.frame_shift
+        a = (self._pcm_total - self._featurizer.pitch_window) // shift * shift
+        n_abs = a // shift + self._pitch_t_w
+        matched = np.minimum(self._feat_counts.astype(np.int64),
+                             np.maximum(self._pitch_done, n_abs))
+        flush = np.zeros(self.max_streams, dtype=bool)
+        for sid, state in enumerate(self.slots):
+            if (
+                state.active
+                and not state.done
+                and state.flushed_feats
+                and bool(self._fin_snap[sid])
+                and matched[sid] < int(self._feat_counts[sid])
+            ):
+                flush[sid] = True
+                matched[sid] = int(self._feat_counts[sid])
+        self._pitch_plan = (a, n_abs, flush)
+        return matched
+
+    def _stage_pitch_meta(self, meta: np.ndarray) -> None:
+        """The plan into the upload's meta columns 7-9."""
+        if self._pitch_device:
+            a, _n_abs, flush = self._pitch_plan
+            meta[:, 7] = a
+            meta[:, 8] = self._pitch_done
+            meta[:, 9] = flush
+
+    def _commit_pitch_meta(self) -> None:
+        """After a dispatch that carried the plan: the rows it promised are
+        in the ring (in stream order)."""
+        if self._pitch_device:
+            _a, n_abs, flush = self._pitch_plan
+            self._pitch_done = np.maximum(self._pitch_done, n_abs)
+            self._pitch_done[flush] = self._feat_counts[flush]
 
     def _step_chunk(self, windows, n_valid, chunk_t0, chunk_have, flushed, metrics) -> None:
         """The device route with host features: the host's windows, the
@@ -1101,6 +1238,7 @@ class StreamScheduler:
                 prep = self._prep_features_device()
             else:
                 self._drain_features_all()
+        pitch_matched = self._plan_pitch() if device_feats else None
         with StageTimer("stream_ep_apply", metrics):
             ep_fired: Set[int] = (
                 self._apply_endpoint_stats()
@@ -1121,7 +1259,10 @@ class StreamScheduler:
                     continue
                 t0 = state.frames_consumed
                 if device_feats:
-                    have = int(self._feat_counts[sid])
+                    # a pitch model's rows past the pitch-matched count have
+                    # no pitch yet: not readable
+                    have = int(self._feat_counts[sid] if pitch_matched is None
+                               else pitch_matched[sid])
                     finished = bool(self._fin_snap[sid])
                 else:
                     have = state.feats.shape[0]

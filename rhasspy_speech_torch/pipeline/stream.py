@@ -40,9 +40,13 @@ window's +-4 context frames, then the per-pdf log-likelihoods; no
 i-vector): one MFCC launch a push and one Viterbi launch a 7-frame chunk,
 as for nnet3.
 
-Pitch features (ROADMAP Queue 1, item 14) and recurrent nnet3 plans (item
-4) are not ported: ``AcousticModel`` and ``compile_nnet3`` raise
-``NotImplementedError`` naming them.
+A pitch model's rows come from the featurizer's sliding pitch window: a
+push that can release a pitch frame runs one ``[1, Wp]`` window, so one
+launch of the pitch-Viterbi kernel on a card. The i-vector taps the rows'
+base MFCC columns.
+
+Recurrent nnet3 plans (ROADMAP Queue 1, item 4) are not ported:
+``compile_nnet3`` raises ``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations

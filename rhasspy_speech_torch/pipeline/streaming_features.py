@@ -1,28 +1,39 @@
-"""Incremental per-stream feature assembly: base MFCC rows as PCM arrives.
+"""Incremental per-stream feature assembly: base MFCC + streaming pitch.
 
 Counterpart of ``rhasspy_speech_tpu/pipeline/streaming_features.py``. The
-batch path (``AcousticModel.features``) computes MFCC over a whole utterance
-at once; streaming needs the same rows to appear as PCM arrives. A frame
-depends only on its own window of samples, so a buffer that carries each
-push's unconsumed tail reproduces the batch rows: bit for bit on one
-device, because both the MFCC kernel (one warp a frame) and its plain
-version compute a frame from its window alone, whatever else the call
-holds. ``StreamFeaturizer.push`` calls ``ops.mfcc_cuda.mfcc_batch`` on the
-acoustic model's device, so on the card the MFCC kernel runs on every push
-that completes a frame. The scheduler of many streams batches that call
-instead: ``prepare_mfcc_buf`` gives each stream's buffer, one MFCC call
-covers them all, and ``commit_mfcc`` and ``push_with_base`` take the rows
-back.
+batch path (``AcousticModel.features``) computes MFCC (and pitch) over a
+whole utterance at once; streaming needs the same rows to appear as PCM
+arrives. A frame's MFCCs depend only on its own window of samples, so a
+buffer that carries each push's unconsumed tail reproduces the batch rows:
+bit for bit on one device, because both the MFCC kernel (one warp a frame)
+and its plain version compute a frame from its window alone, whatever else
+the call holds. ``StreamFeaturizer.push`` calls ``ops.mfcc_cuda.mfcc_batch``
+on the acoustic model's device, so on the card the MFCC kernel runs on
+every push that completes a frame. The scheduler of many streams batches
+that call instead: ``prepare_mfcc_buf`` gives each stream's buffer, one
+MFCC call covers them all, and ``commit_mfcc`` and ``push_with_base`` take
+the rows back.
 
-Pitch features are not ported (ROADMAP Queue 1, item 14): ``AcousticModel``
-refuses a pitch model, and the featurizer's pitch half
-(``pitch_window_array``, ``consume_pitch_rows``, ``_extract_pitch``,
-``merge_pitch``) raises ``NotImplementedError``.
+Pitch is not causal (a lag Viterbi over the utterance and a +-75-frame
+normalization window, pitch-functions.cc:1423-1540), so, like Kaldi's own
+online pitch, the streamed rows approximate the batch rows, as the JAX
+featurizer's do:
 
-``_reflect_idx``, the framing bookkeeping of ``StreamFeaturizer``,
-``stage_ivector_window``, ``silence_weights_from_chunk`` and
-``online_cmvn_numpy`` are NumPy code copied from the JAX module, which
-imports JAX.
+- pitch is recomputed over a sliding window of the last
+  ``PITCH_WINDOW_SECONDS`` of audio (zero-padded at the stream's start),
+  its start on the frame grid, so frames land where the batch path puts
+  them: one ``ops.pitch.pitch_batch`` call over ``[1, Wp]`` a push that
+  can release a pitch frame (one pitch-Viterbi kernel launch on a card);
+- a frame's pitch is final the first time it is computed;
+- a row is released once both its MFCC and its pitch exist (pitch lags
+  the MFCCs by the NCCF's lag window), and a flush repeats the last pitch
+  row over the MFCC tail, as the batch path does.
+
+Pitch with ``snip_edges=false`` is refused, as the reference refuses it.
+``_reflect_idx``, the framing and pitch-window bookkeeping of
+``StreamFeaturizer``, ``stage_ivector_window``,
+``silence_weights_from_chunk`` and ``online_cmvn_numpy`` are NumPy code
+copied from the JAX module, which imports JAX.
 """
 
 from __future__ import annotations
@@ -35,12 +46,10 @@ import torch
 
 from ..ops.frontend import make_frontend_params
 from ..ops.mfcc_cuda import mfcc_batch
+from ..ops.pitch import num_pitch_frames, pitch_batch
 
+PITCH_WINDOW_SECONDS = 2.0
 
-def _pitch_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "streaming pitch features are not ported yet (ROADMAP Queue 1, item 14)"
-    )
 
 def _reflect_idx(idx: np.ndarray, n: int) -> np.ndarray:
     """Edge-reflected sample indices, the exact twin of
@@ -58,6 +67,12 @@ class StreamFeatState:
 
     def __init__(self, feat_dim: int, num_ceps: int):
         self.mfcc_tail = np.zeros(0, dtype=np.float32)  # < frame window
+        self.mfcc_pending = np.zeros((0, num_ceps), dtype=np.float32)
+        self.pitch_samples = np.zeros(0, dtype=np.float32)
+        self.pitch_start = 0  # absolute sample index of pitch_samples[0]
+        self.pitch_done = 0  # absolute pitch frames consumed
+        self.pitch_last: Optional[np.ndarray] = None  # last emitted row [3]
+        self.pitch_queue = np.zeros((0, 3), dtype=np.float32)
         self.total_samples = 0
         # snip_edges=false bookkeeping (see StreamFeaturizer): raw
         # samples consumed into the MFCC pipeline, whether the virtual
@@ -79,9 +94,7 @@ class StreamFeaturizer:
         self.frame_len = cfg.frame_length
         self.frame_shift = cfg.frame_shift
         self.num_ceps = cfg.num_ceps
-        if getattr(am, "pitch_config", None) is not None:
-            raise _pitch_not_ported()
-        self.has_pitch = False
+        self.has_pitch = getattr(am, "pitch_config", None) is not None
         self.snip = cfg.snip_edges
         # snip_edges=false: centered frames reflecting at the UTTERANCE
         # edges (feature-window.cc FirstSampleOfFrame:30-41,
@@ -103,7 +116,21 @@ class StreamFeaturizer:
             self.stream_params = make_frontend_params(
                 dataclasses.replace(cfg, snip_edges=True), am.device
             )
-        self.feat_dim = self.num_ceps
+            if self.has_pitch:
+                # Kaldi pitch frames have their own (snip) framing; the
+                # published model family never combines pitch with
+                # snip_edges=false, so refuse rather than risk divergent
+                # row pairing
+                raise NotImplementedError(
+                    "streaming pitch requires snip_edges=true framing"
+                )
+        self.feat_dim = self.num_ceps + (3 if self.has_pitch else 0)
+        if self.has_pitch:
+            self.pitch_window = (
+                int(PITCH_WINDOW_SECONDS * cfg.samp_freq)
+                // self.frame_shift
+                * self.frame_shift
+            )
 
     def new_state(self) -> StreamFeatState:
         return StreamFeatState(self.feat_dim, self.num_ceps)
@@ -195,6 +222,117 @@ class StreamFeaturizer:
     def commit_mfcc(self, state: StreamFeatState, buf: np.ndarray, n: int) -> None:
         state.mfcc_tail = buf[n * self.frame_shift :]
 
+    # -- streaming pitch -------------------------------------------------------
+
+    def pitch_window_array(self, state: StreamFeatState) -> Optional[np.ndarray]:
+        """Fixed-size [pitch_window] sample window ending at the last
+        frame-aligned position, left zero-padded at stream start; None when
+        no new pitch frame could be ready."""
+        N = state.total_samples
+        a = (N - self.pitch_window) // self.frame_shift * self.frame_shift
+        end = a + self.pitch_window
+        t_w = num_pitch_frames(self.am.pitch_config, self.pitch_window)
+        n_frames_abs = a // self.frame_shift + t_w
+        if n_frames_abs <= state.pitch_done:
+            return None
+        lo = max(a, state.pitch_start)
+        real = state.pitch_samples[lo - state.pitch_start : end - state.pitch_start]
+        pad = end - a - real.shape[0]
+        if pad > 0:
+            real = np.concatenate([np.zeros(pad, dtype=np.float32), real])
+        return real
+
+    def consume_pitch_rows(self, state: StreamFeatState, rows: np.ndarray) -> np.ndarray:
+        """Take the not-yet-consumed rows out of a pitch_window_array
+        result's [T_w, 3] features; advances pitch_done and trims the
+        sample buffer."""
+        N = state.total_samples
+        a = (N - self.pitch_window) // self.frame_shift * self.frame_shift
+        n_abs = a // self.frame_shift + rows.shape[0]
+        local_lo = state.pitch_done - a // self.frame_shift
+        new = rows[max(local_lo, 0) :]
+        state.pitch_done = max(n_abs, state.pitch_done)
+        if new.shape[0]:
+            state.pitch_last = np.asarray(new[-1])
+        # trim samples no longer needed (keep the window + alignment slack)
+        keep_from = max(0, N - self.pitch_window - self.frame_shift)
+        keep_from = keep_from // self.frame_shift * self.frame_shift
+        if keep_from > state.pitch_start:
+            state.pitch_samples = state.pitch_samples[keep_from - state.pitch_start :]
+            state.pitch_start = keep_from
+        return np.asarray(new, dtype=np.float32)
+
+    def _extract_pitch(self, state: StreamFeatState) -> np.ndarray:
+        """Single-stream path: compute + consume new pitch rows (one
+        ``pitch_batch`` call over ``[1, pitch_window]``)."""
+        window = self.pitch_window_array(state)
+        if window is None:
+            return np.zeros((0, 3), dtype=np.float32)
+        samples = torch.as_tensor(window[None], device=self.am.device)
+        rows = pitch_batch(self.am.pitch_config, samples)[0].cpu().numpy()
+        return self.consume_pitch_rows(state, rows)
+
+    # -- assembly ---------------------------------------------------------------
+
+    def _merge(self, state: StreamFeatState, pitch_rows: np.ndarray, flush: bool) -> np.ndarray:
+        """Pair pending MFCC rows with pitch rows -> finalized full rows."""
+        if not self.has_pitch:
+            out = state.mfcc_pending
+            state.mfcc_pending = np.zeros((0, self.num_ceps), dtype=np.float32)
+            return out
+        if pitch_rows.shape[0]:
+            state.pitch_queue = np.concatenate([state.pitch_queue, pitch_rows], axis=0)
+        queue = state.pitch_queue
+        k = min(state.mfcc_pending.shape[0], queue.shape[0])
+        if flush and state.mfcc_pending.shape[0] > k:
+            # repeat the last pitch row over the MFCC tail, as the batch
+            # path does when the pitch stream yields fewer frames
+            if queue.shape[0]:
+                last = queue[-1]
+            elif state.pitch_last is not None:
+                last = state.pitch_last
+            else:
+                last = np.zeros(3, dtype=np.float32)
+            extra = np.broadcast_to(last, (state.mfcc_pending.shape[0] - k, 3))
+            queue = np.concatenate([queue, extra], axis=0)
+            k = state.mfcc_pending.shape[0]
+        if k == 0:
+            state.pitch_queue = queue
+            return np.zeros((0, self.feat_dim), dtype=np.float32)
+        out = np.concatenate([state.mfcc_pending[:k], queue[:k]], axis=1).astype(np.float32)
+        state.mfcc_pending = state.mfcc_pending[k:]
+        state.pitch_queue = queue[k:]
+        return out
+
+    def push(
+        self, state: StreamFeatState, pcm: np.ndarray, flush: bool = False
+    ) -> np.ndarray:
+        """Feed PCM (possibly empty), return newly finalized feature rows."""
+        pcm = np.asarray(pcm, dtype=np.float32)
+        if pcm.shape[0]:
+            state.total_samples += pcm.shape[0]
+            if self.has_pitch:
+                state.pitch_samples = np.concatenate([state.pitch_samples, pcm])
+        mfcc_rows = (
+            self._extract_mfcc(state, pcm, flush=flush)
+            if pcm.shape[0] or (flush and not self.snip)
+            else np.zeros((0, self.num_ceps), dtype=np.float32)
+        )
+        if mfcc_rows.shape[0]:
+            state.mfcc_pending = np.concatenate([state.mfcc_pending, mfcc_rows], axis=0)
+        pitch_rows = (
+            self._extract_pitch(state)
+            if self.has_pitch and state.mfcc_pending.shape[0]
+            else np.zeros((0, 3), dtype=np.float32)
+        )
+        return self._merge(state, pitch_rows, flush)
+
+    def merge_pitch(
+        self, state: StreamFeatState, pitch_rows: np.ndarray, flush: bool = False
+    ) -> np.ndarray:
+        """Emit rows newly matched by batched pitch results (scheduler)."""
+        return self._merge(state, pitch_rows, flush)
+
     def push_with_base(
         self,
         state: StreamFeatState,
@@ -203,46 +341,19 @@ class StreamFeaturizer:
         pitch_rows: Optional[np.ndarray] = None,
         flush: bool = False,
     ) -> np.ndarray:
-        """Scheduler path: the caller batched the MFCC across slots
-        (``prepare_mfcc_buf`` / ``commit_mfcc``); returns the newly
-        finalized feature rows, which without pitch are ``base_rows``."""
-        if pitch_rows is not None:
-            raise _pitch_not_ported()
+        """Scheduler path: the caller batched the MFCC (and optionally the
+        pitch windows) across slots (``prepare_mfcc_buf`` /
+        ``commit_mfcc``); merge precomputed rows here."""
         pcm = np.asarray(pcm, dtype=np.float32)
         if pcm.shape[0]:
             state.total_samples += pcm.shape[0]
-        return base_rows
-
-    # -- streaming pitch (not ported) -----------------------------------------
-
-    def pitch_window_array(self, state: StreamFeatState) -> Optional[np.ndarray]:
-        raise _pitch_not_ported()
-
-    def consume_pitch_rows(self, state: StreamFeatState, rows: np.ndarray) -> np.ndarray:
-        raise _pitch_not_ported()
-
-    def _extract_pitch(self, state: StreamFeatState) -> np.ndarray:
-        raise _pitch_not_ported()
-
-    def merge_pitch(
-        self, state: StreamFeatState, pitch_rows: np.ndarray, flush: bool = False
-    ) -> np.ndarray:
-        raise _pitch_not_ported()
-
-    # -- assembly ---------------------------------------------------------------
-
-    def push(
-        self, state: StreamFeatState, pcm: np.ndarray, flush: bool = False
-    ) -> np.ndarray:
-        """Feed PCM (possibly empty), return newly finalized feature rows
-        (a model without pitch has nothing to pair the MFCC rows with, so
-        they are final as they come)."""
-        pcm = np.asarray(pcm, dtype=np.float32)
-        if pcm.shape[0]:
-            state.total_samples += pcm.shape[0]
-        if pcm.shape[0] or (flush and not self.snip):
-            return self._extract_mfcc(state, pcm, flush=flush)
-        return np.zeros((0, self.num_ceps), dtype=np.float32)
+            if self.has_pitch:
+                state.pitch_samples = np.concatenate([state.pitch_samples, pcm])
+        if base_rows.shape[0]:
+            state.mfcc_pending = np.concatenate([state.mfcc_pending, base_rows], axis=0)
+        if pitch_rows is None:
+            pitch_rows = np.zeros((0, 3), dtype=np.float32)
+        return self._merge(state, pitch_rows, flush)
 
 
 def stage_ivector_window(

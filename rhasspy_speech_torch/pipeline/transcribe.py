@@ -34,8 +34,15 @@ deltas + delta-deltas -> per-pdf diagonal-GMM log-likelihoods
 (``models/gmm.py``) -> the same decoders, with no i-vector and no frame
 subsampling.
 
+A model whose ``conf/online.conf`` says ``--add-pitch=true`` gets Kaldi's
+3 pitch columns after its MFCCs (``ops/pitch.py``; ``conf/pitch.conf``
+when present): the pitch-lag Viterbi kernel (``ops/pitch_viterbi_cuda.py``)
+runs once a batch call on a card. Pitch runs over the zero-padded batch as
+the JAX package pads it. The i-vector taps the base MFCCs; a GMM takes
+deltas over ``[MFCC | pitch]``.
+
 Not ported yet, and raising ``NotImplementedError`` rather than answering
-differently: pitch features and bfloat16 compute (ROADMAP Queue 1).
+differently: bfloat16 compute (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -81,6 +88,7 @@ from ..ops.frontend import (
 from ..ops.ivector import extract_ivectors, make_ivector_params
 from ..ops.lattice import Lattice, build_lattice, forward_backward
 from ..ops.mfcc_cuda import mfcc_batch
+from ..ops.pitch import PitchConfig, pitch_batch, pitch_config_from_conf
 from ..ops.viterbi_cuda import kernel_states, viterbi_decode
 from .artifacts import LangArtifacts
 from .endpoint import silence_pdfs_from_model
@@ -175,11 +183,25 @@ class AcousticModel:
         self.frontend_config = frontend
         self.frontend_params = make_frontend_params(frontend, self.device)
 
+        # Kaldi pitch features appended to the MFCCs, enabled the way
+        # prepare_online_decoding.sh does: --add-pitch=true in online.conf
+        # (online2/online-nnet2-feature-pipeline.cc:90-140)
+        self.pitch_config: Optional[PitchConfig] = None
         online_conf = model_dir / "model" / "conf" / "online.conf"
         if online_conf.exists() and "--add-pitch=true" in online_conf.read_text(
             encoding="utf-8"
         ).replace(" ", ""):
-            raise _not_ported("pitch features", "item 14")
+            pitch_conf = model_dir / "model" / "conf" / "pitch.conf"
+            if pitch_conf.exists():
+                self.pitch_config = pitch_config_from_conf(
+                    pitch_conf, samp_freq=frontend.samp_freq
+                )
+            else:
+                self.pitch_config = PitchConfig(
+                    samp_freq=frontend.samp_freq,
+                    frame_shift_ms=frontend.frame_shift_ms,
+                    frame_length_ms=frontend.frame_length_ms,
+                )
 
         self._buckets: Dict[int, CompiledNnet3] = {}
         self._has_ivector = self.spec is not None and any(
@@ -236,8 +258,24 @@ class AcousticModel:
         return compile_nnet3(self.spec, chunk_out, subsampling=self.subsampling, device=self.device)
 
     def features(self, pcm: torch.Tensor) -> torch.Tensor:
-        """[B, samples] f32 on this model's device -> [B, T, num_ceps]."""
-        return mfcc_batch(self.frontend_params, pcm)
+        """[B, samples] f32 on this model's device -> [B, T, D]: the MFCCs,
+        with a pitch model's 3 pitch columns appended."""
+        mfcc = mfcc_batch(self.frontend_params, pcm)
+        if self.pitch_config is not None:
+            mfcc = self._append_pitch(mfcc, pcm)
+        return mfcc
+
+    def _append_pitch(self, mfcc: torch.Tensor, pcm: torch.Tensor) -> torch.Tensor:
+        """Append the 3-dim Kaldi pitch features, aligned to the MFCC frame
+        count (the online pipeline repeats the last pitch frame when the
+        4 kHz pitch stream yields fewer frames)."""
+        pf = pitch_batch(self.pitch_config, pcm)
+        T, Tp = mfcc.shape[1], pf.shape[1]
+        if Tp >= T:
+            pf = pf[:, :T]
+        else:
+            pf = torch.cat([pf, pf[:, -1:].expand(-1, T - Tp, -1)], dim=1)
+        return torch.cat([mfcc, pf], dim=-1)
 
     @torch.no_grad()
     def log_probs(
@@ -265,7 +303,9 @@ class AcousticModel:
         ivec = None
         if self._has_ivector:
             if self.ivector_params is not None:
-                iv_feats = feats
+                # the i-vector branch taps the base MFCC: pitch columns go
+                # to the nnet input only (online-nnet2-feature-pipeline.cc)
+                iv_feats = feats[..., : self.frontend_config.num_ceps]
                 if self.ivector_cmvn_stats is not None:
                     iv_feats = online_cmvn(iv_feats, self.ivector_cmvn_stats)
                 ivec = extract_ivectors(

@@ -24,6 +24,16 @@ written from a seed (no download): the published shapes, random weights.
   export carries (``layer_N/weights``, ``cudnn_lstm/.../kernel``), so the
   transcriber's TFLite load path converts it, beside ``alphabet.txt`` and
   a ``frontend.json`` of 26 cepstra from 40 mel bins at 32 ms / 20 ms.
+- ``write_pitch_model_dir``: a chain model with Kaldi pitch features, the
+  layout of Kaldi's aishell s5 chain recipe (``local/nnet3/
+  run_ivector_common.sh``: 40 hires MFCC + 3 pitch columns for the
+  network, ``utils/data/limit_feature_dim.sh 0:39`` for the i-vector over
+  the MFCCs alone) at the flagship's widths: TDNN-F 768 x 9, 3,072 pdfs, a
+  43-dim input, a 100-dim i-vector from a 512-Gaussian UBM over the 40
+  MFCCs. ``model/conf/online.conf`` says ``--add-pitch=true`` and
+  ``model/conf/pitch.conf`` is the recipe's (Kaldi's pitch defaults at
+  16 kHz). The network's input transform is the flagship's (identity plus
+  seeded noise), so the pitch columns carry non-zero random weights.
 """
 
 from __future__ import annotations
@@ -39,7 +49,10 @@ from ..io.ivector import DiagGmm
 from ..io.tflite import build_tflite
 from ..io.transition_model import KaldiTransitionModel
 from ..ops.deltas import delta_kernels
+from ..io.nnet3_file import write_nnet3
 from ..ops.frontend import FrontendConfig, frontend_from_mfcc_conf, mfcc_numpy
+from .flagship import write_flagship_model_dir
+from .tdnnf import build_tdnnf_spec
 
 TRI1_PDFS = 2000
 TRI1_GAUSS = 10000
@@ -48,6 +61,10 @@ TRI1_MAX_GAUSS = 10
 TRI1_MFCC_CONF = (
     "--use-energy=false\n--num-mel-bins=23\n--num-ceps=13\n--low-freq=20\n--high-freq=0\n"
 )
+
+# aishell s5 conf/pitch.conf; the rest are Kaldi's PitchExtractionOptions
+PITCH_CONF = "--sample-frequency=16000\n"
+PITCH_DIMS = 3
 
 DEEPSPEECH_ALPHABET = [" "] + [chr(c) for c in range(ord("a"), ord("z") + 1)] + ["'"]
 DEEPSPEECH_LSTM = "cudnn_lstm/rnn/multi_rnn_cell/cell_0/cudnn_compatible_lstm_cell/"
@@ -158,4 +175,37 @@ def write_deepspeech_model_dir(
                    "frame_shift_ms": frontend.frame_shift_ms}, f)
     with open(model_dir / "config.json", "w", encoding="utf-8") as f:
         json.dump({"type": "coqui"}, f)
+    return model_dir
+
+
+def write_pitch_model_dir(
+    model_dir: Union[str, Path],
+    num_pdfs: int,
+    max_phone: int,
+    hidden_dim: int = 768,
+    num_tdnnf_layers: int = 9,
+    ivector_dim: int = 100,
+    ubm_gauss: int = 512,
+    num_ceps: int = 40,
+    seed: int = 11,
+) -> Path:
+    """Write the flagship model dir (``testing/flagship.py``: extractor
+    over ``num_ceps`` MFCCs, ``frontend.json``, ``config.json``), then its
+    ``model/final.mdl`` again with a network over ``num_ceps + 3`` inputs
+    (weights from ``seed``), and the pitch confs; returns ``model_dir``."""
+    model_dir = write_flagship_model_dir(
+        model_dir, num_pdfs=num_pdfs, max_phone=max_phone, hidden_dim=hidden_dim,
+        num_tdnnf_layers=num_tdnnf_layers, ivector_dim=ivector_dim, ubm_gauss=ubm_gauss,
+        num_ceps=num_ceps, seed=seed,
+    )
+    spec = build_tdnnf_spec(
+        num_pdfs=num_pdfs, input_dim=num_ceps + PITCH_DIMS, ivector_dim=ivector_dim,
+        hidden_dim=hidden_dim, num_tdnnf_layers=num_tdnnf_layers, seed=seed,
+    )
+    with open(model_dir / "model" / "final.mdl", "wb") as f:
+        write_nnet3(f, spec, transition_model=KaldiTransitionModel.from_monophone_chain(max_phone))
+    conf = model_dir / "model" / "conf"
+    conf.mkdir(parents=True, exist_ok=True)
+    (conf / "online.conf").write_text("--add-pitch=true\n", encoding="utf-8")
+    (conf / "pitch.conf").write_text(PITCH_CONF, encoding="utf-8")
     return model_dir

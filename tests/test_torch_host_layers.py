@@ -291,11 +291,28 @@ _DRIVE = textwrap.dedent(
     train_model_sync("en", intents, root / "ctc_train", ctc.model_dir)
     ctc_text = CoquiSttTranscriber(ctc.model_dir, root / "ctc_train", device="cpu").transcribe_pcm(
         synthesize_ctc_text(ctc, "never mind", seed=5), prune_threshold=30.0)
+    pitch = build_synthetic_profile(root / "pitch", lexicon, with_ivector=True, with_pitch=True,
+                                    with_context=True)
+    train_model_sync("en", intents, root / "pitch_train", pitch.model_dir,
+                     lang_suffixes=[LangSuffix.GRAMMAR])
+    pitch_graph = root / "pitch_train" / lang_dir_name(LangSuffix.GRAMMAR)
+    pitch_pcm = synthesize_sentence(pitch, "never mind", seed=6)
+    pitch_texts = Nnet3WavTranscriber(pitch.model_dir, pitch_graph, device="cpu").transcribe_pcm_batch(
+        [pitch_pcm])
+    psched = StreamScheduler(pitch.model_dir, pitch_graph, max_streams=2, device="cpu")
+    assert psched._pitch_device
+    psid = psched.open_stream()
+    for off in range(0, pitch_pcm.shape[0], 1024):
+        psched.feed(psid, pitch_pcm[off : off + 1024])
+        psched.step()
+    psched.finish(psid)
+    psched.run_until_idle()
     loaded = [m for m in sys.modules if m.partition(".")[0] in ("jax", "rhasspy_speech_tpu")]
     assert not loaded, loaded
     print(json.dumps({"model_dir": str(model_dir), "graph_dir": str(graph_dir), "texts": texts,
                       "synth_model_dir": str(profile.model_dir), "synth_graph_dir": str(synth_graph),
-                      "streamed": sched.poll(sid), "gmm": gmm_texts, "ctc": ctc_text}))
+                      "streamed": sched.poll(sid), "gmm": gmm_texts, "ctc": ctc_text,
+                      "pitch": pitch_texts, "pitch_streamed": psched.poll(psid)}))
     """
 )
 
@@ -306,9 +323,10 @@ def test_port_trains_and_transcribes_with_jax_package_blocked(tmp_path):
     the port trains a grammar graph for it and transcribes seeded noise on
     the CPU; the port's synthetic profile is built and trained, and a
     sentence streamed through the port's ``StreamScheduler`` decodes to
-    itself, as do sentences through the synthetic GMM profile and the
-    synthetic Coqui CTC profile. The JAX package's transcriber, reading the same files here,
-    gives the same transcripts."""
+    itself, as do sentences through the synthetic GMM profile, the
+    synthetic Coqui CTC profile and a synthetic pitch profile (batch, and
+    the scheduler's pitch lane). The JAX package's transcriber, reading the
+    same files here, gives the same transcripts."""
     pcm = (1000.0 * np.random.RandomState(0).randn(16000)).astype(np.float32)
     np.save(tmp_path / "pcm.npy", pcm)
     proc = subprocess.run(
@@ -322,5 +340,6 @@ def test_port_trains_and_transcribes_with_jax_package_blocked(tmp_path):
     assert jt.transcribe_pcm_batch([pcm], max_fuzzy_cost=1e9) == out["texts"]
     assert out["streamed"] == ["turn on the light"]
     assert out["gmm"] == [["turn on the light"]] and out["ctc"] == "never mind"
+    assert out["pitch"] == [["never mind"]] and out["pitch_streamed"] == ["never mind"]
     js = JaxTranscriber(out["synth_model_dir"], out["synth_graph_dir"])
     assert js.transcribe_pcm_batch([np.load(tmp_path / "speech.npy")]) == [out["streamed"]]

@@ -27,6 +27,8 @@ import jax.numpy as jnp
 import torch
 
 from rhasspy_speech_torch.const import LangSuffix
+from rhasspy_speech_torch.io.gmm_am import read_am_diag_gmm, write_am_diag_gmm
+from rhasspy_speech_torch.io.ivector import DiagGmm
 from rhasspy_speech_torch.ops.ivector import solve_ivector
 from rhasspy_speech_torch.pipeline import Nnet3WavTranscriber, lang_dir_name
 from rhasspy_speech_torch.pipeline import scheduler as sched_mod
@@ -317,7 +319,26 @@ def test_decoder_choice_past_the_kernels_reach(trained, monkeypatch):
 
 
 def _gmm_with_pitch(model_dir):
+    """The synthetic GMM profile as a pitch model: ``--add-pitch=true`` in
+    conf/online.conf, and each pdf's Gaussian widened over [MFCC | pitch]
+    and their deltas (the layout ``add_deltas`` gives): the pitch statics
+    get seeded means and variance 4, so the pitch columns move the
+    log-likelihoods; their deltas, like the MFCC deltas, variance 1e6."""
     profile = build_synthetic_gmm_profile(model_dir, LEXICON)
+    mdl = str(profile.model_dir / "model" / "final.mdl")
+    transition_model, gmms = read_am_diag_gmm(mdl)
+    rng = np.random.RandomState(5)
+    wide = []
+    for g in gmms:
+        D = g.dim // 3
+        mean, var = g.means()[0], 1.0 / g.inv_vars[0]
+        means, variances = [], []
+        for k in range(3):
+            means += [mean[k * D : (k + 1) * D], 0.3 * rng.randn(3) if k == 0 else np.zeros(3)]
+            variances += [var[k * D : (k + 1) * D], np.full(3, 4.0 if k == 0 else 1.0e6)]
+        wide.append(DiagGmm.from_means_vars(
+            g.weights, np.concatenate(means)[None], np.concatenate(variances)[None]))
+    write_am_diag_gmm(mdl, transition_model, wide)
     conf = profile.model_dir / "model" / "conf"
     conf.mkdir(parents=True, exist_ok=True)
     (conf / "online.conf").write_text("--add-pitch=true\n", encoding="utf-8")
@@ -330,9 +351,6 @@ NOT_PORTED = {
     "adpcm": (None, dict(wire="adpcm"), "item 16"),
     "bf16": (None, dict(compute_dtype="bfloat16"), "item 4"),
     "recurrent": (lambda d: build_synthetic_profile(d, LEXICON, recurrent_delay=1), {}, "item 4"),
-    # GMM models are ported; a GMM model with pitch features waits for pitch
-    "gmm": (lambda d: _gmm_with_pitch(d), {}, "item 14"),
-    "pitch": (lambda d: build_synthetic_profile(d, LEXICON, with_pitch=True), {}, "item 14"),
 }
 
 

@@ -17,11 +17,13 @@ import numpy as np
 import pytest
 
 from rhasspy_speech_tpu.ops import frontend as jfe
+from rhasspy_speech_tpu.ops import pitch as jp
 from rhasspy_speech_tpu.pipeline import streaming_features as jsf
 
 import torch
 
 from rhasspy_speech_torch.ops import frontend as tfe
+from rhasspy_speech_torch.ops import pitch as tp
 from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch
 from rhasspy_speech_torch.pipeline import streaming_features as tsf
 
@@ -128,23 +130,27 @@ def test_push_with_base_equals_original(snip):
     rows.append(tfz.push(tstate, np.zeros(0, np.float32), flush=True))
     want = mfcc_batch(am.frontend_params, torch.as_tensor(pcm[None]))[0].numpy()
     np.testing.assert_allclose(np.concatenate(rows, axis=0), want, rtol=RTOL, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tfz.push_with_base(tstate, pcm[:10], base, pitch_rows=np.zeros((0, 3), np.float32))
-
-
-def test_pitch_half_raises_naming_its_item():
-    am = _torch_am(True)
-    fz = tsf.StreamFeaturizer(am)
-    state = fz.new_state()
-    for call in (lambda: fz.pitch_window_array(state),
-                 lambda: fz.consume_pitch_rows(state, np.zeros((1, 3), np.float32)),
-                 lambda: fz._extract_pitch(state),
-                 lambda: fz.merge_pitch(state, np.zeros((0, 3), np.float32))):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            call()
-    am.pitch_config = object()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tsf.StreamFeaturizer(am)
+    # a pitch featurizer pairs the MFCC rows with the pitch rows it is
+    # given, as the JAX featurizer does; both refuse pitch with
+    # snip_edges=false
+    pam, jpam = _torch_am(snip), _jax_am(snip)
+    pam.pitch_config, jpam.pitch_config = tp.PitchConfig(), jp.PitchConfig()
+    if not snip:
+        with pytest.raises(NotImplementedError, match="snip_edges"):
+            tsf.StreamFeaturizer(pam)
+        return
+    pfz, jpfz = tsf.StreamFeaturizer(pam), jsf.StreamFeaturizer(jpam)
+    ps, jps = pfz.new_state(), jpfz.new_state()
+    pitch = np.random.RandomState(9).randn(5, 3).astype(np.float32)
+    merged = []
+    for chunk, mfcc_rows, pitch_rows in ((pcm[:800], want[:5], pitch[:3]),
+                                         (pcm[800:900], want[:0], pitch[3:])):
+        got = pfz.push_with_base(ps, chunk, mfcc_rows, pitch_rows=pitch_rows)
+        np.testing.assert_array_equal(
+            got, jpfz.push_with_base(jps, chunk, mfcc_rows, pitch_rows=pitch_rows))
+        merged.append(got)
+    assert [m.shape[0] for m in merged] == [3, 2]
+    np.testing.assert_array_equal(np.concatenate(merged), np.concatenate([want[:5], pitch], axis=1))
 
 
 def test_copied_reflect_idx_equals_original():
