@@ -157,6 +157,13 @@ against their plain PyTorch twins:
    route's, tick times), K5 bit-equal on the tick's probed windows, and one
    voiced stream at one push a tick whose feature-ring rows equal the
    featurizer's within the JAX package's bound (rtol 2e-2 / atol 5e-3).
+   K5 is printed with the cluster size and lanes its chooser took and the
+   split of rank 0's cycles (min-plus pass, merge, wait, traceback); then
+   the sweep of ``examples/pitch_viterbi_sweep.py`` holds K5 bit-equal to
+   its twin at every cluster size and lane count at the three shapes on
+   tie-heavy costs and times each; the tick's p50 / p90, the stream's
+   real-time factor, the batch pitch stage and K5 and K4 are printed
+   beside their figures before the redesign (PR 9's chip run).
 
 Each kernel's entry in the ``kernels`` line carries ``bound_ms``, the least
 time the card could take for the same work: the larger of its bytes (each
@@ -225,10 +232,13 @@ from rhasspy_speech_torch.ops.pitch import (  # noqa: E402
     pitch_track,
 )
 from rhasspy_speech_torch.ops.pitch_viterbi_cuda import (  # noqa: E402
+    LANE_CHUNKS,
     pitch_viterbi,
     pitch_viterbi_torch,
+    select_plan as select_pitch_plan,
     transition_costs,
 )
+from rhasspy_speech_torch.examples import pitch_viterbi_sweep  # noqa: E402
 from rhasspy_speech_torch.testing.big_grammar import (  # noqa: E402
     train_big_grammar,
     write_big_grammar_model_dir,
@@ -317,6 +327,12 @@ KERNELS = ("mfcc", "viterbi", "windowed_relax", "path_walk", "pitch_viterbi")
 PITCH_ATOL = 1e-3
 PITCH_LAG_SHARE = 0.02
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM, 700 W
+# The pitch lane's and K4's figures before their redesign (PERF.md, PR 9's
+# chip run, an H100 80GB HBM3 at 700 W), printed beside this run's
+PR9 = {"pitch_tick_p50": 6.452, "pitch_tick_p90": 9.573, "pitch_stream_rtf": 0.0960,
+       "pitch_stage_ms": 6.451, "k5_batch": 4.8818, "k5_tick": 3.2356, "k5_push": 3.2429,
+       "k4_flagship": 0.0282, "k4_13789": 0.0296, "k4_tri1 flagship": 0.0874}
+SUMMARY = {}  # this run's figures of the same names
 
 
 def check(cond, what):
@@ -1193,7 +1209,7 @@ def path_walk_numbers(name, sched, dev):
     packed rows written."""
     st, tk = sched._st, sched._tick
     start, costs = walk_start(st.alpha, sched.device_graph.final_weight)
-    args = (st.ring, st.offs, start, costs, tk.arc_src, tk.arc_sil, sched._ring_frames,
+    args = (st.ring, st.offs, start, costs, tk.walk_tables, sched._ring_frames,
             sched._ep_device)
     got = path_walk(*args)
     want = path_walk_torch(*args)
@@ -1204,9 +1220,10 @@ def path_walk_numbers(name, sched, dev):
            "max_abs_err": float((got.to(torch.int32) - want.to(torch.int32)).abs().max())}
     out["bound_ms"], out["bound_by"] = bound(32 * steps + got.numel() * 2, 6 * steps)
     print(f"K4 path_walk on {name} ({sched.device_graph.num_states} states), ring "
-          f"{list(st.ring.shape)}, {steps} frames walked over {st.offs.shape[0]} slots: bit-equal "
-          f"to its twin; kernel {out['ms']:.4f} ms of device time, plain {out['plain_ms']:.4f} ms, "
-          f"bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
+          f"{list(st.ring.shape)}, {steps} frames walked over {st.offs.shape[0]} slots, arc table "
+          f"{tk.walk_tables.smem_bytes} B staged: bit-equal to its twin; kernel {out['ms']:.4f} ms "
+          f"of device time (PR 9: {PR9.get('k4_' + name, 'not measured')}), plain "
+          f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
     return out
 
 
@@ -1331,6 +1348,7 @@ def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy, min_equal=SCH
           f"{eager_wall * 1000:.1f} ms ({eager_wall / (BATCH * SECONDS):.5f}), host route "
           f"{host_wall * 1000:.1f} ms ({host_wall / (BATCH * SECONDS):.5f})")
     print(f"scheduler {name} stages (ms a call x calls, host clock, each synchronized): {stages}")
+    SUMMARY[name] = {"tick_p50": c50, "tick_p90": c90}
     return counts, probes, sched
 
 
@@ -1863,13 +1881,39 @@ def k5_numbers(label, cfg, pcm):
            "plain_ms": cuda_ms(lambda: pitch_viterbi_torch(local, dist), iters=3),
            "max_abs_err": float((got - want).abs().max())}
     out["bound_ms"], out["bound_by"] = bound(*pitch_work(*local.shape))
+    plan = select_pitch_plan(local.shape[0], local.shape[2], pcm.device)
+    clocks = torch.zeros((local.shape[0], plan.cluster, 4), dtype=torch.int64, device=pcm.device)
+    pitch_viterbi(local, dist, clocks=clocks)
+    torch.cuda.synchronize()
+    fwd, back, pas, merge = clocks[:, 0].double().mean(dim=0).tolist()
     local_ms = cuda_ms(lambda: pitch_local(cfg, pcm))
     batch_ms = cuda_ms(lambda: pitch_batch(cfg, pcm))
     print(f"K5 pitch_viterbi {label} {list(local.shape)}: states bit-equal to the twin; kernel "
-          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound {out['bound_ms']:.6f} ms "
-          f"({out['bound_by']}); downsample + NCCF + interpolation {local_ms:.4f} ms; whole "
-          f"pitch_batch {batch_ms:.4f} ms (CUDA events)")
+          f"{out['ms']:.4f} ms (PR 9: {PR9['k5_' + label]}) in clusters of {plan.cluster}, "
+          f"{plan.lanes} lanes a strip, {plan.threads} threads; rank 0's cycles: min-plus pass "
+          f"{100 * pas / (fwd + back):.1f}%, merge {100 * merge / (fwd + back):.1f}%, wait "
+          f"{100 * (fwd - pas - merge) / (fwd + back):.1f}%, final argmin + traceback "
+          f"{100 * back / (fwd + back):.1f}%; share of the bound "
+          f"{100 * out['bound_ms'] / out['ms']:.1f}%; plain {out['plain_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.6f} ms ({out['bound_by']}); downsample + NCCF + interpolation "
+          f"{local_ms:.4f} ms; whole pitch_batch {batch_ms:.4f} ms (CUDA events)")
     return out
+
+
+def k5_sweep():
+    """K5 at every cluster size and lane count at the three shapes, on
+    seeded tie-heavy costs (bit-equal to the twin) and continuous ones
+    (timed): ``examples/pitch_viterbi_sweep.py``."""
+    rows = pitch_viterbi_sweep.k5_sweep(torch.device("cuda", 0), variants=LANE_CHUNKS)
+    for r in rows:
+        print(pitch_viterbi_sweep.k5_row_text(r))
+    check(all(r["bit_equal"] for r in rows), "K5: a cluster size differs from the twin")
+    check(all(sum(r["chosen"] for r in rows if r["shape"] == lab) == 1
+              for lab, _b, _t in pitch_viterbi_sweep.SHAPES), "K5: the chosen plan is not in the sweep")
+    print(f"K5 sweep: {len(rows)} (shape, cluster size, lanes) launches bit-equal to the twin on "
+          f"tie-heavy costs; chosen: " + "; ".join(
+              f"{r['shape']} C={r['cluster']} lanes={r['lanes']} {r['ms']:.4f} ms"
+              for r in rows if r["chosen"]))
 
 
 def lag_states(cfg, pcm):
@@ -1956,6 +2000,7 @@ def pitch_batch_part(pitch_dir, graph_dir, dev, pcms, fuzzy, plain_stages):
     stages = stage_ms(t, pcms, fuzzy)
     print(f"pitch batch stages (ms, host clock, synchronized): {stages}; the pitch-free flagship "
           f"call's: {plain_stages}")
+    SUMMARY["pitch_stage_ms"] = stages["pitch"]
     return launches, k5
 
 
@@ -2016,6 +2061,7 @@ def pitch_stream_part(pitch_dir, graph_dir, dev, pcms, fuzzy):
           f"window) {feats_ms:.4f} ms; chunk stages (ms a chunk, synchronized) {stages}; one "
           f"{SECONDS} s stream {min(walls) * 1000:.1f} ms (min of 3; real-time factor "
           f"{min(walls) / SECONDS:.5f})")
+    SUMMARY["pitch_stream_rtf"] = min(walls) / SECONDS
     window = torch.as_tensor(utts[0][None, : st._featurizer.pitch_window], device=dev)
     return counts, k5_numbers("push", st.am.pitch_config, window)
 
@@ -2083,6 +2129,15 @@ def pitch_phase(root, model_dir, graph_dir, graph, dev, pcms, fuzzy, plain_stage
     k5_tick = k5_numbers("tick", cfg, probes["pitch"])
     pitch_ring_check(sched, dev)
     del sched, probes
+    k5_sweep()
+    tick = SUMMARY["pitch flagship"]
+    print(f"pitch lane against PR 9: captured tick p50 / p90 {tick['tick_p50']:.3f} / "
+          f"{tick['tick_p90']:.3f} ms (PR 9: {PR9['pitch_tick_p50']} / {PR9['pitch_tick_p90']}); "
+          f"pitch stream real-time factor {SUMMARY['pitch_stream_rtf']:.5f} (PR 9: "
+          f"{PR9['pitch_stream_rtf']}); batch pitch stage {SUMMARY['pitch_stage_ms']:.3f} ms "
+          f"(PR 9: {PR9['pitch_stage_ms']}); K5 batch / tick / push {k5['ms']:.4f} / "
+          f"{k5_tick['ms']:.4f} / {k5_push['ms']:.4f} ms (PR 9: {PR9['k5_batch']} / "
+          f"{PR9['k5_tick']} / {PR9['k5_push']})")
     entry = {"route": "cuda", "source": "rhasspy_speech_torch/csrc/pitch_viterbi.cu",
              "replaces": "rhasspy_speech_tpu/ops/pitch.py:255", "library_ms": None}
     return [

@@ -48,7 +48,7 @@ import torch
 from ..ops import decoder as plain_decoder
 from ..ops.ivector import solve_ivector, window_stats
 from ..ops.mfcc_cuda import mfcc_batch
-from ..ops.path_walk_cuda import path_walk, walk_start
+from ..ops.path_walk_cuda import path_walk, walk_start, walk_tables
 from ..ops.pitch import PitchConfig, num_pitch_frames, pitch_batch, pitch_tables
 from ..ops.pitch_viterbi_cuda import pitch_viterbi
 from ..ops.viterbi_cuda import viterbi_decode
@@ -131,6 +131,7 @@ class DeviceTick:
         self.stream_params = stream_params
         self.arc_src = arc_src  # int32 [A]
         self.arc_sil = arc_sil  # uint8 [A]
+        self.walk_tables = walk_tables(arc_src, arc_sil, graph.num_states)  # K4's, packed once
         self.cmvn_g_sum = cmvn_g_sum
         dev = graph.device
         self.lanes = torch.arange(cfg.N, device=dev)
@@ -302,7 +303,7 @@ class DeviceTick:
 
     def _walk(self, st: TickState, alpha: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
         start, costs = walk_start(alpha, self.graph.final_weight)
-        return path_walk(st.ring, frames, start, costs, self.arc_src, self.arc_sil,
+        return path_walk(st.ring, frames, start, costs, self.walk_tables,
                          self.cfg.ring_frames, self.cfg.ep_stats)
 
     def chunk(self, st: TickState, windows: torch.Tensor, n_valid: torch.Tensor,

@@ -7,8 +7,12 @@ Seeded rings of ``bp + 3`` entries hold slots with no frames, slots whose
 frames are all STAY (1) or dead (2), a slot decoded to ``F - 1`` frames and
 slots of random arcs; every packed column must equal the transcription's
 exactly, with the endpoint statistics on and off, and the cost columns must
-reassemble to the f32 costs bit for bit. On the card (marker ``cuda``) the
-kernel must equal its plain twin bit for bit.
+reassemble to the f32 costs bit for bit. The packed arc table the kernel
+stages in shared memory (``walk_tables``) must hold ``arc_src`` and
+``arc_sil`` exactly, and is refused past 65,535 states. On the card (marker
+``cuda``) the kernel must equal its plain twin bit for bit, also on a graph
+whose arc table is past 48 KB, and with the ring streamed through shared
+memory in several chunks and chased directly.
 """
 
 import numpy as np
@@ -16,10 +20,16 @@ import pytest
 import torch
 
 from rhasspy_speech_torch.ops.path_walk_cuda import (
+    CHUNK_BYTES,
+    MAX_ARCS,
+    MAX_SMEM,
+    MAX_STATES,
     PACKED_STAT_COLS,
     path_walk,
     path_walk_torch,
+    walk_chunks,
     walk_start,
+    walk_tables,
 )
 
 F, S, A = 40, 12, 30
@@ -54,7 +64,7 @@ def reference_walk(ring, frames, start, costs, arc_src, arc_sil, stats):
     return out
 
 
-def seeded_case(seed):
+def seeded_case(seed, S=S, A=A):
     rng = np.random.RandomState(seed)
     arc_src = rng.randint(0, S, size=A).astype(np.int32)
     arc_sil = (rng.rand(A) < 0.4).astype(np.uint8)
@@ -76,8 +86,20 @@ def seeded_case(seed):
 
 def as_torch(ring, frames, alpha, final, arc_src, arc_sil):
     start, costs = walk_start(torch.as_tensor(alpha), torch.as_tensor(final))
+    tables = walk_tables(torch.as_tensor(arc_src), torch.as_tensor(arc_sil), alpha.shape[1])
     return (torch.as_tensor(ring.astype(np.int32)).to(torch.int16), torch.as_tensor(frames),
-            start, costs, torch.as_tensor(arc_src), torch.as_tensor(arc_sil))
+            start, costs, tables)
+
+
+def unpack_tables(tables):
+    """(sources, silence flags) read back from the kernel's packed table."""
+    raw = tables.packed.numpy()
+    A = tables.arc_src.shape[0]
+    src = raw[: 2 * A].view("<u2").astype(np.int64)
+    words = raw[16 * tables.src_vec :].view("<u4")
+    e = np.arange(A)
+    sil = (words[e >> 5] >> (e & 31).astype(np.uint32)) & 1
+    return src, sil.astype(np.uint8)
 
 
 @pytest.mark.parametrize("stats", [True, False], ids=["endpoint_stats", "no_stats"])
@@ -114,6 +136,41 @@ def test_walk_start_and_cost_halves():
     assert list(p[:, F + 1]) == [int(totals[n].min() < 1.0e29) for n in range(len(frames))]
 
 
+@pytest.mark.parametrize("num_states,num_arcs", [(12, 30), (803, 1964), (13789, 31288),
+                                                  (MAX_STATES, MAX_ARCS), (5, 0)])
+def test_walk_tables_hold_sources_and_silence(num_states, num_arcs):
+    rng = np.random.RandomState(num_arcs)
+    arc_src = rng.randint(0, num_states, size=num_arcs).astype(np.int32)
+    if num_arcs:
+        arc_src[-1] = num_states - 1  # the largest source id
+    arc_sil = (rng.rand(num_arcs) < 0.3).astype(np.uint8)
+    tables = walk_tables(torch.as_tensor(arc_src), torch.as_tensor(arc_sil), num_states)
+    assert tables.packed.dtype == torch.uint8 and tables.smem_bytes % 16 == 0
+    assert tables.smem_bytes == tables.packed.numel() <= 2 * num_arcs + num_arcs // 8 + 32
+    src, sil = unpack_tables(tables)
+    np.testing.assert_array_equal(src, arc_src)
+    np.testing.assert_array_equal(sil, arc_sil)
+    # the device route's largest graph fits an H100 block's shared memory,
+    # with the streamed ring chunks where a row is small
+    assert tables.smem_bytes <= 139 * 1024
+    frames, chunk = walk_chunks(num_states, tables)
+    assert tables.smem_bytes + 2 * chunk <= MAX_SMEM and chunk % 16 == 0
+    assert (frames > 0) == (num_states <= 4096) == (chunk > 0)
+    assert frames == 0 or frames * num_states * 2 <= min(CHUNK_BYTES, chunk - 16)
+
+
+def test_walk_tables_refuse_past_uint16():
+    src, sil = torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.uint8)
+    walk_tables(src, sil, MAX_STATES)
+    with pytest.raises(ValueError, match="states"):
+        walk_tables(src, sil, MAX_STATES + 1)
+    with pytest.raises(ValueError, match="arcs"):
+        walk_tables(torch.zeros(MAX_ARCS + 1, dtype=torch.int32),
+                    torch.zeros(MAX_ARCS + 1, dtype=torch.uint8), 10)
+    with pytest.raises(ValueError, match="source"):
+        walk_tables(torch.tensor([0, 10], dtype=torch.int32), sil[:2], 10)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -126,6 +183,34 @@ def cuda():
 def test_kernel_equals_twin(cuda, stats):
     args = as_torch(*seeded_case(4))
     want = path_walk_torch(*args, F, stats)
-    got = path_walk(*[a.to(cuda) for a in args], F, stats)
+    before = path_walk.launches
+    got = path_walk(*_to(args, cuda), F, stats)
+    torch.cuda.synchronize()
+    assert path_walk.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def _to(args, dev):
+    ring, frames, start, costs, tables = args
+    return (ring.to(dev), frames.to(dev), start.to(dev), costs.to(dev),
+            walk_tables(tables.arc_src.to(dev), tables.arc_sil.to(dev), ring.shape[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [True, False], ids=["endpoint_stats", "no_stats"])
+@pytest.mark.parametrize("states,arcs,chunks", [(900, 31288, 2), (4000, 300, 5), (5000, 300, 0)],
+                         ids=["past_48kb_of_arcs", "five_chunks", "direct_chase"])
+def test_kernel_equals_twin_streamed_and_chased(cuda, stats, states, arcs, chunks):
+    """31,288 arcs (the 13,789-state grammar's count): 66 KB of staged
+    table, past the 48 KB a block gets without opting in, the ring in two
+    streamed chunks; 4,000 states: five chunks of 8 rows; 5,000 states: a
+    row past 8 a chunk, so the ring is chased in global memory."""
+    case = seeded_case(5, S=states, A=arcs)
+    args = as_torch(*case)
+    assert (args[4].smem_bytes > 48 * 1024) == (arcs > 24000)
+    frames, _bytes = walk_chunks(states, args[4])
+    assert (-(-(F - 1) // frames) if frames else 0) == chunks
+    want = path_walk_torch(*args, F, stats)
+    got = path_walk(*_to(args, cuda), F, stats)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
