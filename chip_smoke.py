@@ -7,9 +7,10 @@ at the full width of the benchmarked model -- TDNN-F 768 x 9, 40-dim MFCC,
 seed -- over the flagship decode graph, then its n-best, silence-weighting
 and lattice paths, the windowed-relaxation entry point and the stream
 scheduler, then the two other acoustic-model families at full width (a
-Kaldi tri1 GMM system and a DeepSpeech-width Coqui STT model) and a chain
-model with Kaldi pitch features, and checks the five hand-written kernels
-against their plain PyTorch twins:
+Kaldi tri1 GMM system and a DeepSpeech-width Coqui STT model), a chain
+model with Kaldi pitch features and a TDNN-LSTM chain model, then bf16
+compute, dither and every nnet3 component type, and checks the five
+hand-written kernels against their plain PyTorch twins:
 
 1. builds ``csrc/mfcc.cu``, ``csrc/viterbi.cu``, ``csrc/windowed_relax.cu``,
    ``csrc/path_walk.cu`` and ``csrc/pitch_viterbi.cu`` with nvcc for
@@ -163,7 +164,43 @@ against their plain PyTorch twins:
    its twin at every cluster size and lane count at the three shapes on
    tie-heavy costs and times each; the tick's p50 / p90, the stream's
    real-time factor, the batch pitch stage and K5 and K4 are printed
-   beside their figures before the redesign (PR 9's chip run).
+   beside their figures before the redesign (PERF.md);
+17. the TDNN-LSTM chain model of Kaldi's swbd ``run_tdnn_lstm_1e.sh``
+   (``testing/full_width.py:write_tdnn_lstm_model_dir``: three LSTMP layers
+   of cell 1,024 with projections 256 + 256 and delay -3, TDNN layers of
+   1,024, ~35 M parameters, random weights from a seed) on the flagship
+   graph: the 32 utterances through ``transcribe_pcm_batch``, counted (one
+   K1 and one K2 launch), transcripts equal to the plain twins' path, K1
+   and K2 on the call's inputs against their twins; log-probs on the card
+   against CPU tensors on 2 utterances (atol 1e-4: above the 2.2e-6 the
+   H100 measured, below a bf16 forward's ~5.7e-3, which 18 holds outside
+   it); one stream counted (one K1 a push, one K2 with ``alpha0`` a chunk) whose
+   chunked log-probs equal the whole utterance's forward on a copy without
+   the extractor (rtol / atol 2e-4); the scheduler at 32 slots on its
+   device route, captured, as in 12 (its AM window stops short of the
+   i-vector tap, so K1 runs a tick in the host featurizer and the captured
+   body holds the recurrent AM, K2 and K4; replays bit-equal with the
+   recurrence rows among the state); the AM stage by CUDA events and host
+   clock, the batch call's stages, the stream's RTF and the tick's p50 /
+   p90;
+18. bf16 (``compute_dtype="bfloat16"``): the flagship's batch call counted
+   (one K1, one K2) with log-probs within ``tests/test_bf16.py``'s bounds
+   of f32 (|d| <= 5% of the f32 spread, argmax agreement >= 90%, flips only
+   on near-ties), the TDNN-LSTM's batch forward within the same bounds and
+   outside 17's card-vs-CPU bound, the AM forward in bf16 and f32 by CUDA
+   events on both models, the captured
+   tick in bf16 (K1, K2, K4 counted, replays bit-equal), and the synthetic
+   speech profile's batch and scheduler transcripts in bf16 equal to f32's
+   and the spoken sentences;
+19. dither: a copy of the flagship model dir with ``--dither=1.0``: the
+   batch call counted (K1 with the call's noise), two calls' features
+   differ, a fresh transcriber's kernels and plain twins transcribe alike,
+   K1 with noise against its twin with the same noise and timed beside the
+   undithered launch; the stream's feature rows, the tick's feature rings
+   and the synthetic Coqui profile's probs equal the undithered ones;
+20. every nnet3 component type: ``testing/component_graph.py``'s graph (a
+   branch a type, 37 types) on the card against CPU tensors (rtol / atol
+   2e-4).
 
 Each kernel's entry in the ``kernels`` line carries ``bound_ms``, the least
 time the card could take for the same work: the larger of its bytes (each
@@ -179,6 +216,8 @@ Without a CUDA device it exits 2 before printing any result.
 """
 
 import asyncio
+import contextlib
+import functools
 import json
 import os
 import shutil
@@ -211,11 +250,20 @@ from rhasspy_speech_torch.testing.synthetic import (  # noqa: E402
     synthesize_ctc_text,
 )
 from rhasspy_speech_torch.testing.full_width import (  # noqa: E402
+    TDNN_LSTM_CELL,
+    TDNN_LSTM_DIM,
+    TDNN_LSTM_PROJ,
     TRI1_GAUSS as GMM_GAUSS,
     write_deepspeech_model_dir,
     write_pitch_model_dir,
+    write_tdnn_lstm_model_dir,
     write_tri1_model_dir,
 )
+from rhasspy_speech_torch.testing.component_graph import (  # noqa: E402
+    INPUT_DIM as COMPONENT_INPUT_DIM,
+    build_all_components_spec,
+)
+from rhasspy_speech_torch.models.nnet3 import SUPPORTED_COMPONENTS, compile_nnet3  # noqa: E402
 from rhasspy_speech_torch.io.kaldi_io import KaldiReader  # noqa: E402
 from rhasspy_speech_torch.io.transition_model import KaldiTransitionModel  # noqa: E402
 from rhasspy_speech_torch.models import gmm as gmm_mod  # noqa: E402
@@ -327,12 +375,34 @@ KERNELS = ("mfcc", "viterbi", "windowed_relax", "path_walk", "pitch_viterbi")
 PITCH_ATOL = 1e-3
 PITCH_LAG_SHARE = 0.02
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM, 700 W
+# TDNN-LSTM log-probs, card vs CPU tensors, both f32: the H100 measured max
+# |d| 2.2e-6 after 112 recurrent steps (PERF.md), and a bf16 forward in the
+# f32 one's place differs by ~5.7e-3 (phase 18 holds it outside this bound),
+# so the bound lies between the two
+LSTM_CPU_RTOL, LSTM_CPU_ATOL = 0.0, 1e-4
+# a stream's chunks against the whole utterance's forward, both on the card:
+# the same steps at the same shapes, tests/test_torch_nnet3_recurrent.py's
+# tolerance
+LSTM_STREAM_TOL = 2e-4
+BF16_SPREAD_SHARE, BF16_MIN_AGREE = 0.05, 0.9  # tests/test_bf16.py's bf16 bounds
+# the all-types graph, card vs CPU: one or two small f32 products a branch,
+# tests/test_torch_nnet3_components.py's tolerance
+ALL_TYPES_TOL = 2e-4
 # The pitch lane's and K4's figures before their redesign (PERF.md, PR 9's
 # chip run, an H100 80GB HBM3 at 700 W), printed beside this run's
 PR9 = {"pitch_tick_p50": 6.452, "pitch_tick_p90": 9.573, "pitch_stream_rtf": 0.0960,
        "pitch_stage_ms": 6.451, "k5_batch": 4.8818, "k5_tick": 3.2356, "k5_push": 3.2429,
        "k4_flagship": 0.0282, "k4_13789": 0.0296, "k4_tri1 flagship": 0.0874}
 SUMMARY = {}  # this run's figures of the same names
+PHASE_S = {}  # each phase's seconds in this run
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Record the seconds the block takes in PHASE_S[name]."""
+    t0 = time.time()
+    yield
+    PHASE_S[name] = round(time.time() - t0, 1)
 
 
 def check(cond, what):
@@ -1227,16 +1297,22 @@ def path_walk_numbers(name, sched, dev):
     return out
 
 
-def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy, min_equal=SCHED_MIN_EQUAL):
+def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy, min_equal=SCHED_MIN_EQUAL,
+                     host_feats=False):
     """The scheduler at 32 slots on one graph, on the device route and
     captured: counted run with every replay held bit-equal to the eager
     body, the kernels' inputs at the tick's shapes probed; transcripts
     against the single stream and the host route (at least ``min_equal``
-    of 32 equal); tick times captured and eager; stage times. Returns
-    (launch counts, probes, scheduler)."""
+    of 32 equal); tick times captured and eager; stage times. With
+    ``host_feats`` the route keeps the features on the host (the AM window
+    does not cover the i-vector tap): K1 runs a tick in the host featurizer,
+    counted by its wrapper, and the captured body takes the host's windows
+    (up to four uploads a tick).
+    Returns (launch counts, probes, scheduler)."""
     sched = StreamScheduler(model_dir, graph_dir, max_streams=BATCH, device=dev, **fuzzy)
     g = sched.device_graph
-    check(sched._device_bp and sched._device_feats, f"{name}: not on the device route")
+    check(sched._device_bp and sched._device_feats != host_feats,
+          f"{name}: not on the device route {'with host' if host_feats else 'with device'} features")
     check(sched.chunk_decoder == "dense", f"{name}: the tick should decode on the Viterbi kernel")
     sched_run(sched, pcms)  # warm-up: each tick body's first call, then its capture
     runner = sched._runner
@@ -1270,10 +1346,14 @@ def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy, min_equal=SCH
     sched._tick.probe, runner.check_next = None, False
     torch.cuda.synchronize()
     counts = sched.kernel_launches
+    if host_feats:
+        counts["mfcc"] = read_counts()["mfcc"]  # the host featurizer's, outside the graphs
     checks = runner.checks[n_checks:]
     check(all(max(t[2].values()) <= 1 for t in ticks),
           f"{name}: a tick launched more than one MFCC, Viterbi, path-walk or pitch-Viterbi kernel")
-    check(all(t[3] <= 1 and t[4] <= 1 for t in ticks), f"{name}: a tick made more than one upload or download")
+    max_up = 4 if host_feats else 1
+    check(all(t[3] <= max_up and t[4] <= 1 for t in ticks),
+          f"{name}: a tick made more than {max_up} uploads or one download")
     check(all(v > 0 for v in counts.values()), f"{name}: kernels not launched: {counts}")
     chunk_ticks = sum(1 for t in ticks if t[1] > 0)
     check(counts["viterbi"] == chunk_ticks, f"{name}: {counts['viterbi']} Viterbi launches for {chunk_ticks} "
@@ -1322,8 +1402,8 @@ def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy, min_equal=SCH
     idle_ms = np.asarray([t[0] for t in ticks if t[1] == 0])
     work = [t for t in ticks if t[1] > 0]
     stage_s, calls = {}, {}
-    names = ("_prep_features_device", "_apply_endpoint_stats", "_step_fused", "_feed_only_dispatch",
-             "_finalize_device", "_harvest_finalizes")
+    names = ("_drain_features_all", "_prep_features_device", "_apply_endpoint_stats", "_step_fused",
+             "_step_chunk", "_feed_only_dispatch", "_finalize_device", "_harvest_finalizes")
     for n in names:
         fn = timed_stage(getattr(sched, n), stage_s, n.lstrip("_"))
 
@@ -1421,13 +1501,12 @@ def speech_endpoints(sched, pcms):
     return texts, fired, ticks, weighed
 
 
-def speech_part(root, dev, gmm=False):
+@functools.lru_cache(maxsize=None)
+def trained_speech_profile(root, gmm=False):
     """The port's synthetic speech profile (an AM context that covers the
-    i-vector tap, and the extractor's CMVN stats: the device route in full),
-    or with ``gmm`` its GMM profile (no i-vector): 8 spoken sentences with
-    trailing silence, never finished, must endpoint to the spoken sentence
-    and the batch transcript, plain and (nnet3) with silence_weight; each
-    stream's endpoint tick beside the host route's."""
+    i-vector tap, and the extractor's CMVN stats), or with ``gmm`` its GMM
+    profile (no i-vector), with its grammar trained: (profile, graph dir),
+    built once a run."""
     kind = "gmm_speech" if gmm else "speech"
     if gmm:
         profile = build_synthetic_gmm_profile(os.path.join(root, f"{kind}_model"), SPEECH_LEXICON)
@@ -1438,7 +1517,18 @@ def speech_part(root, dev, gmm=False):
     intents = {"language": "en", "intents": {"Main": {"data": [{"sentences": SPEECH_GRAMMAR}]}}}
     train_model_sync("en", intents, os.path.join(root, f"{kind}_train"), profile.model_dir,
                      lang_suffixes=[LangSuffix.GRAMMAR])
-    graph_dir = os.path.join(root, f"{kind}_train", lang_dir_name(LangSuffix.GRAMMAR))
+    return profile, os.path.join(root, f"{kind}_train", lang_dir_name(LangSuffix.GRAMMAR))
+
+
+def speech_part(root, dev, gmm=False):
+    """The port's synthetic speech profile (an AM context that covers the
+    i-vector tap, and the extractor's CMVN stats: the device route in full),
+    or with ``gmm`` its GMM profile (no i-vector): 8 spoken sentences with
+    trailing silence, never finished, must endpoint to the spoken sentence
+    and the batch transcript, plain and (nnet3) with silence_weight; each
+    stream's endpoint tick beside the host route's."""
+    kind = "gmm_speech" if gmm else "speech"
+    profile, graph_dir = trained_speech_profile(root, gmm)
     rng = np.random.RandomState(SEED + 11)
     pcms = [np.concatenate([synthesize_sentence(profile, text, seed=SEED + i),
                             _silence_wave(16000 + 2000 * i, rng)]).astype(np.float32)
@@ -1814,15 +1904,23 @@ def coqui_deepspeech_part(root, dev, pcms):
     return launches, k1, stream_counts, k1_push
 
 
-def coqui_synthetic_part(root, dev):
-    """The synthetic CTC profile on the card: spelled texts decode to
-    themselves, batch and streamed."""
+@functools.lru_cache(maxsize=None)
+def trained_ctc_profile(root):
+    """The synthetic CTC profile with its grammar trained: (profile, train
+    dir), built once a run."""
     profile = build_synthetic_ctc_profile(os.path.join(root, "ctc_model"), COQUI_CHARS)
     with open(os.path.join(profile.model_dir, "config.json"), "w", encoding="utf-8") as f:
         json.dump({"type": "coqui"}, f)
     train_dir = os.path.join(root, "ctc_train")
     train_model_sync("en", {"language": "en", "intents": {"Main": {"data": [
         {"sentences": COQUI_SENTENCES}]}}}, train_dir, profile.model_dir)
+    return profile, train_dir
+
+
+def coqui_synthetic_part(root, dev):
+    """The synthetic CTC profile on the card: spelled texts decode to
+    themselves, batch and streamed."""
+    profile, train_dir = trained_ctc_profile(root)
     t = CoquiSttTranscriber(profile.model_dir, train_dir, device=dev)
     for i, text in enumerate(COQUI_TEXTS):
         pcm = synthesize_ctc_text(profile, text, seed=SEED + 40 + i)
@@ -2148,7 +2246,517 @@ def pitch_phase(root, model_dir, graph_dir, graph, dev, pcms, fuzzy, plain_stage
     ]
 
 
+def linked_copy(src, dst, frontend=None):
+    """A model dir at ``dst`` whose files link to ``src``'s, with
+    ``model/frontend.json`` rewritten with ``frontend``'s keys when given."""
+    for sub in ("model", "extractor"):
+        if os.path.isdir(os.path.join(src, sub)):
+            os.makedirs(os.path.join(dst, sub))
+            for name in os.listdir(os.path.join(src, sub)):
+                os.symlink(os.path.join(src, sub, name), os.path.join(dst, sub, name))
+    shutil.copy(os.path.join(src, "config.json"), dst)
+    if frontend is not None:
+        path = os.path.join(dst, "model", "frontend.json")
+        with open(path, encoding="utf-8") as f:
+            cfg = json.load(f)
+        os.unlink(path)
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump({**cfg, **frontend}, f)
+    return dst
+
+
+def plain_texts_of(t, pcms, fuzzy):
+    """The batch through the plain twins on the card: features by the MFCC
+    twin, the same AM, the plain Viterbi decode."""
+    pcm, feat_lengths, lengths, n_out = t._pad_batch(pcms)
+    feats_plain = mfcc_batch_torch(t.am.frontend_params, pcm, t.am.dither_noise(pcm))
+    lp_plain = t.am.log_probs(feats_plain, n_out, feat_lengths=feat_lengths)
+    res = twin_decoder.viterbi_decode(t.device_graph, lp_plain, t.acoustic_scale, lengths)
+    words = twin_decoder.traces_to_words_batch(t.artifacts.graph, *[r.cpu().numpy() for r in res])
+    return t._texts([[] if w is None else [(w, c)] for w, c in words], None,
+                    require_fuzzy=False, **fuzzy)
+
+
+def counted_batch(t, pcms, fuzzy, what):
+    """Two warm-up calls, then one counted call: (transcripts, wall ms,
+    launches), requiring one K1 and one K2 launch."""
+    for _ in range(2):
+        t.transcribe_pcm_batch(pcms, **fuzzy)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    texts = t.transcribe_pcm_batch(pcms, **fuzzy)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1000.0
+    launches = read_counts()
+    check(launches["mfcc"] == 1 and launches["viterbi"] == 1,
+          f"{what}: launches {launches}, expected one K1 and one K2")
+    check(len(texts) == len(pcms) and all(len(x) == 1 for x in texts), f"{what}: {texts[:3]}")
+    return texts, wall_ms, launches
+
+
+def batch_kernel_numbers(t, pcms, what):
+    """K1 and K2 on this batch call's own inputs against their plain
+    versions, timed, with their bounds."""
+    pcm, feat_lengths, lengths, n_out = t._pad_batch(pcms)
+    params = t.am.frontend_params
+    noise = t.am.dither_noise(pcm)
+    feats = mfcc_batch(params, pcm, noise)
+    want = mfcc_batch_torch(params, pcm, noise)
+    torch.cuda.synchronize()
+    err = float((feats - want).abs().max())
+    check(torch.allclose(feats, want, rtol=MFCC_RTOL, atol=MFCC_ATOL),
+          f"{what}: mfcc kernel vs twin max |d| {err}")
+    k1 = {"ms": cuda_ms(lambda: mfcc_batch(params, pcm, noise)),
+          "plain_ms": cuda_ms(lambda: mfcc_batch_torch(params, pcm, noise)), "max_abs_err": err}
+    nbytes, nops = mfcc_work(params, *pcm.shape, feats.shape[1])
+    noise_bytes = 0 if noise is None else 4 * noise.numel()
+    k1["bound_ms"], k1["bound_by"] = bound(nbytes + noise_bytes, nops + 2 * noise_bytes // 4)
+    lp = t.am.log_probs(feats, n_out, feat_lengths=feat_lengths)
+    g = t.device_graph
+    got = viterbi_decode(g, lp, t.acoustic_scale, lengths, return_forward=True)
+    compact = g.num_arcs <= twin_decoder._COMPACT_BP_MAX_ARC
+    alpha, bps = twin_decoder.viterbi(g, lp, t.acoustic_scale, lengths, compact_bp=compact)
+    want2 = twin_decoder.backtrace(g, alpha, bps) + (alpha, bps)
+    torch.cuda.synchronize()
+    check(decode_outputs_equal(got, want2), f"{what}: viterbi kernel differs from its twin")
+    k2 = {"ms": cuda_ms(lambda: viterbi_decode(g, lp, t.acoustic_scale, lengths)),
+          "plain_ms": cuda_ms(lambda: twin_decoder.viterbi(g, lp, t.acoustic_scale, lengths,
+                                                           compact_bp=compact), iters=3),
+          "max_abs_err": float((got[3] - want2[3]).abs().max())}
+    k2["bound_ms"], k2["bound_by"] = bound(*viterbi_work(g, *lp.shape, lengths))
+    print(f"{what}: K1 {list(pcm.shape)} -> {list(feats.shape)}"
+          f"{'' if noise is None else ' with noise ' + str(list(noise.shape))}: max |d| {err:.3e}, "
+          f"kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
+          f"({k1['bound_by']}); K2 {list(lp.shape)}: bit-equal, kernel {k2['ms']:.4f} ms, plain "
+          f"{k2['plain_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms ({k2['bound_by']})")
+    return k1, k2
+
+
+def am_inputs(t, pcms):
+    """The batch's AM inputs at its bucket: (model, windows, i-vectors)."""
+    pcm, feat_lengths, _lengths, n_out = t._pad_batch(pcms)
+    feats = t.am.features(pcm)
+    model = t.am.compiled(n_out)
+    lo, hi = model.ranges["input"]
+    idx = cached_index(np.clip(np.arange(lo, hi), 0, feats.shape[1] - 1), feats.device)
+    ivec = extract_ivectors(feats[..., : t.am.frontend_config.num_ceps], t.am.ivector_params,
+                            lengths=feat_lengths)
+    return model, feats[:, idx].contiguous(), ivec
+
+
+def device_busy(fn):
+    """One call of ``fn`` under torch.profiler, tracing the card alone:
+    (device events, their summed device ms, the call's wall ms), or None
+    where the trace holds no device event. The events are read from the
+    raw trace: parsing it into ``prof.events()`` took ~15 s of host time
+    for a TDNN-LSTM forward's 15,239 kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000.0
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()]
+    if not evs:
+        return None
+    return len(evs), sum(e.duration_ns() for e in evs) / 1e6, wall
+
+
+def am_inputs_call(t, pcms, _cache={}):
+    """One AM forward of the batch's bucket (inputs made once a model)."""
+    key = id(t)
+    if key not in _cache:
+        _cache[key] = am_inputs(t, pcms)
+    model, x, ivec = _cache[key]
+    return model(x, ivec)
+
+
+def am_ms(t, pcms, iters=5):
+    """The AM forward of the batch's bucket: (CUDA-event ms, host-clock ms
+    of one call ended by a synchronize)."""
+    model, x, ivec = am_inputs(t, pcms)
+    ev = cuda_ms(lambda: model(x, ivec), iters=iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model(x, ivec)
+    torch.cuda.synchronize()
+    return ev, (time.perf_counter() - t0) * 1000.0
+
+
+def within_bf16_bounds(out16, out32, what):
+    """tests/test_bf16.py's bounds: |d| <= 5% of the f32 spread, the argmax
+    equal on >= 90% of the rows, flips only where the f32 gap is within the
+    same bound. Returns (max |d|, spread, agreement)."""
+    spread = float(out32.max() - out32.min())
+    delta = float((out16 - out32).abs().max())
+    top32, top16 = out32.argmax(-1), out16.argmax(-1)
+    agree = float((top32 == top16).float().mean())
+    flipped = top32 != top16
+    gap = 0.0
+    if bool(flipped.any()):
+        picked = torch.gather(out32, -1, top16[..., None])[..., 0]
+        gap = float((out32.max(-1).values - picked)[flipped].max())
+    check(delta <= BF16_SPREAD_SHARE * spread and agree >= BF16_MIN_AGREE
+          and gap <= BF16_SPREAD_SHARE * spread,
+          f"{what}: bf16 log-probs |d| {delta} of spread {spread}, argmax agreement {agree}, "
+          f"largest flipped gap {gap}")
+    return delta, spread, agree
+
+
+def lstm_matches_cpu(lp_dev, lp_cpu):
+    """The TDNN-LSTM's card log-probs within LSTM_CPU_RTOL / LSTM_CPU_ATOL
+    of the CPU's."""
+    return torch.allclose(lp_dev.cpu(), lp_cpu, rtol=LSTM_CPU_RTOL, atol=LSTM_CPU_ATOL)
+
+
+def tdnn_lstm_batch_part(lstm_dir, graph_dir, dev, pcms, fuzzy):
+    """The TDNN-LSTM batch call: counted (one K1, one K2), transcripts equal
+    to the plain twins' path, K1 and K2 on its inputs, log-probs against
+    CPU tensors on 2 utterances, the AM timed by CUDA events and host
+    clock, the call's stages. Returns (the transcriber, launches, K1's and
+    K2's numbers, the CPU's log-probs of the 2 utterances)."""
+    t = Nnet3WavTranscriber(lstm_dir, graph_dir, device=dev)
+    texts, wall_ms, launches = counted_batch(t, pcms, fuzzy, "TDNN-LSTM batch")
+    check(plain_texts_of(t, pcms, fuzzy) == texts,
+          "TDNN-LSTM: transcripts differ between the kernels and the plain twins")
+    k1, k2 = batch_kernel_numbers(t, pcms, "TDNN-LSTM batch")
+    # one CPU forward: its transcripts, and the log-probs it decoded
+    tc = Nnet3WavTranscriber(lstm_dir, graph_dir, device="cpu")
+    kept = []
+    acoustic = tc._acoustic_batch
+
+    def keep(batch):
+        out = acoustic(batch)
+        kept.append(out[0])
+        return out
+
+    tc._acoustic_batch = keep
+    check(tc.transcribe_pcm_batch(pcms[:2], **fuzzy) == texts[:2],
+          "TDNN-LSTM: CPU tensors transcribe differently")
+    lp_cpu = kept[0]
+    lp_dev, _ = t._acoustic_batch(pcms[:2])
+    err = float((lp_dev.cpu() - lp_cpu).abs().max())
+    check(lstm_matches_cpu(lp_dev, lp_cpu), f"TDNN-LSTM log-probs, card vs CPU: max |d| {err}")
+    model, x, iv = am_inputs(t, pcms)
+    ev, host = am_ms(t, pcms, iters=3)
+    busy = device_busy(lambda: model(x, iv))
+    busy_text = ("not measured (no device events in the trace)" if busy is None else
+                 f"{busy[0]} device events ({busy[0] / model.plan.num_out_frames:.1f} a step), "
+                 f"{busy[1]:.3f} ms of device time in a {busy[2]:.3f} ms call (idle share "
+                 f"{1.0 - busy[1] / busy[2]:.3f})")
+    stages = stage_ms(t, pcms, fuzzy)
+    print(f"TDNN-LSTM batch: {BATCH} x {SECONDS} s in {wall_ms:.1f} ms; launches {launches}; "
+          f"transcripts equal to the plain twins' path; log-probs [2, {lp_dev.shape[1]}, "
+          f"{lp_dev.shape[2]}] card vs CPU max |d| {err:.3e} (rtol {LSTM_CPU_RTOL} / atol "
+          f"{LSTM_CPU_ATOL}), transcripts equal; AM forward of the bucket "
+          f"({model.plan.num_out_frames} recurrent steps, batch {BATCH}): {ev:.3f} ms by CUDA "
+          f"events, {host:.3f} ms host clock; torch.profiler: {busy_text}; stages (ms, "
+          f"synchronized): {stages}")
+    SUMMARY["lstm_batch_ms"], SUMMARY["lstm_am_ms"] = wall_ms, (ev, host)
+    return t, launches, k1, k2, lp_cpu
+
+
+def tdnn_lstm_stream_part(root, lstm_dir, graph_dir, dev, pcms, fuzzy):
+    """One stream of the TDNN-LSTM: counted (one K1 a push, one K2 a
+    chunk); on a copy without the extractor (both paths read a zero
+    i-vector) the chunks' log-probs equal the whole utterance's forward;
+    the stream's real-time factor with the extractor. Returns the counts."""
+    bare = linked_copy(lstm_dir, os.path.join(root, "lstm_no_extractor"))
+    shutil.rmtree(os.path.join(bare, "extractor"))
+    st = Nnet3StreamTranscriber(bare, graph_dir, device=dev)
+    check(st._chunk_model.recurrent and st._ivp is None, "TDNN-LSTM stream: expected a bare "
+          "recurrent model")
+    stream_pcm(st, pcms[0], **fuzzy)
+    chunks = []
+    decode = st._decode_chunk
+
+    def keep(state, log_probs, n_valid):
+        chunks.append(log_probs[0, :n_valid].clone())
+        return decode(state, log_probs, n_valid)
+
+    st._decode_chunk = keep
+    zero_counts()
+    _texts, state, pushes = stream_pcm(st, pcms[0], **fuzzy)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    del st._decode_chunk
+    check(counts["mfcc"] == pushes and counts["viterbi"] == len(chunks) == len(state.bps),
+          f"TDNN-LSTM stream launches {counts} for {pushes} pushes and {len(chunks)} chunks")
+    got = torch.cat(chunks)
+    T = state.feats.shape[0]
+    whole = st.am.log_probs(torch.as_tensor(state.feats[None], device=dev), -(-T // 3))[0]
+    err = float((got - whole).abs().max())
+    check(got.shape == whole.shape and torch.allclose(got, whole, rtol=LSTM_STREAM_TOL,
+                                                      atol=LSTM_STREAM_TOL),
+          f"TDNN-LSTM stream: chunked log-probs vs whole max |d| {err}")
+    st_iv = Nnet3StreamTranscriber(lstm_dir, graph_dir, device=dev)
+    st_iv.transcribe_pcm(pcms[5], chunk_samples=STREAM_CHUNK, **fuzzy)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_iv.transcribe_pcm(pcms[5], chunk_samples=STREAM_CHUNK, **fuzzy)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    rtf = min(walls) / SECONDS
+    print(f"TDNN-LSTM stream: {pushes} pushes, {len(chunks)} chunks, launches {counts}; chunked "
+          f"log-probs {list(got.shape)} equal to the whole utterance's forward, max |d| {err:.3e} "
+          f"(atol {LSTM_STREAM_TOL}); with the extractor one {SECONDS} s stream "
+          f"{min(walls) * 1000:.1f} ms (min of 3; real-time factor {rtf:.5f})")
+    SUMMARY["lstm_stream_rtf"] = rtf
+    return counts
+
+
+def tdnn_lstm_phase(root, model_dir, graph_dir, graph, dev, pcms, fuzzy):
+    """Phase 17: the TDNN-LSTM chain model (testing/full_width.
+    write_tdnn_lstm_model_dir at run_tdnn_lstm_1e.sh's widths) on the
+    flagship graph: batch, stream and the scheduler's captured device route.
+    Returns (kernels-line entries, the f32 batch transcriber, the CPU's
+    log-probs of 2 utterances)."""
+    t0 = time.time()
+    with open(os.path.join(model_dir, "model", "phones.txt"), encoding="utf-8") as f:
+        phones = SymbolTable.read_text(f)
+    max_phone = max(pid for (p, pid) in phones if pid != 0 and not p.startswith("#"))
+    lstm_dir = write_tdnn_lstm_model_dir(
+        os.path.join(root, "lstm_model"), num_pdfs=graph.num_pdfs, max_phone=max_phone,
+        ivector_dim=IVEC_DIM, ubm_gauss=UBM_GAUSS, seed=SEED + 13)
+    shutil.copy(os.path.join(model_dir, "model", "phones.txt"), os.path.join(lstm_dir, "model"))
+    print(f"TDNN-LSTM model dir (cell {TDNN_LSTM_CELL}, projections {TDNN_LSTM_PROJ} + "
+          f"{TDNN_LSTM_PROJ}, TDNN {TDNN_LSTM_DIM}, delay -3, ivector {IVEC_DIM}) written in "
+          f"{time.time() - t0:.1f} s")
+    with phase("tdnn-lstm batch"):
+        t, launches, k1, k2, lp_cpu = tdnn_lstm_batch_part(lstm_dir, graph_dir, dev, pcms, fuzzy)
+    with phase("tdnn-lstm stream"):
+        stream_counts = tdnn_lstm_stream_part(root, lstm_dir, graph_dir, dev, pcms, fuzzy)
+    with phase("tdnn-lstm scheduler"):
+        counts, _probes, sched = sched_graph_part("tdnn_lstm", lstm_dir, graph_dir, dev, pcms,
+                                                  fuzzy, host_feats=True)
+    rec = sched._st.rec
+    check(sched._recurrent and set(rec) == set(sched._chunk_model.plan.carried),
+          "TDNN-LSTM scheduler: no recurrence rows in the tick state")
+    k4 = path_walk_numbers("tdnn_lstm", sched, dev)
+    print(f"TDNN-LSTM scheduler: recurrence rows {[list(v.shape) for v in rec.values()]}; K1 "
+          f"{counts['mfcc']} launches in the host featurizer (the AM window ends at input frame "
+          f"{sched._win_hi}, short of the i-vector tap's {sched._chunk_in + sched._ivp.splice_right}: "
+          f"features stay on the host), K2 and K4 in the captured body; stream launches "
+          f"{stream_counts}")
+    del sched
+    entry = {"route": "cuda", "library_ms": None}
+    k1_src = {"source": "rhasspy_speech_torch/csrc/mfcc.cu",
+              "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122"}
+    k2_src = {"source": "rhasspy_speech_torch/csrc/viterbi.cu",
+              "replaces": "rhasspy_speech_tpu/ops/pallas_decoder.py:370"}
+    return [
+        {"name": "mfcc_tdnn_lstm", "launches": launches["mfcc"], **entry, **k1_src, **k1},
+        {"name": "viterbi_tdnn_lstm", "launches": launches["viterbi"], **entry, **k2_src, **k2},
+        {"name": "path_walk_tdnn_lstm_sched_tick", "launches": counts["path_walk"], **entry,
+         "source": "rhasspy_speech_torch/csrc/path_walk.cu",
+         "replaces": "rhasspy_speech_tpu/pipeline/scheduler.py:838", **k4},
+    ], t, lp_cpu
+
+
+def bf16_sched_part(model_dir, graph_dir, dev, pcms, fuzzy):
+    """The flagship's scheduler at 32 slots in bf16, captured: counted,
+    every replay bit-equal to the eager body, transcripts against the f32
+    scheduler's, tick times."""
+    sched = StreamScheduler(model_dir, graph_dir, max_streams=BATCH, device=dev,
+                            compute_dtype="bfloat16", **fuzzy)
+    check(sched._bf16 and sched._device_bp and sched._device_feats,
+          "bf16 scheduler: not a bf16 AM on the device route")
+    sched_run(sched, pcms)
+    runner = sched._runner
+    runner.launches = dict.fromkeys(runner.launches, 0)
+    n_checks = len(runner.checks)
+
+    def on_tick():
+        runner.check_next = True
+
+    runner.check_next = True
+    texts, ticks, _wall = sched_run(sched, pcms, on_tick)
+    runner.check_next = False
+    torch.cuda.synchronize()
+    counts = sched.kernel_launches
+    checks = runner.checks[n_checks:]
+    check(all(counts[k] > 0 for k in ("mfcc", "viterbi", "path_walk")),
+          f"bf16 scheduler: launches {counts}")
+    check(checks and all(all(eq.values()) for _k, eq in checks),
+          "bf16 scheduler: a replay differs from the eager tick body")
+    f32 = StreamScheduler(model_dir, graph_dir, max_streams=BATCH, device=dev, **fuzzy)
+    f32_texts, _t, _w = sched_run(f32, pcms)
+    same = sum(a == b for a, b in zip(texts, f32_texts))
+    p50, p90 = tick_ms(sched_run(sched, pcms)[1])
+    print(f"bf16 scheduler (flagship, {BATCH} slots, captured): launches {counts}; {len(checks)} "
+          f"replays bit-equal to the eager body; {same} of {BATCH} transcripts equal the f32 "
+          f"scheduler's (random weights on noise); tick p50 {p50:.3f} p90 {p90:.3f} ms (host clock)")
+    return counts
+
+
+def bf16_phase(root, model_dir, lstm32, lstm_cpu, graph_dir, dev, pcms, fuzzy):
+    """Phase 18: compute_dtype="bfloat16" on the flagship's batch call
+    (counted; log-probs within tests/test_bf16.py's bounds of f32) and its
+    captured tick, the AM forward in bf16 and f32 by CUDA events (flagship
+    and TDNN-LSTM, whose batch forward also stays within the bounds, and
+    outside phase 17's card-vs-CPU bound of ``lstm_cpu``, the CPU's f32
+    log-probs of 2 utterances; ``lstm32`` is phase 17's f32 transcriber),
+    and the synthetic speech profile's transcripts equal to f32's."""
+    t32 = Nnet3WavTranscriber(model_dir, graph_dir, device=dev)
+    t16 = Nnet3WavTranscriber(model_dir, graph_dir, device=dev, compute_dtype="bfloat16")
+    texts16, _wall, launches16 = counted_batch(t16, pcms, fuzzy, "bf16 batch")
+    texts32 = t32.transcribe_pcm_batch(pcms, **fuzzy)
+    walls = {}
+    for _ in range(3):  # in turns, host clock, each call synchronized
+        for name, tt in (("f32", t32), ("bf16", t16)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tt.transcribe_pcm_batch(pcms, **fuzzy)
+            torch.cuda.synchronize()
+            walls.setdefault(name, []).append((time.perf_counter() - t0) * 1000.0)
+    lp32, _ = t32._acoustic_batch(pcms)
+    lp16, _ = t16._acoustic_batch(pcms)
+    check(lp16.dtype == torch.float32, "bf16 log-probs must come back in f32")
+    delta, spread, agree = within_bf16_bounds(lp16, lp32, "flagship")
+    same = sum(a == b for a, b in zip(texts16, texts32))
+    times = {}
+    for name, a32 in (("flagship", t32), ("tdnn_lstm", lstm32)):
+        a16 = t16 if name == "flagship" else Nnet3WavTranscriber(
+            lstm32.model_dir, graph_dir, device=dev, compute_dtype="bfloat16")
+        # CUDA events in turns (f32, bf16, bf16, f32), then each forward's
+        # device time from the profiler: a host-bound forward's events time
+        # the host's dispatch, the trace the card's own work. The
+        # TDNN-LSTM's forward takes ~0.35 s: one timed call a turn
+        ev = {"f32": [], "bf16": []}
+        for dt, a in (("f32", a32), ("bf16", a16), ("bf16", a16), ("f32", a32)):
+            ev[dt].append(am_ms(a, pcms, iters=3 if name == "flagship" else 1)[0])
+        busy = {dt: device_busy(lambda a=a: am_inputs_call(a, pcms))
+                for dt, a in (("f32", a32), ("bf16", a16))}
+        times[name] = {dt: (round(min(ev[dt]), 4),
+                            "not measured" if busy[dt] is None else round(busy[dt][1], 4))
+                       for dt in ev}
+        if name == "tdnn_lstm":
+            lstm16, _ = a16._acoustic_batch(pcms[:4])
+            lstm32, _ = a32._acoustic_batch(pcms[:4])
+            lstm_bounds = within_bf16_bounds(lstm16, lstm32, "TDNN-LSTM")
+            lstm16_2, _ = a16._acoustic_batch(pcms[:2])
+            cpu_d = float((lstm16_2.cpu() - lstm_cpu).abs().max())
+            check(not lstm_matches_cpu(lstm16_2, lstm_cpu),
+                  f"the TDNN-LSTM card-vs-CPU bound passes a bf16 forward (max |d| {cpu_d})")
+    print(f"bf16 batch (flagship): {BATCH} x {SECONDS} s, calls in turns (ms, host clock) "
+          f"f32 {[round(w, 2) for w in walls['f32']]} bf16 {[round(w, 2) for w in walls['bf16']]}; "
+          f"launches "
+          f"{launches16}; log-probs max |d| {delta:.4f} of an f32 spread {spread:.2f}, argmax "
+          f"agreement {agree:.4f}; {same} of {BATCH} transcripts equal f32's (random weights on "
+          f"noise); TDNN-LSTM bf16 on 4 utterances: |d| {lstm_bounds[0]:.4f} of {lstm_bounds[1]:.2f}, "
+          f"agreement {lstm_bounds[2]:.4f}, against the CPU's f32 max |d| {cpu_d:.4f} (outside "
+          f"phase 17's atol {LSTM_CPU_ATOL}); AM forward (ms: CUDA events, min of 2 in turns; "
+          f"device time by torch.profiler): {times}")
+    SUMMARY["am_f32_bf16"] = times
+    with phase("bf16 scheduler"):
+        counts = bf16_sched_part(model_dir, graph_dir, dev, pcms, fuzzy)
+    # the synthetic speech profile: bf16 transcripts equal f32's and the
+    # spoken sentences, batch and scheduler
+    profile, sgraph = trained_speech_profile(root)
+    speech = [synthesize_sentence(profile, text, seed=SEED + 60 + i)
+              for i, text in enumerate(SPEECH_TEXTS)]
+    spoken = [[x] for x in SPEECH_TEXTS]
+    got = {}
+    for dt in (None, "bfloat16"):
+        tb = Nnet3WavTranscriber(profile.model_dir, sgraph, device=dev, compute_dtype=dt)
+        s = StreamScheduler(profile.model_dir, sgraph, max_streams=len(speech), device=dev,
+                            compute_dtype=dt)
+        got[dt] = (tb.transcribe_pcm_batch(speech), sched_run(s, speech)[0])
+    check(got["bfloat16"] == got[None] == (spoken, spoken),
+          f"synthetic profile: bf16 transcripts {got['bfloat16']} vs f32 {got[None]}")
+    print(f"bf16 on the synthetic speech profile: {len(speech)} sentences, batch and scheduler "
+          f"transcripts equal f32's and the spoken sentences")
+    return launches16, counts
+
+
+def dither_phase(root, model_dir, graph_dir, dev, pcms, fuzzy):
+    """Phase 19: the flagship with --dither=1.0: the batch call counted (K1
+    with the call's noise), two calls differ, K1 with noise against its twin
+    with the same noise; the stream's and the tick's feature rows and the
+    synthetic Coqui profile's probs equal the undithered ones. Returns the
+    kernels-line entry."""
+    dith = linked_copy(model_dir, os.path.join(root, "dither_model"), {"dither": 1.0})
+    t = Nnet3WavTranscriber(dith, graph_dir, device=dev)
+    check(t.am.frontend_config.dither == 1.0, "the dithered model dir does not dither")
+    texts, wall_ms, launches = counted_batch(t, pcms, fuzzy, "dithered batch")
+    pcm = t._pad_batch(pcms[:2])[0]
+    check(not torch.allclose(t.am.features(pcm), t.am.features(pcm)),
+          "two dithered calls gave the same features")
+    check(plain_texts_of(Nnet3WavTranscriber(dith, graph_dir, device=dev), pcms, fuzzy)
+          == Nnet3WavTranscriber(dith, graph_dir, device=dev).transcribe_pcm_batch(pcms, **fuzzy),
+          "dithered: a fresh transcriber's kernels and plain twins transcribe differently")
+    k1, _k2 = batch_kernel_numbers(t, pcms, "dithered batch")
+    pcm = t._pad_batch(pcms)[0]
+    plain_k1 = cuda_ms(lambda: mfcc_batch(t.am.frontend_params, pcm))
+    # the other routes run undithered
+    st = {d: Nnet3StreamTranscriber(d, graph_dir, device=dev) for d in (model_dir, dith)}
+    rows = {d: stream_pcm(s, pcms[0], **fuzzy)[1].feats for d, s in st.items()}
+    check(np.array_equal(rows[model_dir], rows[dith]), "dithered stream rows differ")
+    ring = {}
+    for d in (model_dir, dith):
+        s = StreamScheduler(d, graph_dir, max_streams=2, device=dev, **fuzzy)
+        check(s._device_feats, "dither: the scheduler should keep features on the device")
+        sched_run(s, pcms[:2])
+        ring[d] = s._st.feats_ring.clone()
+    check(torch.equal(ring[model_dir], ring[dith]), "dithered tick feature rings differ")
+    profile, train_dir = trained_ctc_profile(root)
+    fj = os.path.join(profile.model_dir, "frontend.json")
+    with open(fj, encoding="utf-8") as f:
+        cfg = json.load(f)
+    speech = synthesize_ctc_text(profile, COQUI_TEXTS[0], seed=SEED + 70)
+    probs = {}
+    for d in (0.0, 1.0):
+        with open(fj, "w", encoding="utf-8") as f:
+            json.dump({**cfg, "dither": d}, f)
+        c = CoquiSttTranscriber(profile.model_dir, train_dir, device=dev)
+        check(c.frontend_config.dither == d, "the Coqui frontend did not read its dither")
+        probs[d] = c.compute_probs(speech)
+    with open(fj, "w", encoding="utf-8") as f:
+        json.dump(cfg, f)
+    check(np.array_equal(probs[0.0], probs[1.0]), "dithered Coqui probs differ")
+    print(f"dithered batch (flagship, --dither=1.0): {BATCH} x {SECONDS} s in {wall_ms:.1f} ms; "
+          f"launches {launches}; two calls' features differ; a fresh transcriber's kernels and "
+          f"plain twins transcribe alike; K1 with noise {k1['ms']:.4f} ms against {plain_k1:.4f} "
+          f"without (CUDA events); stream rows, tick feature rings and Coqui probs equal the "
+          f"undithered ones")
+    return {"name": "mfcc_dither", "route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
+            "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122", "library_ms": None,
+            "launches": launches["mfcc"], **k1}
+
+
+def all_types_phase(dev):
+    """Phase 20: testing/component_graph.py's graph (every component type
+    the port forwards, on a branch of its own) on the card against the port
+    on CPU tensors."""
+    spec = build_all_components_spec(seed=SEED + 5)
+    T, B = 64, 8
+    md = compile_nnet3(spec, T, subsampling=1, device=dev)
+    mc = compile_nnet3(spec, T, subsampling=1, device="cpu")
+    lo, hi = md.ranges["input"]
+    x = torch.as_tensor(np.random.RandomState(SEED + 6).randn(B, hi - lo, COMPONENT_INPUT_DIM)
+                        .astype(np.float32))
+    got = md(x.to(dev)).cpu()
+    want = mc(x)
+    err = float((got - want).abs().max())
+    check(got.shape == want.shape and bool(torch.isfinite(got).all())
+          and torch.allclose(got, want, rtol=ALL_TYPES_TOL, atol=ALL_TYPES_TOL),
+          f"all-types graph, card vs CPU: max |d| {err}")
+    types = {c.type for n, c in spec.components.items() if n.startswith("comp")}
+    check(types == SUPPORTED_COMPONENTS, "the all-types graph misses a type")
+    print(f"all-types graph: {len(types)} component types, [{B}, {hi - lo}, "
+          f"{COMPONENT_INPUT_DIM}] -> {list(got.shape)}, card vs CPU max |d| {err:.3e} "
+          f"(rtol / atol {ALL_TYPES_TOL})")
+
+
 def main():
+    run_t0 = time.time()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2238,34 +2846,58 @@ def main():
               "CPU twins transcribe differently")
         print(f"card vs CPU twins on 2 utterances: log-probs max |d| {cpu_err:.3e}, transcripts equal")
 
+        PHASE_S["main path"] = round(time.time() - run_t0, 1)
+
         # -- n-best, silence weighting, lattices --------------------------------
-        nbest_phase(t, tc, pcms, fuzzy)
-        silence_phase(model_dir, graph_dir, dev, pcms, fuzzy)
-        lattice_phase(t, tc, pcms)
+        with phase("nbest, silence, lattices"):
+            nbest_phase(t, tc, pcms, fuzzy)
+            silence_phase(model_dir, graph_dir, dev, pcms, fuzzy)
+            lattice_phase(t, tc, pcms)
 
         # -- streaming: K1 a push, K2 with a carried alpha a chunk --------------
-        k2_chunk = carried_alpha_phase(t, lp_k, lengths, dev)
-        stream_counts, k1_push = stream_phase(root, model_dir, graph_dir, t, dev, pcms, fuzzy)
+        with phase("stream"):
+            k2_chunk = carried_alpha_phase(t, lp_k, lengths, dev)
+            stream_counts, k1_push = stream_phase(root, model_dir, graph_dir, t, dev, pcms, fuzzy)
         del t, tc
 
         # -- the big-graph decoders ---------------------------------------------
-        big_dirs = big_graph_phase(root, dev, pcms)
+        with phase("big graph"):
+            big_dirs = big_graph_phase(root, dev, pcms)
 
         # -- the stream scheduler: one K1 and one K2 launch a tick --------------
-        sched_counts, k1_tick, k2_tick, k4_tick, k4_big = scheduler_phase(
-            model_dir, graph_dir, big_dirs, root, dev, pcms, fuzzy)
+        with phase("scheduler"):
+            sched_counts, k1_tick, k2_tick, k4_tick, k4_big = scheduler_phase(
+                model_dir, graph_dir, big_dirs, root, dev, pcms, fuzzy)
 
         # -- the Kaldi GMM family (tri1) on the batch, stream and scheduler
         # routes; the Coqui CTC family (DeepSpeech) ---------------------------
-        gmm_entries = gmm_phase(root, model_dir, graph_dir, big_dirs, dev, pcms, fuzzy)
-        coqui_entries = coqui_phase(root, dev, pcms)
+        with phase("gmm"):
+            gmm_entries = gmm_phase(root, model_dir, graph_dir, big_dirs, dev, pcms, fuzzy)
+        with phase("coqui"):
+            coqui_entries = coqui_phase(root, dev, pcms)
 
         # -- Kaldi pitch features (K5) on the batch, stream and scheduler
         # routes ------------------------------------------------------------
-        pitch_entries = pitch_phase(root, model_dir, graph_dir, graph, dev, pcms, fuzzy, main_stages)
+        with phase("pitch"):
+            pitch_entries = pitch_phase(root, model_dir, graph_dir, graph, dev, pcms, fuzzy,
+                                        main_stages)
+
+        # -- the TDNN-LSTM on the batch, stream and scheduler routes; bf16;
+        # dither; every component type --------------------------------------
+        with phase("tdnn-lstm"):
+            lstm_entries, lstm32, lstm_cpu = tdnn_lstm_phase(root, model_dir, graph_dir, graph,
+                                                             dev, pcms, fuzzy)
+        with phase("bf16"):
+            bf16_phase(root, model_dir, lstm32, lstm_cpu, graph_dir, dev, pcms, fuzzy)
+        del lstm32
+        with phase("dither"):
+            dither_entry = dither_phase(root, model_dir, graph_dir, dev, pcms, fuzzy)
+        with phase("all types"):
+            all_types_phase(dev)
 
     # -- K3: the windowed relaxation's entry point ----------------------------
-    k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = windowed_relax_phase(dev)
+    with phase("windowed relaxation"):
+        k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = windowed_relax_phase(dev)
 
     # no single PyTorch call computes Kaldi's MFCC, a Viterbi pass, the
     # windowed relaxation, a backpointer walk or a pitch-lag Viterbi:
@@ -2321,10 +2953,14 @@ def main():
         *gmm_entries,
         *coqui_entries,
         *pitch_entries,
+        *lstm_entries,
+        dither_entry,
     ]
     loaded = sorted(m for m in sys.modules if m.partition(".")[0] in ("jax", "jaxlib", "rhasspy_speech_tpu"))
     check(not loaded, f"the port imported JAX or the JAX package: {loaded[:5]}")
     print("no module of jax or rhasspy_speech_tpu was imported")
+    print(f"chip_smoke: whole run {time.time() - run_t0:.1f} s; seconds a phase (the main "
+          f"path's with the build): {PHASE_S}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

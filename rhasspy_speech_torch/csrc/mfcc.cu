@@ -34,7 +34,10 @@
 // - The mel filterbank walks each filter's nonzero band only (the wrapper
 //   passes the bands; adding the dense product's zeros changes no bit), and
 //   the DCT is a [M, C] product, both per warp from L1-cached tables.
-// - Only PCM enters and cepstra leave device memory.
+// - Only PCM enters and cepstra leave device memory, and with dither the
+//   noise [B, T, L] (standard normal, drawn by the caller): each frame
+//   sample gets dither * noise as it is loaded, before the DC mean, as
+//   ops/frontend.py mfcc_batch_torch adds it.
 //
 // Measured on the card (step-by-step timings of one warp, PERF.md): every
 // step of a frame, the FFT's stages most, waits on the shared memory that
@@ -78,6 +81,8 @@ __global__ void __launch_bounds__(kThreads) mfcc_kernel(
     const float* __restrict__ mel_val,   // band weights, concatenated
     const float* __restrict__ dct,       // [M, C]
     const float* __restrict__ lifter,    // [C] or null
+    const float* __restrict__ noise,     // [B, T, L] or null: dither draw
+    float dither,
     float* __restrict__ out,             // [B, T, C]
     int S, int T, int L, int shift, int N, int M, int C,
     int snip_edges, int remove_dc, float preemph, int use_energy, int raw_energy,
@@ -110,8 +115,12 @@ __global__ void __launch_bounds__(kThreads) mfcc_kernel(
   float* fr = xs[warp];
   float* re = zr[warp];
   float* im = zi[warp];
-  for (int k = lane; k < N; k += 32)
-    fr[k] = k < L ? x[sample_index(f, k, S, shift, L, snip_edges)] : 0.0f;
+  const float* nz = noise ? noise + ((size_t)b * T + f) * L : nullptr;
+  for (int k = lane; k < N; k += 32) {
+    float v = k < L ? x[sample_index(f, k, S, shift, L, snip_edges)] : 0.0f;
+    if (nz && k < L) v = __fadd_rn(v, __fmul_rn(dither, nz[k]));
+    fr[k] = v;
+  }
   __syncwarp();
 
   // time-domain steps
@@ -278,7 +287,8 @@ int rss_mfcc_max_mel() { return kMaxMel; }
 
 int rss_mfcc_launch(const float* pcm, const float* window, const float* twiddle,
                     const int* mel_ptr, const int* mel_bin0, const float* mel_val,
-                    const float* dct, const float* lifter, float* out, int B, int S,
+                    const float* dct, const float* lifter, const float* noise,
+                    float dither, float* out, int B, int S,
                     int T, int L, int shift, int N, int M, int C,
                     int snip_edges, int remove_dc, float preemph, int use_energy,
                     int raw_energy, int energy_floored, float log_energy_floor,
@@ -287,7 +297,8 @@ int rss_mfcc_launch(const float* pcm, const float* window, const float* twiddle,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + kFrames - 1) / kFrames, B);
   mfcc_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      pcm, window, twiddle, mel_ptr, mel_bin0, mel_val, dct, lifter, out, S, T, L,
+      pcm, window, twiddle, mel_ptr, mel_bin0, mel_val, dct, lifter, noise, dither, out,
+      S, T, L,
       shift, N, M, C, snip_edges, remove_dc, preemph, use_energy,
       raw_energy, energy_floored, log_energy_floor);
   return (int)cudaGetLastError();

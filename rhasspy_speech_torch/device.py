@@ -9,10 +9,13 @@ import torch
 
 # The AM matmuls and the feature math are held to the JAX package's f32
 # numerics; TF32 keeps about three decimal digits (ARCHITECTURE.md, "MXU
-# precision", records the damage to log-mel features). Both switches are
+# precision", records the damage to log-mel features). A bf16 AM
+# (compute_dtype="bfloat16") accumulates its products in f32, as the JAX
+# package's do, so cuBLAS may not reduce them in bf16. The switches are
 # stated here, so importing the port fixes them for the process.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:

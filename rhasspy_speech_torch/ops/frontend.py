@@ -14,7 +14,7 @@ kernel is checked against on the card.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -278,18 +278,15 @@ def make_frontend_params(
     )
 
 
-def check_supported(cfg: FrontendConfig) -> None:
-    if cfg.dither != 0.0:
-        raise NotImplementedError(
-            "dither > 0 is not ported (ROADMAP Queue 1, frontend dither)"
-        )
-
-
-def mfcc_batch_torch(params: FrontendParams, samples: torch.Tensor) -> torch.Tensor:
+def mfcc_batch_torch(
+    params: FrontendParams, samples: torch.Tensor, noise: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """[B, S] f32 samples (int16 range) -> [B, T, num_ceps] f32 MFCCs,
-    T = num_frames(cfg, S), on the samples' device."""
+    T = num_frames(cfg, S), on the samples' device. ``noise`` [B, T,
+    frame_length] is standard normal dither: ``cfg.dither * noise`` is added
+    to the frames before DC removal (Kaldi's Dither, feature-window.cc), so
+    overlapping frames get independent noise."""
     cfg = params.cfg
-    check_supported(cfg)
     B, S = samples.shape
     T = num_frames(cfg, S)
     if T == 0:
@@ -297,6 +294,8 @@ def mfcc_batch_torch(params: FrontendParams, samples: torch.Tensor) -> torch.Ten
 
     idx = torch.as_tensor(frame_indices(cfg, S), device=samples.device)
     frames = samples[:, idx]  # [B, T, frame_length]
+    if noise is not None:
+        frames = frames + cfg.dither * noise
 
     if cfg.remove_dc_offset:
         frames = frames - frames.mean(dim=-1, keepdim=True)

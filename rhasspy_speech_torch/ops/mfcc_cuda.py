@@ -17,12 +17,13 @@ on it) and are reached by the CPU tests.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
 
 from . import _build
-from .frontend import FrontendParams, check_supported, mfcc_batch_torch, num_frames
+from .frontend import FrontendParams, mfcc_batch_torch, num_frames
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,7 +34,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("mfcc")
     if lib.rss_mfcc_launch.argtypes is None:
         lib.rss_mfcc_launch.argtypes = (
-            [_P] * 9 + [_I] * 10 + [_F] + [_I] * 3 + [_F, _I, _P]
+            [_P] * 9 + [_F, _P] + [_I] * 10 + [_F] + [_I] * 3 + [_F, _I, _P]
         )
         lib.rss_mfcc_launch.restype = _I
         lib.rss_mfcc_max_window.restype = _I
@@ -75,15 +76,18 @@ def _tables(params: FrontendParams):
     return tables
 
 
-def mfcc_batch(params: FrontendParams, samples: torch.Tensor) -> torch.Tensor:
-    """[B, S] f32 samples -> [B, T, num_ceps] f32 MFCCs (see
+def mfcc_batch(
+    params: FrontendParams, samples: torch.Tensor, noise: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """[B, S] f32 samples -> [B, T, num_ceps] f32 MFCCs; ``noise`` [B, T,
+    frame_length] f32 is the dither's standard normal draw, added times
+    ``cfg.dither`` to each frame before DC removal (see
     ``ops.frontend.mfcc_batch_torch`` for the semantics)."""
     if samples.device.type == "cpu":
-        return mfcc_batch_torch(params, samples)
+        return mfcc_batch_torch(params, samples, noise)
     if samples.device.type != "cuda":
         raise ValueError(f"mfcc_batch: unsupported device {samples.device}")
     cfg = params.cfg
-    check_supported(cfg)
     if samples.dim() != 2 or samples.dtype != torch.float32:
         raise ValueError("mfcc_batch: samples must be [B, S] float32")
     if params.device != samples.device:
@@ -96,6 +100,14 @@ def mfcc_batch(params: FrontendParams, samples: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, T, cfg.num_ceps), dtype=torch.float32, device=samples.device)
     if B == 0 or T == 0:
         return out
+    if noise is not None:
+        if (noise.shape != (B, T, cfg.frame_length) or noise.dtype != torch.float32
+                or noise.device != samples.device):
+            raise ValueError(
+                f"mfcc_batch: noise must be [{B}, {T}, {cfg.frame_length}] float32 on "
+                f"{samples.device}, got {tuple(noise.shape)} {noise.dtype} on {noise.device}"
+            )
+        noise = noise.contiguous()
     lib = _lib()
     N, L, M = cfg.padded_window_size, cfg.frame_length, cfg.num_mel_bins
     if N % 2:
@@ -121,6 +133,8 @@ def mfcc_batch(params: FrontendParams, samples: torch.Tensor) -> torch.Tensor:
         mel_val.data_ptr(),
         params.dct.data_ptr(),
         None if lifter is None else lifter.data_ptr(),
+        None if noise is None else noise.data_ptr(),
+        cfg.dither,
         out.data_ptr(),
         B, S, T, L, cfg.frame_shift, N, M, cfg.num_ceps,
         int(cfg.snip_edges), int(cfg.remove_dc_offset), cfg.preemph_coeff,

@@ -8,8 +8,9 @@ alpha ``[N, S]``, the backpointer ring ``[N, F + chunk, S]`` (uint16
 ``bp + 3`` bits: 0 no frame, 2 dead, arc + 3), its write offsets, the
 i-vector statistics and carried tap window, the silence weights, and on the
 fused route the feature ring ``[N, FT, D]`` with its cumulative-sum twin for
-the i-vector CMVN, and for a pitch model a PCM history ring. A tick's bodies
-update it in place:
+the i-vector CMVN, for a pitch model a PCM history ring, and for a
+recurrent AM its per-slot recurrence rows ``[N, depth, dim]`` (``rec``). A
+tick's bodies update it in place:
 
 - ``body_fused``: one ``pcm_meta`` upload ``[N, L + 16]`` (PCM and seven
   int32 slot scalars as 16-bit halves; ``[N, L + 24]`` and ten scalars for a
@@ -83,10 +84,19 @@ class TickState:
     feats_ring: torch.Tensor  # [N, FT, D] f32
     cum_ring: torch.Tensor  # [N, FT, C] f32: cumulative feature sums
     pcm_ring: torch.Tensor  # [N, Wp + R] f32: sample s at s + Wp (pitch)
+    # a recurrent AM's carried node -> [N, depth, dim] rows
+    rec: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """Every state tensor by name (the recurrence rows as ``rec.<node>``)."""
+        out = {f.name: getattr(self, f.name) for f in dataclasses.fields(self) if f.name != "rec"}
+        out.update({f"rec.{k}": v for k, v in self.rec.items()})
+        return out
 
     def clone(self) -> "TickState":
         return TickState(**{f.name: getattr(self, f.name).clone()
-                            for f in dataclasses.fields(self)})
+                            for f in dataclasses.fields(self) if f.name != "rec"},
+                         rec={k: v.clone() for k, v in self.rec.items()})
 
 
 @dataclass(frozen=True)
@@ -314,6 +324,8 @@ class DeviceTick:
         cfg = self.cfg
         st.alpha.copy_(torch.where(reset[:, None], self.graph.init_weight[None, :], st.alpha))
         st.offs.copy_(torch.where(reset, 0, st.offs))
+        for rows in st.rec.values():
+            rows.copy_(torch.where(reset[:, None, None], 0.0, rows))
         ivec = None
         if self.ivector_dim is not None:
             if self.ivp is None:
@@ -337,7 +349,15 @@ class DeviceTick:
                 elif cfg.carry_device:
                     off = -ivp.splice_left - cfg.win_lo
                     st.iv_carry.copy_(windows[:, off : off + st.iv_carry.shape[1], : cfg.num_ceps])
-        log_probs = self.chunk_model(windows, ivec)
+        if st.rec:
+            # a recurrent AM continues from each slot's rows; an idle slot
+            # (n_valid 0) keeps them
+            log_probs, new = self.chunk_model.forward_with_state(windows, st.rec, ivec)
+            active = (n_valid > 0)[:, None, None]
+            for k, v in new.items():
+                st.rec[k].copy_(torch.where(active, v, st.rec[k]))
+        else:
+            log_probs = self.chunk_model(windows, ivec)
         if self.probe is not None:
             self.probe["viterbi"] = (log_probs.clone(), n_valid.clone(), st.alpha.clone())
         if cfg.dense:
@@ -442,8 +462,9 @@ class TickRunner:
             twin = st.clone()
             body(twin, *[s.clone() for s in static])
             graph.replay()
-            self.checks.append((key, {f.name: torch.equal(getattr(st, f.name), getattr(twin, f.name))
-                                      for f in dataclasses.fields(st)}))
+            eager = twin.tensors()
+            self.checks.append((key, {name: torch.equal(t, eager[name])
+                                      for name, t in st.tensors().items()}))
         else:
             graph.replay()
         self._add(recorded)

@@ -74,8 +74,17 @@ computes one sliding window a slot (one launch a tick) and writes the new
 rows into the feature ring's pitch columns; the ready loop reads only rows
 whose pitch is written (``_plan_pitch``).
 
-The ``mulaw`` / ``adpcm`` wires and ``mesh`` (item 16), and a bfloat16 AM
-and recurrent plans (item 4) raise ``NotImplementedError``.
+**Recurrent plans and bf16.** A recurrent (TDNN-LSTM) chunk model keeps
+per-slot recurrence rows ``[max_streams, depth, dim]`` (``_am_state`` on
+the host route, ``TickState.rec`` on the device route): a reopened slot's
+rows go back to zero in the next device step, and a slot with nothing to
+decode (``n_valid == 0``) keeps its rows, as the reference's. With
+``compute_dtype="bfloat16"`` the chunk AM of a model that is neither
+recurrent nor a GMM computes in bf16 (``_bf16``; the reference keeps a
+recurrent model's carried state in f32); decode costs stay f32.
+
+The ``mulaw`` / ``adpcm`` wires and ``mesh`` (item 16) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -203,7 +212,6 @@ class StreamScheduler:
             raise ValueError(f"wire must be 'i16', 'mulaw' or 'adpcm', got {wire!r}")
         self.device = resolve_device(device)
         self._chunk_out = int(chunk_out_frames)
-        # raises for a bf16 AM (item 4)
         self.am = AcousticModel(Path(model_dir), compute_dtype=compute_dtype, device=self.device)
         self.artifacts = LangArtifacts.load(graph_dir)
         if self.artifacts.graph is None:
@@ -222,8 +230,12 @@ class StreamScheduler:
         self.pool = StreamPool(max_streams, pool_capacity_samples)
         self.slots: List[_SlotState] = [_SlotState() for _ in range(max_streams)]
         self._featurizer = StreamFeaturizer(self.am)
-        # raises for a recurrent plan (item 4)
-        self._chunk_model = self.am.chunk_model(self._chunk_out)
+        cm = self.am.chunk_model(self._chunk_out)
+        self._recurrent = cm.recurrent
+        # a recurrent model's carried state stays f32 (the reference's rule);
+        # a GMM has no products to cast
+        self._bf16 = self.am.bf16 and not self._recurrent and self.am.spec is not None
+        self._chunk_model = cm.cast(torch.bfloat16) if self._bf16 else cm
         self._win_lo, self._win_hi = self._chunk_model.ranges["input"]
         self._chunk_in = self._chunk_out * self.am.subsampling
         cfg = self.am.frontend_config
@@ -279,9 +291,12 @@ class StreamScheduler:
         if self._device_bp:
             self._init_device_route()
         else:
-            # every slot's alpha and i-vector statistics, reset through
-            # _pending_reset
+            # every slot's alpha, i-vector statistics and recurrence rows,
+            # reset through _pending_reset
             self._alpha = self.device_graph.init_weight[None, :].repeat(max_streams, 1)
+            self._am_state = (
+                self._chunk_model.init_state(max_streams) if self._recurrent else {}
+            )
             if ivp is not None:
                 num_gauss, lda_dim = int(ivp.gconsts.shape[0]), int(ivp.lda.shape[0])
                 self._iv_gamma = torch.zeros((max_streams, num_gauss), device=self.device)
@@ -389,6 +404,7 @@ class StreamScheduler:
                 (N, fz.pitch_window + self._feat_ring_frames * fz.frame_shift + self._drain_cap)
                 if self._pitch_device else (N, 1)
             ),
+            rec=self._chunk_model.init_state(N) if self._recurrent else {},
         )
         # the reference's names for the state the tick updates in place
         st = self._st
@@ -730,8 +746,8 @@ class StreamScheduler:
 
     def _reset_lanes(self) -> None:
         """Slots reopened since the last device step start again from the
-        graph's initial alpha (what a fresh single stream starts from) and
-        zero i-vector statistics."""
+        graph's initial alpha (what a fresh single stream starts from), zero
+        i-vector statistics and zero recurrence rows."""
         lanes = np.flatnonzero(self._pending_reset)
         if lanes.size:
             idx = torch.as_tensor(lanes, device=self.device)
@@ -739,6 +755,8 @@ class StreamScheduler:
             if self._ivp is not None:
                 self._iv_gamma[idx] = 0.0
                 self._iv_X[idx] = 0.0
+            for rows in self._am_state.values():
+                rows[idx] = 0.0
             self._pending_reset[:] = False
 
     def _fold_ivector(
@@ -760,9 +778,18 @@ class StreamScheduler:
         self._iv_X += X
         return solve_ivector(self._iv_gamma, self._iv_X, ivp)
 
-    def _acoustic(self, windows: torch.Tensor, ivec: Optional[torch.Tensor]) -> torch.Tensor:
-        """Every slot's chunk log-probs [N, chunk_out_frames, P]."""
-        return self._chunk_model(windows, ivec)
+    def _acoustic(
+        self, windows: torch.Tensor, ivec: Optional[torch.Tensor], lengths: torch.Tensor
+    ) -> torch.Tensor:
+        """Every slot's chunk log-probs [N, chunk_out_frames, P]. A recurrent
+        plan continues from every slot's rows; a slot with no valid frame
+        (``lengths`` 0) keeps its old rows."""
+        if not self._recurrent:
+            return self._chunk_model(windows, ivec)
+        log_probs, new = self._chunk_model.forward_with_state(windows, self._am_state, ivec)
+        active = (lengths > 0)[:, None, None]
+        self._am_state = {k: torch.where(active, v, self._am_state[k]) for k, v in new.items()}
+        return log_probs
 
     def _decode(self, log_probs: torch.Tensor, lengths: torch.Tensor, rows: int) -> torch.Tensor:
         """Advance every slot's alpha over its ``lengths`` frames; returns
@@ -798,7 +825,7 @@ class StreamScheduler:
         windows_d, lengths, iv_wins, iv_ws = self._upload(windows, n_valid)
         self._reset_lanes()
         ivec = self._fold_ivector(iv_wins, iv_ws)
-        log_probs = self._acoustic(windows_d, ivec)
+        log_probs = self._acoustic(windows_d, ivec, lengths)
         bps = self._decode(log_probs, lengths, int(n_valid.max()))
         self.device_dispatches += 1
         if self._ivp is not None:

@@ -45,8 +45,11 @@ push that can release a pitch frame runs one ``[1, Wp]`` window, so one
 launch of the pitch-Viterbi kernel on a card. The i-vector taps the rows'
 base MFCC columns.
 
-Recurrent nnet3 plans (ROADMAP Queue 1, item 4) are not ported:
-``compile_nnet3`` raises ``NotImplementedError`` naming the item.
+A recurrent (TDNN-LSTM) plan carries its recurrence state
+(``state.am_state``, ``CompiledNnet3.init_state``: zero at
+``start_stream``) from chunk to chunk through ``forward_with_state``, so a
+stream's log-probs equal the whole utterance's. The stream's AM runs in
+f32, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -104,6 +107,7 @@ class StreamingDecoderState:
         self.feat_state = None  # StreamFeatState (MFCC assembly)
         self.frames_consumed = 0  # input frames fed to the AM so far
         self.alpha: Optional[torch.Tensor] = None  # [S], or [S, K] for n-best
+        self.am_state: Dict[str, torch.Tensor] = {}  # a recurrent AM's carry
         self.bps: List[np.ndarray] = []  # [chunk][Tc, S] int32 (or [Tc, S, K])
         self.out_frames = 0
         # streaming i-vector: accumulated stats + the previous chunk's
@@ -183,6 +187,8 @@ class Nnet3StreamTranscriber:
             )
             alpha[:, 0] = init
             state.alpha = alpha
+        if self._chunk_model.recurrent:
+            state.am_state = self._chunk_model.init_state(1)
         ivp = self._ivp
         if ivp is not None:
             num_gauss, lda_dim = int(ivp.gconsts.shape[0]), int(ivp.lda.shape[0])
@@ -234,9 +240,16 @@ class Nnet3StreamTranscriber:
         return solve_ivector(state.iv_gamma[None], state.iv_X[None], ivp)
 
     def _acoustic(
-        self, feats_window: torch.Tensor, ivec: Optional[torch.Tensor]
+        self, state: StreamingDecoderState, feats_window: torch.Tensor,
+        ivec: Optional[torch.Tensor],
     ) -> torch.Tensor:
-        """The chunk's log-probs [1, 7, P]."""
+        """The chunk's log-probs [1, 7, P]; a recurrent plan continues from
+        ``state.am_state`` and leaves its new carry there."""
+        if self._chunk_model.recurrent:
+            log_probs, state.am_state = self._chunk_model.forward_with_state(
+                feats_window[None], state.am_state, ivec
+            )
+            return log_probs
         return self._chunk_model(feats_window[None], ivec)
 
     def _decode_chunk(
@@ -292,7 +305,7 @@ class Nnet3StreamTranscriber:
         K] flat k-best ids."""
         feats_window, iv_win, iv_w = self._upload(state, window)
         ivec = self._fold_ivector(state, iv_win, iv_w)
-        log_probs = self._acoustic(feats_window, ivec)
+        log_probs = self._acoustic(state, feats_window, ivec)
         return self._download(self._decode_chunk(state, log_probs, n_valid))
 
     def _extract_feats(self, state: StreamingDecoderState, pcm: np.ndarray) -> None:

@@ -41,8 +41,19 @@ runs once a batch call on a card. Pitch runs over the zero-padded batch as
 the JAX package pads it. The i-vector taps the base MFCCs; a GMM takes
 deltas over ``[MFCC | pitch]``.
 
-Not ported yet, and raising ``NotImplementedError`` rather than answering
-differently: bfloat16 compute (ROADMAP Queue 1).
+A recurrent (TDNN-LSTM) nnet3 model decodes the same way: its plan steps
+one recurrence stride at a time over the bucket's window from zero state
+(``models/nnet3.py``). ``compute_dtype="bfloat16"`` (or ``"bf16"``, or
+``RSTPU_COMPUTE_DTYPE``) runs each bucket's AM forward in bf16 -- features
+and i-vector cast in, log-probs cast back to f32 -- and keeps the decode
+costs in f32.
+
+With ``dither > 0`` in the frontend config (Kaldi's ``--dither``), each
+batch call draws standard normal noise of the frames' shape ``[B, T,
+frame_length]`` from a generator seeded with 42 and the call's count, and
+the MFCC kernel (or its twin on the CPU) adds ``dither`` times it to each
+frame before DC removal, as the JAX package's batch route does. The stream,
+scheduler and Coqui routes run undithered, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import os
 import wave
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -98,6 +110,8 @@ from .rescore import rescore_lattice, rescore_tail
 _LOGGER = logging.getLogger(__name__)
 
 _BUCKET = 16  # output frames are padded to a multiple of this
+_BF16 = ("bfloat16", "bf16")
+_DITHER_SEED = 42
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -141,8 +155,17 @@ class AcousticModel:
         device: Union[str, torch.device] = "cuda",
     ):
         self.device = resolve_device(device)
-        if compute_dtype not in (None, "float32", "f32"):
-            raise _not_ported(f"compute_dtype={compute_dtype!r}", "item 4 (bf16 AM)")
+        # the AM forward's precision: f32 (the default) or bf16, also from
+        # RSTPU_COMPUTE_DTYPE as in the JAX package
+        self.compute_dtype = compute_dtype or os.environ.get("RSTPU_COMPUTE_DTYPE")
+        if self.compute_dtype not in (None, "float32", "f32", *_BF16):
+            raise ValueError(
+                f"compute_dtype must be float32 or bfloat16, got {self.compute_dtype!r}"
+            )
+        self.bf16 = self.compute_dtype in _BF16
+        # dither: a fresh draw per call, from a seed folded with the call's count
+        self._dither_calls = 0
+        self._dither_gen = torch.Generator(device=self.device)
         model_dir = Path(model_dir)
         self.model_dir = model_dir
         mdl_path = model_dir / "model" / "final.mdl"
@@ -236,6 +259,9 @@ class AcousticModel:
         return self.transition_model.num_pdfs
 
     def compiled(self, num_out_frames: int) -> CompiledNnet3:
+        """The bucket's AM plan for ``num_out_frames`` outputs, cast to bf16
+        when the model computes in bf16 (its forward still takes and returns
+        f32)."""
         if self.spec is None:
             raise ValueError(
                 "a GMM acoustic model has no nnet3 plan: batch decoding runs through "
@@ -246,24 +272,42 @@ class AcousticModel:
             model = compile_nnet3(
                 self.spec, num_out_frames, subsampling=self.subsampling, device=self.device
             )
+            if self.bf16:
+                model = model.cast(torch.bfloat16)
             self._buckets[num_out_frames] = model
         return model
 
     def chunk_model(self, chunk_out: int):
-        """The streaming chunk model for ``chunk_out`` output frames: a
-        ``GmmChunkModel`` for a GMM, else the ``compile_nnet3`` plan (which
-        raises for a recurrent plan, ROADMAP Queue 1, item 4)."""
+        """The streaming chunk model for ``chunk_out`` output frames, in f32:
+        a ``GmmChunkModel`` for a GMM, else the ``compile_nnet3`` plan
+        (recurrent or not)."""
         if self.gmm is not None:
             return GmmChunkModel(self.gmm, chunk_out)
         return compile_nnet3(self.spec, chunk_out, subsampling=self.subsampling, device=self.device)
 
     def features(self, pcm: torch.Tensor) -> torch.Tensor:
         """[B, samples] f32 on this model's device -> [B, T, D]: the MFCCs,
-        with a pitch model's 3 pitch columns appended."""
-        mfcc = mfcc_batch(self.frontend_params, pcm)
+        with a pitch model's 3 pitch columns appended. With dither each call
+        draws new noise (``dither_noise``)."""
+        mfcc = mfcc_batch(self.frontend_params, pcm, self.dither_noise(pcm))
         if self.pitch_config is not None:
             mfcc = self._append_pitch(mfcc, pcm)
         return mfcc
+
+    def dither_noise(self, pcm: torch.Tensor) -> Optional[torch.Tensor]:
+        """None without dither; else this call's standard normal draw of the
+        frames' shape [B, T, frame_length] on the model's device, from the
+        generator seeded with 42 and the call's count (the JAX package folds
+        the count into ``PRNGKey(42)``): call k's noise depends on k and the
+        shape alone, so two fresh models draw alike call for call."""
+        cfg = self.frontend_config
+        if cfg.dither == 0.0:
+            return None
+        self._dither_calls += 1
+        self._dither_gen.manual_seed((_DITHER_SEED << 32) + self._dither_calls)
+        shape = (pcm.shape[0], num_frames(cfg, pcm.shape[1]), cfg.frame_length)
+        return torch.randn(shape, generator=self._dither_gen, dtype=torch.float32,
+                           device=self.device)
 
     def _append_pitch(self, mfcc: torch.Tensor, pcm: torch.Tensor) -> torch.Tensor:
         """Append the 3-dim Kaldi pitch features, aligned to the MFCC frame

@@ -34,6 +34,26 @@ written from a seed (no download): the published shapes, random weights.
   ``model/conf/pitch.conf`` is the recipe's (Kaldi's pitch defaults at
   16 kHz). The network's input transform is the flagship's (identity plus
   seeded noise), so the pitch columns carry non-zero random weights.
+- ``write_tdnn_lstm_model_dir``: a Kaldi TDNN-LSTM chain model, the layout
+  of ``egs/swbd/s5c/local/chain/tuning/run_tdnn_lstm_1e.sh``
+  (``build_tdnn_lstm_spec``): 40 hires MFCC + a 100-dim i-vector into a
+  fixed-affine ``lda`` over ``Append(-2,-1,0,1,2,ReplaceIndex(ivector, t,
+  0))``; ``relu-batchnorm-layer`` tdnn1-3 at 1,024 (tdnn2 and tdnn3 over
+  ``Append(-1,0,1)``); three ``fast-lstmp-layer``s (cell 1,024, recurrent
+  and non-recurrent projections 256, ``delay=-3``) with tdnn4-7 at 1,024,
+  two between each pair; the output affine over lstm3; frame subsampling
+  3; the flagship's pdfs, extractor and graph. Each LSTM is wired as
+  Kaldi's ``XconfigFastLstmpLayer`` wires it: ``W_all`` over ``Append(input,
+  IfDefined(Offset(r_trunc, -3)))``, ``lstm_nonlin`` over ``Append(W_all,
+  IfDefined(Offset(c_trunc, -3)))``, dim-ranges ``c`` / ``m``, ``W_rp``
+  (cell -> 512), and a BackpropTruncation node over ``Append(c, r)`` with
+  dim-ranges ``c_trunc`` / ``r_trunc``. Two time offsets differ from the
+  recipe, because the stepwise evaluator of a recurrent plan (the JAX
+  package's, and so the port's) reads a carried recurrence only at the
+  step's own time: tdnn4-7 splice ``Append(0,0,0)`` where the recipe has
+  ``Append(-3,0,3)`` (the same widths and products, no time context), and
+  the output has no ``output-delay`` (the recipe's label delay is 5).
+  About 35 M parameters.
 """
 
 from __future__ import annotations
@@ -51,8 +71,9 @@ from ..io.transition_model import KaldiTransitionModel
 from ..ops.deltas import delta_kernels
 from ..io.nnet3_file import write_nnet3
 from ..ops.frontend import FrontendConfig, frontend_from_mfcc_conf, mfcc_numpy
+from ..io.nnet3_file import ComponentSpec, NodeSpec, Nnet3Spec, parse_descriptor
 from .flagship import write_flagship_model_dir
-from .tdnnf import build_tdnnf_spec
+from .tdnnf import _affine, _batchnorm, _relu, build_tdnnf_spec
 
 TRI1_PDFS = 2000
 TRI1_GAUSS = 10000
@@ -208,4 +229,132 @@ def write_pitch_model_dir(
     conf.mkdir(parents=True, exist_ok=True)
     (conf / "online.conf").write_text("--add-pitch=true\n", encoding="utf-8")
     (conf / "pitch.conf").write_text(PITCH_CONF, encoding="utf-8")
+    return model_dir
+
+
+# run_tdnn_lstm_1e.sh's widths
+TDNN_LSTM_DIM = 1024
+TDNN_LSTM_CELL = 1024
+TDNN_LSTM_PROJ = 256  # recurrent and non-recurrent projection, each
+TDNN_LSTM_DELAY = -3
+# the recipe's tdnn4-7 splice: Append(-3,0,3), here at offset 0 (module docstring)
+TDNN_LSTM_MID_SPLICE = (0, 0, 0)
+
+
+def build_tdnn_lstm_spec(
+    num_pdfs: int,
+    input_dim: int = 40,
+    ivector_dim: int = 100,
+    hidden_dim: int = TDNN_LSTM_DIM,
+    cell_dim: int = TDNN_LSTM_CELL,
+    proj_dim: int = TDNN_LSTM_PROJ,
+    mid_splice=TDNN_LSTM_MID_SPLICE,
+    output_delay: int = 0,
+    seed: int = 0,
+) -> Nnet3Spec:
+    """The TDNN-LSTM network of ``run_tdnn_lstm_1e.sh`` (module docstring),
+    random weights from ``seed``; ``mid_splice`` and ``output_delay`` are
+    tdnn4-7's splice and the output's delay (``(-3, 0, 3)`` and 5 give the
+    recipe's, which neither package's stepwise evaluator runs)."""
+    rng = np.random.RandomState(seed)
+    comps = {}
+    nodes = [NodeSpec(kind="input", name="ivector", dim=ivector_dim),
+             NodeSpec(kind="input", name="input", dim=input_dim)]
+
+    def node(name, desc, comp=None):
+        nodes.append(NodeSpec(kind="component", name=name, component=comp or name,
+                              input=parse_descriptor(desc)))
+
+    def dim_range(name, src, offset, dim):
+        nodes.append(NodeSpec(kind="dim-range", name=name, input_node=src, dim=dim,
+                              dim_offset=offset))
+
+    def splice(src, offsets):
+        return "Append(" + ", ".join(f"Offset({src}, {o})" if o else src for o in offsets) + ")"
+
+    lda_dim = 5 * input_dim + ivector_dim
+    comps["lda"] = ComponentSpec("lda", "FixedAffineComponent", {
+        "LinearParams": np.eye(lda_dim, dtype=np.float32)
+        + 0.01 * rng.randn(lda_dim, lda_dim).astype(np.float32),
+        "BiasParams": np.zeros(lda_dim, dtype=np.float32),
+    })
+    node("lda", splice("input", (-2, -1, 0, 1, 2))[:-1] + ", ReplaceIndex(ivector, t, 0))")
+
+    def relu_bn(name, desc, in_dim):
+        comps[f"{name}.affine"] = _affine(rng, f"{name}.affine", in_dim, hidden_dim)
+        comps[f"{name}.relu"] = _relu(f"{name}.relu", hidden_dim)
+        comps[f"{name}.batchnorm"] = _batchnorm(rng, f"{name}.batchnorm", hidden_dim)
+        node(f"{name}.affine", desc)
+        node(f"{name}.relu", f"{name}.affine")
+        node(f"{name}.batchnorm", f"{name}.relu")
+        return f"{name}.batchnorm"
+
+    def lstmp(name, src, in_dim):
+        d = TDNN_LSTM_DELAY
+        comps[f"{name}.W_all"] = _affine(rng, f"{name}.W_all", in_dim + proj_dim, 4 * cell_dim)
+        comps[f"{name}.lstm_nonlin"] = ComponentSpec(f"{name}.lstm_nonlin", "LstmNonlinearityComponent", {
+            "LearningRate": 0.001,
+            "Params": (0.1 * rng.randn(3, cell_dim)).astype(np.float32),
+            "ValueAvg": np.zeros((0, 0), np.float32), "DerivAvg": np.zeros((0, 0), np.float32),
+            "Count": 0.0,
+        })
+        comps[f"{name}.W_rp"] = _affine(rng, f"{name}.W_rp", cell_dim, 2 * proj_dim)
+        comps[f"{name}.cr_trunc"] = ComponentSpec(f"{name}.cr_trunc", "BackpropTruncationComponent", {
+            "Dim": cell_dim + proj_dim, "Scale": 1.0, "ClippingThreshold": 30.0,
+            "ZeroingThreshold": 15.0, "ZeroingInterval": 20, "RecurrenceInterval": -d,
+        })
+        node(f"{name}.W_all", f"Append({src}, IfDefined(Offset({name}.r_trunc, {d})))")
+        node(f"{name}.lstm_nonlin", f"Append({name}.W_all, IfDefined(Offset({name}.c_trunc, {d})))")
+        dim_range(f"{name}.c", f"{name}.lstm_nonlin", 0, cell_dim)
+        dim_range(f"{name}.m", f"{name}.lstm_nonlin", cell_dim, cell_dim)
+        node(f"{name}.W_rp", f"{name}.m")
+        dim_range(f"{name}.r", f"{name}.W_rp", 0, proj_dim)
+        node(f"{name}.cr_trunc", f"Append({name}.c, {name}.r)")
+        dim_range(f"{name}.c_trunc", f"{name}.cr_trunc", 0, cell_dim)
+        dim_range(f"{name}.r_trunc", f"{name}.cr_trunc", cell_dim, proj_dim)
+        return f"{name}.W_rp"
+
+    prev = relu_bn("tdnn1", "lda", lda_dim)
+    prev = relu_bn("tdnn2", splice(prev, (-1, 0, 1)), 3 * hidden_dim)
+    prev = relu_bn("tdnn3", splice(prev, (-1, 0, 1)), 3 * hidden_dim)
+    prev = lstmp("lstm1", prev, hidden_dim)
+    k = len(mid_splice)
+    for i, lstm in ((4, "lstm2"), (6, "lstm3")):
+        prev = relu_bn(f"tdnn{i}", splice(prev, mid_splice), k * 2 * proj_dim)
+        prev = relu_bn(f"tdnn{i + 1}", splice(prev, mid_splice), k * hidden_dim)
+        prev = lstmp(lstm, prev, hidden_dim)
+    comps["output.affine"] = _affine(rng, "output.affine", 2 * proj_dim, num_pdfs)
+    node("output.affine", prev)
+    nodes.append(NodeSpec(kind="output", name="output", input=parse_descriptor(
+        f"Offset(output.affine, {output_delay})" if output_delay else "output.affine")))
+    return Nnet3Spec(nodes=nodes, components=comps)
+
+
+def write_tdnn_lstm_model_dir(
+    model_dir: Union[str, Path],
+    num_pdfs: int,
+    max_phone: int,
+    hidden_dim: int = TDNN_LSTM_DIM,
+    cell_dim: int = TDNN_LSTM_CELL,
+    proj_dim: int = TDNN_LSTM_PROJ,
+    ivector_dim: int = 100,
+    ubm_gauss: int = 512,
+    num_ceps: int = 40,
+    seed: int = 13,
+) -> Path:
+    """Write the flagship model dir (``testing/flagship.py``: extractor,
+    ``frontend.json``, ``config.json``), then its ``model/final.mdl`` again
+    with the TDNN-LSTM network (``build_tdnn_lstm_spec``, weights from
+    ``seed``); returns ``model_dir``."""
+    model_dir = write_flagship_model_dir(
+        model_dir, num_pdfs=num_pdfs, max_phone=max_phone, hidden_dim=64,
+        num_tdnnf_layers=1, ivector_dim=ivector_dim, ubm_gauss=ubm_gauss,
+        num_ceps=num_ceps, seed=seed,
+    )
+    spec = build_tdnn_lstm_spec(
+        num_pdfs=num_pdfs, input_dim=num_ceps, ivector_dim=ivector_dim,
+        hidden_dim=hidden_dim, cell_dim=cell_dim, proj_dim=proj_dim, seed=seed,
+    )
+    with open(model_dir / "model" / "final.mdl", "wb") as f:
+        write_nnet3(f, spec, transition_model=KaldiTransitionModel.from_monophone_chain(max_phone))
     return model_dir

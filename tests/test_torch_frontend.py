@@ -86,9 +86,19 @@ def test_mfcc_short_input_gives_no_frames():
 
 
 def test_dither_raises():
+    """Dither no longer raises: the twin adds ``dither`` times the noise it
+    is given to the frames (tests/test_torch_dither.py holds it to the JAX
+    package's dither), and without noise it runs undithered, as the
+    stream, scheduler and Coqui routes call it."""
     params = tf.make_frontend_params(tf.FrontendConfig(dither=1.0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.mfcc_batch_torch(params, torch.zeros((1, 800)))
+    plain = tf.make_frontend_params(tf.FrontendConfig(), "cpu")
+    pcm = torch.as_tensor(speech_like(np.random.RandomState(4), 1600)[None])
+    want = tf.mfcc_batch_torch(plain, pcm)
+    assert torch.equal(tf.mfcc_batch_torch(params, pcm), want)
+    T = tf.num_frames(params.cfg, 1600)
+    noise = torch.as_tensor(np.random.RandomState(5).randn(1, T, 400).astype(np.float32))
+    got = tf.mfcc_batch_torch(params, pcm, noise)
+    assert got.shape == want.shape and not torch.allclose(got, want)
 
 
 def test_copied_config_equals_original():

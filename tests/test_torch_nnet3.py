@@ -104,12 +104,28 @@ def test_descriptor_kinds_match_jax():
 
 
 def test_unported_graphs_raise():
+    """Every type the JAX package forwards is ported now, and recurrent
+    graphs plan (tests/test_torch_nnet3_components.py,
+    tests/test_torch_nnet3_recurrent.py); a type neither package forwards
+    and a back-edge to the present or the future still raise, as in the
+    JAX package."""
     spec = _desc_spec()
-    spec.components["relu"] = ComponentSpec("relu", "TanhComponent", {"Dim": 5})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    spec.components["relu"] = ComponentSpec("relu", "FrobnicatorComponent", {"Dim": 5})
+    with pytest.raises(NotImplementedError, match="FrobnicatorComponent"):
         tn.plan_nnet3(spec, 4, subsampling=1)
+    for delay in (0, 1):
+        rec = _desc_spec()
+        rec.nodes[1] = NodeSpec(kind="component", name="a", component="a", input=parse_descriptor(
+            f"Sum(input, IfDefined(Offset(b, {delay})))"))
+        with pytest.raises(NotImplementedError, match=rf"recurrent offsets \[{delay}\]"):
+            jn.compile_nnet3(rec, 4, subsampling=1)
+        with pytest.raises(NotImplementedError, match=rf"recurrent offsets \[{delay}\]"):
+            tn.plan_nnet3(rec, 4, subsampling=1)
+    # a past back-edge plans, here refused because b is needed beyond the
+    # step's own time, as in the JAX package
     rec = _desc_spec()
     rec.nodes[1] = NodeSpec(kind="component", name="a", component="a",
                             input=parse_descriptor("Sum(input, IfDefined(Offset(b, -1)))"))
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        tn.plan_nnet3(rec, 4, subsampling=1)
+    for plan in (jn.compile_nnet3, tn.plan_nnet3):
+        with pytest.raises(NotImplementedError, match="carried node 'b'"):
+            plan(rec, 4, subsampling=1)

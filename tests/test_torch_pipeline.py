@@ -105,12 +105,17 @@ def test_require_fuzzy_rejects_like_jax(trained):
 
 
 def test_unported_options_raise(trained):
-    """bf16 names its ROADMAP item; the decoders for graphs too big for
-    dense backpointers answer now (the routing tests below) and no error
-    names their item any more."""
+    """bf16 answers now (tests/test_torch_bf16.py holds it to the JAX
+    package's bounds): it transcribes as f32 does, and a dtype that is
+    neither raises; the decoders for graphs too big for dense backpointers
+    answer too (the routing tests below) and no error names their item any
+    more."""
     model_dir, graph_dir, pcms = trained
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", compute_dtype="bfloat16")
+    t16 = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", compute_dtype="bfloat16")
+    t32 = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu")
+    assert t16.transcribe_pcm_batch(pcms[:1]) == t32.transcribe_pcm_batch(pcms[:1])
+    with pytest.raises(ValueError, match="compute_dtype"):
+        Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", compute_dtype="float16")
     # a budget that leaves the frontier a state or two a frame: a beam too
     # narrow to reach a final state, in both packages alike
     tiny = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", decode_memory_budget=1024)

@@ -349,8 +349,6 @@ NOT_PORTED = {
     "mesh": (None, dict(mesh=object()), "item 16"),
     "mulaw": (None, dict(wire="mulaw"), "item 16"),
     "adpcm": (None, dict(wire="adpcm"), "item 16"),
-    "bf16": (None, dict(compute_dtype="bfloat16"), "item 4"),
-    "recurrent": (lambda d: build_synthetic_profile(d, LEXICON, recurrent_delay=1), {}, "item 4"),
 }
 
 
