@@ -9,12 +9,14 @@ and lattice paths, the windowed-relaxation entry point and the stream
 scheduler, then the two other acoustic-model families at full width (a
 Kaldi tri1 GMM system and a DeepSpeech-width Coqui STT model), a chain
 model with Kaldi pitch features and a TDNN-LSTM chain model, then bf16
-compute, dither and every nnet3 component type, and checks the five
-hand-written kernels against their plain PyTorch twins:
+compute, dither and every nnet3 component type, the mu-law and ADPCM
+serving wires, an odd MFCC window, the command line with a warm start, and
+the stream mesh, and checks the six hand-written kernels against their
+plain PyTorch twins:
 
 1. builds ``csrc/mfcc.cu``, ``csrc/viterbi.cu``, ``csrc/windowed_relax.cu``,
-   ``csrc/path_walk.cu`` and ``csrc/pitch_viterbi.cu`` with nvcc for
-   sm_90a, in parallel;
+   ``csrc/path_walk.cu``, ``csrc/pitch_viterbi.cu`` and
+   ``csrc/adpcm_decode.cu`` with nvcc for sm_90a, in parallel;
 2. transcribes 32 seeded 3 s utterances (1-best) with the launch counters
    zeroed just before and read just after, and requires the MFCC and
    Viterbi kernels to have run;
@@ -200,12 +202,40 @@ hand-written kernels against their plain PyTorch twins:
    and the synthetic Coqui profile's probs equal the undithered ones;
 20. every nnet3 component type: ``testing/component_graph.py``'s graph (a
    branch a type, 37 types) on the card against CPU tensors (rtol / atol
-   2e-4).
+   2e-4);
+21. the serving wires: the flagship scheduler at 32 slots, captured, on
+   ``wire="i16"``, ``"mulaw"`` and ``"adpcm"`` (replays bit-equal to the
+   eager body, every kernel of the tick counted; the tick's p50 / p90 of
+   each in this call); the ADPCM decode kernel (K6) bit-equal to its twin
+   on the tick's probed wire bytes and timed by device time; the synthetic
+   speech profile's sentences scheduled on both wires equal to the batch
+   transcripts of the wire's decoded audio (mu-law: all 8 the spoken
+   sentence; ADPCM, a lossy 4-bit wire: at least 7);
+22. an odd MFCC window: a copy of the flagship model dir with
+   ``--round-to-power-of-two=false --frame-length=25.0625`` (N = 401): the
+   batch call counted, transcripts equal to the plain twins' path, K1
+   against its twin at [32, 48000] (K1's tolerance) and timed beside the N
+   = 512 launch; one stream and the scheduler launch K1 on it too;
+23. the command line and warm start: ``cli.main(["transcribe", ...])`` on
+   the 32 utterances written as WAVs; a cold process serves them once
+   (batch, then the scheduler at 32 slots) and runs ``cli warmup``, which
+   writes the manifest; a second process built from it must add no nvcc
+   run, library, AM plan or tick capture on its first calls and return the
+   cold process's transcripts; both processes' time to first transcript;
+24. the stream mesh over the card (``make_stream_mesh()``):
+   ``ShardedWavTranscriber`` equals the single transcriber, and the
+   scheduler with ``mesh=`` equals the mesh-free scheduler of 21, each
+   block's replays bit-equal to its eager body.
+
+``python3 chip_smoke.py --mesh`` runs only phase 24, over every card the
+machine has (e.g. four), after the flagship build and a mesh-free scheduler
+run on the first card.
 
 Each kernel's entry in the ``kernels`` line carries ``bound_ms``, the least
 time the card could take for the same work: the larger of its bytes (each
 input read once, each output written once) at 3.35 TB/s and its f32
-operations at 67 TFLOP/s, NVIDIA's H100 SXM peaks at 700 W. The Viterbi
+operations at 67 TFLOP/s, NVIDIA's H100 SXM peaks at 700 W (K6's integer
+steps counted at that rate too). The Viterbi
 kernel's log-probs count only where this run's decode reads them: the
 32-byte sectors of the graph's pdfs in each stream's active frames; the
 path walk's ring reads one 32-byte sector a frame walked.
@@ -217,7 +247,9 @@ Without a CUDA device it exits 2 before printing any result.
 
 import asyncio
 import contextlib
+import dataclasses
 import functools
+import io
 import json
 import os
 import shutil
@@ -225,6 +257,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import wave
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -236,7 +269,18 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from rhasspy_speech_torch import LangSuffix, Nnet3StreamTranscriber, Nnet3WavTranscriber  # noqa: E402
+from rhasspy_speech_torch import (  # noqa: E402
+    LangSuffix,
+    Nnet3StreamTranscriber,
+    Nnet3WavTranscriber,
+    ShardedWavTranscriber,
+    cli,
+)
+from rhasspy_speech_torch.ops import adpcm as adpcm_codec, mulaw as mulaw_codec  # noqa: E402
+from rhasspy_speech_torch.ops.adpcm import block_bytes, decode_blocks_torch  # noqa: E402
+from rhasspy_speech_torch.ops.adpcm_cuda import adpcm_decode  # noqa: E402
+from rhasspy_speech_torch.ops.frontend import make_frontend_params  # noqa: E402
+from rhasspy_speech_torch.parallel import make_stream_mesh  # noqa: E402
 from rhasspy_speech_torch.pipeline.artifacts import LangArtifacts, lang_dir_name  # noqa: E402
 from rhasspy_speech_torch.pipeline.endpoint import EndpointConfig  # noqa: E402
 from rhasspy_speech_torch.pipeline import scheduler as sched_mod  # noqa: E402
@@ -364,7 +408,7 @@ COQUI_CHARS = sorted(set("turnonofflightstop"))
 COQUI_SENTENCES = ["turn (on|off) light", "stop"]
 COQUI_TEXTS = ["turn on light", "stop", "turn off light"]
 COQUI_PRUNE = 30.0  # synthetic char boundaries are harsher than speech (tests/test_coqui.py)
-KERNELS = ("mfcc", "viterbi", "windowed_relax", "path_walk", "pitch_viterbi")
+KERNELS = ("mfcc", "viterbi", "windowed_relax", "path_walk", "pitch_viterbi", "adpcm_decode")
 # Pitch, card vs CPU tensors: the POV feature and the delta of frames whose
 # lags agree within 1e-3 (tests/test_torch_pitch.py's tolerance against the
 # JAX package; f32 sums in another order, the POV's 0.15 power amplifying
@@ -453,17 +497,31 @@ def bound(nbytes, nops):
 
 def mfcc_work(params, B, S, T):
     """(bytes, f32 operations) of the MFCC kernel's function at a
-    power-of-two window: PCM in, cepstra out; per frame the DC removal,
-    pre-emphasis and window (and energy), the real FFT as an N/2-point
-    complex FFT (10 operations a radix-2 butterfly) and its split, the mel
-    bands, log, DCT and lifter."""
+    power-of-two or odd window: PCM in, cepstra out; per frame the DC
+    removal, pre-emphasis and window (and energy), the power spectrum, the
+    mel bands, log, DCT and lifter. At a power of two the spectrum is the
+    real FFT as an N/2-point complex FFT (10 operations a radix-2
+    butterfly) and its split. At an odd N it is counted as Bluestein's
+    algorithm, not as the direct DFT the kernel runs: two frames packed as
+    one complex sequence, chirp-multiplied (6 operations a sample),
+    convolved with the chirp through radix-2 FFTs of the power of two Q >=
+    2N - 1 (forward, a product with the chirp's spectrum, inverse), the N
+    outputs chirp-multiplied and split into the two frames' H + 1 bins (4
+    operations a bin), and the power taken (3 a bin). Rader's algorithm
+    over a mixed-radix FFT of N - 1 would count fewer still."""
     cfg = params.cfg
-    L, H, M, C = cfg.frame_length, cfg.padded_window_size // 2, cfg.num_mel_bins, cfg.num_ceps
-    check(H & (H - 1) == 0, f"mfcc_work counts a power-of-two window, got N={2 * H}")
+    N, L, M, C = cfg.padded_window_size, cfg.frame_length, cfg.num_mel_bins, cfg.num_ceps
+    H = N // 2
+    if N % 2:
+        Q = 1 << (2 * N - 2).bit_length()
+        pair = 6 * N + 2 * 10 * (Q // 2) * (Q.bit_length() - 1) + 6 * Q + 6 * N
+        spectrum = pair // 2 + 7 * (H + 1)
+    else:
+        check(H & (H - 1) == 0, f"mfcc_work counts a power-of-two or odd window, got N={N}")
+        spectrum = 10 * (H // 2) * (H.bit_length() - 1) + 14 * (H + 1)
     mel_terms = int(mel_bands(params.mel_weights.cpu().numpy())[0][-1])
     per_frame = (
-        5 * L + (2 * L if cfg.use_energy else 0)
-        + 10 * (H // 2) * (H.bit_length() - 1) + 14 * (H + 1)
+        5 * L + (2 * L if cfg.use_energy else 0) + spectrum
         + 2 * mel_terms + M + 2 * M * C + C
     )
     return 4 * B * S + 4 * B * T * C, B * T * per_frame
@@ -564,14 +622,14 @@ def build_profile(root):
 
 
 def zero_counts():
-    for fn in (mfcc_batch, viterbi_decode, windowed_relax, path_walk, pitch_viterbi):
+    for fn in (mfcc_batch, viterbi_decode, windowed_relax, path_walk, pitch_viterbi, adpcm_decode):
         fn.launches = 0
 
 
 def read_counts():
     return {"mfcc": mfcc_batch.launches, "viterbi": viterbi_decode.launches,
             "windowed_relax": windowed_relax.launches, "path_walk": path_walk.launches,
-            "pitch_viterbi": pitch_viterbi.launches}
+            "pitch_viterbi": pitch_viterbi.launches, "adpcm_decode": adpcm_decode.launches}
 
 
 def viterbi_phase(t, lp_k, lengths, dev):
@@ -1217,7 +1275,8 @@ def sched_run(sched, pcms, on_tick=None):
     sids = [sched.open_stream() for _ in pcms]
     check(all(sid >= 0 for sid in sids), "the scheduler refused a stream")
     ticks = []
-    runner = sched._runner if sched._device_bp else None
+    # a mesh scheduler keeps a runner a block: its uploads are not counted
+    runner = getattr(sched, "_runner", None) if sched._device_bp else None
 
     def tick():
         k0 = sched.kernel_launches
@@ -2754,6 +2813,403 @@ def all_types_phase(dev):
           f"{COMPONENT_INPUT_DIM}] -> {list(got.shape)}, card vs CPU max |d| {err:.3e} "
           f"(rtol / atol {ALL_TYPES_TOL})")
 
+WIRES = ("i16", "mulaw", "adpcm")
+# of the 8 speech sentences, how many must decode to themselves over the
+# lossy wire: every one on mu-law; on ADPCM "turn off light never mind" (a
+# CPU run at this seed) loses its tail, as the batch path does on the same
+# decoded audio
+WIRE_MIN_SPOKEN = {"mulaw": 8, "adpcm": 7}
+ODD_FRAME_MS = 25.0625  # 401 samples at 16 kHz
+CLI_CHUNK = 21 * 160  # the warm drive's feed: a 7-frame chunk's audio
+
+# The second and third processes of phase 23: construct the transcriber and
+# the scheduler from the files given (warm from the manifest, if there is
+# one of their configuration), serve the WAVs once, and report the time to
+# the first transcript from the process's start and what the first calls
+# added to the counters of utils/warmup.py; with "save", then run the CLI's
+# warmup, which writes the manifest.
+_SERVE_PROCESS = """
+import time
+t_start = time.time()
+import contextlib, io, json, sys
+repo, model_dir, graph_dir, wavs, save = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4:-1], sys.argv[-1]
+sys.path.insert(0, repo)
+import numpy as np
+import torch
+from rhasspy_speech_torch import Nnet3WavTranscriber, cli
+from rhasspy_speech_torch.pipeline.scheduler import StreamScheduler
+from rhasspy_speech_torch.pipeline.transcribe import read_wav
+from rhasspy_speech_torch.utils.warmup import counters
+pcms = [read_wav(w) for w in wavs]
+out = {}
+t0 = time.time()
+t = Nnet3WavTranscriber(model_dir, graph_dir)
+out["construct_s"] = time.time() - t0
+c0 = counters(t)
+t0 = time.time()
+out["texts"] = t.transcribe_pcm_batch(pcms)
+torch.cuda.synchronize()
+out["first_call_ms"] = (time.time() - t0) * 1000.0
+out["ttft_s"] = time.time() - t_start
+c1 = counters(t)
+out["batch_added"] = {k: c1[k] - c0[k] for k in c0}
+t0 = time.time()
+t.transcribe_pcm_batch(pcms)
+torch.cuda.synchronize()
+out["second_call_ms"] = (time.time() - t0) * 1000.0
+t0 = time.time()
+s = StreamScheduler(model_dir, graph_dir, max_streams=len(pcms))
+out["sched_construct_s"] = time.time() - t0
+c0 = counters(s)
+sids = [s.open_stream() for _ in pcms]
+t0 = time.time()
+for off in range(0, max(p.shape[0] for p in pcms), %(chunk)d):
+    for sid, p in zip(sids, pcms):
+        if off < p.shape[0]:
+            s.feed(sid, p[off : off + %(chunk)d])
+    s.step()
+for sid in sids:
+    s.finish(sid)
+s.run_until_idle()
+out["sched_texts"] = [s.poll(sid) for sid in sids]
+torch.cuda.synchronize()
+out["sched_serve_ms"] = (time.time() - t0) * 1000.0
+c1 = counters(s)
+out["sched_added"] = {k: c1[k] - c0[k] for k in c0}
+out["captures"] = c1["captures"]
+del s
+if save == "save":
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        rc = cli.main(["warmup", "--model-dir", model_dir, "--graph-dir", graph_dir,
+                       "--batch", str(len(pcms)), "--seconds", str(pcms[0].shape[0] / 16000.0),
+                       "--streams", str(len(pcms))])
+    out["warmup_rc"], out["warmup_said"] = rc, said.getvalue().strip()
+    out["warmup_s"] = time.time() - t0
+out["imported"] = sorted(m for m in sys.modules if m.partition(".")[0] in ("jax", "jaxlib", "rhasspy_speech_tpu"))
+print(json.dumps(out))
+""" % {"chunk": CLI_CHUNK}
+
+
+def wire_decoded(wire, pcm):
+    """``pcm`` as the wire carries it: through the NumPy codec and back."""
+    if wire == "mulaw":
+        return mulaw_codec.decode_u8(mulaw_codec.encode_f32(pcm))
+    n = pcm.shape[0]
+    samples = np.zeros((1, -(-n // 160) * 160), dtype=np.float32)
+    samples[0, :n] = pcm
+    out = np.zeros((1, samples.shape[1] // 160 * block_bytes(160)), dtype=np.uint8)
+    adpcm_codec.encode_blocks(samples, np.array([n]), 160, out)  # reconstructions in place
+    return samples[0, :n]
+
+
+def adpcm_numbers(wire_bytes):
+    """K6 on the tick's probed wire bytes against its twin (bit-equal),
+    timed by device time beside the twin, with its bound: the bytes read,
+    the f32 samples written; a dozen integer operations a decoded sample."""
+    block = 160
+    got = adpcm_decode(wire_bytes, block)
+    want = decode_blocks_torch(wire_bytes, block)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "ADPCM decode kernel differs from its twin at the tick's shape")
+    N, nb = wire_bytes.shape[0], wire_bytes.shape[1] // block_bytes(block)
+    out = {"ms": device_ms(lambda: adpcm_decode(wire_bytes, block)),
+           "plain_ms": cuda_ms(lambda: decode_blocks_torch(wire_bytes, block), iters=3),
+           "max_abs_err": float((got - want).abs().max())}
+    out["bound_ms"], out["bound_by"] = bound(wire_bytes.numel() + 4 * got.numel(),
+                                             12 * N * nb * (block - 1))
+    print(f"K6 adpcm_decode at the tick's shape {list(wire_bytes.shape)} bytes ({N} x {nb} blocks of "
+          f"{block_bytes(block)}) -> {list(got.shape)} f32: bit-equal to its twin; kernel "
+          f"{out['ms']:.4f} ms of device time, plain {out['plain_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.6f} ms ({out['bound_by']})")
+    return out
+
+
+def wire_part(wire, model_dir, graph_dir, dev, pcms, fuzzy):
+    """The flagship scheduler at 32 slots on ``wire``, captured: a warm-up
+    run, a counted run with every replay held bit-equal to the eager body
+    (the ADPCM wire's bytes probed), then a timed run. Returns (launches,
+    probed wire bytes or None, transcripts, tick ms p50 / p90)."""
+    sched = StreamScheduler(model_dir, graph_dir, max_streams=BATCH, device=dev, wire=wire, **fuzzy)
+    check(sched._device_feats and sched._wire == wire, f"wire {wire}: not on the fused route")
+    sched_run(sched, pcms)
+    runner, probe = sched._runner, {}
+
+    def on_tick():
+        p = sched._tick.probe
+        if p and "adpcm_decode" in p:
+            probe.setdefault("wire", p["adpcm_decode"])
+        sched._tick.probe = {}
+        runner.check_next = True
+
+    sched._tick.probe = {}
+    runner.check_next = True
+    zero_counts()
+    runner.launches = dict.fromkeys(runner.launches, 0)
+    n_checks = len(runner.checks)
+    texts, ticks, _wall = sched_run(sched, pcms, on_tick)
+    sched._tick.probe, runner.check_next = None, False
+    torch.cuda.synchronize()
+    counts = sched.kernel_launches
+    checks = runner.checks[n_checks:]
+    check(all(v > 0 for v in counts.values()), f"wire {wire}: kernels not launched: {counts}")
+    check(all(max(t[2].values()) <= 1 for t in ticks), f"wire {wire}: a kernel twice in a tick")
+    check(all(t[3] <= 1 and t[4] <= 1 for t in ticks), f"wire {wire}: more than one upload or download")
+    check(len(checks) > 0 and all(all(eq.values()) for _k, eq in checks),
+          f"wire {wire}: a replay differs from the eager tick body")
+    check(len(texts) == BATCH and all(len(x) == 1 for x in texts), f"wire {wire}: {texts[:3]}")
+    _t, timed, _w = sched_run(sched, pcms)
+    p50, p90 = tick_ms(timed)
+    print(f"scheduler flagship on wire {wire}: launches {counts} over {len(ticks)} ticks, "
+          f"{len(checks)} replays bit-equal to the eager body; tick ms (host clock, captured) "
+          f"p50 {p50:.3f} p90 {p90:.3f}")
+    return counts, probe.get("wire"), texts, (p50, p90)
+
+
+def wires_phase(root, model_dir, graph_dir, dev, pcms, fuzzy):
+    """Phase 21: the mu-law and ADPCM serving wires: the captured flagship
+    scheduler on each beside i16 (ticks timed in the same call), K6 counted
+    and bit-equal to its twin at the tick's shape, and the synthetic speech
+    profile's spoken sentences on both wires. Returns (the K6 entry, the
+    i16 run's transcripts)."""
+    ticks, counts, texts = {}, {}, {}
+    for wire in WIRES:
+        counts[wire], probe, texts[wire], ticks[wire] = wire_part(wire, model_dir, graph_dir, dev,
+                                                                 pcms, fuzzy)
+        if wire == "adpcm":
+            check(probe is not None, "no tick probed the ADPCM wire's bytes")
+            k6 = adpcm_numbers(probe)
+    profile, sgraph = trained_speech_profile(root)
+    speech = [synthesize_sentence(profile, text, seed=SEED + 40 + i)
+              for i, text in enumerate(SPEECH_TEXTS)]
+    batch = Nnet3WavTranscriber(profile.model_dir, sgraph, device=dev)
+    spoken = {}
+    for wire in ("mulaw", "adpcm"):
+        sched = StreamScheduler(profile.model_dir, sgraph, max_streams=len(speech), device=dev,
+                                wire=wire)
+        check(sched._device_feats and sched._wire == wire, f"speech profile: wire {wire} not taken")
+        got, _ticks, _wall = sched_run(sched, speech)
+        # the wire is lossy, the pipeline after it exact: the scheduler
+        # equals the batch path fed the wire's decoded audio
+        want = batch.transcribe_pcm_batch([wire_decoded(wire, x) for x in speech])
+        check(got == want, f"speech profile on wire {wire}: {got} vs the decoded batch's {want}")
+        spoken[wire] = sum(g == [t] for g, t in zip(got, SPEECH_TEXTS))
+        check(spoken[wire] >= WIRE_MIN_SPOKEN[wire], f"speech profile on wire {wire}: only "
+              f"{spoken[wire]} of {len(speech)} transcripts are the spoken sentence: {got}")
+    print("wires: tick ms p50 / p90 (flagship, 32 slots, captured, this call): "
+          + ", ".join(f"{w} {ticks[w][0]:.3f} / {ticks[w][1]:.3f}" for w in WIRES)
+          + f"; the synthetic speech profile's {len(speech)} sentences, scheduled on each wire, "
+          f"equal the batch transcripts of the wire's decoded audio, and the spoken sentences: "
+          f"{spoken['mulaw']} on mulaw, {spoken['adpcm']} on adpcm")
+    SUMMARY["wire_ticks"] = ticks
+    return ({"name": "adpcm_decode_sched_tick", "route": "cuda",
+             "source": "rhasspy_speech_torch/csrc/adpcm_decode.cu",
+             "replaces": "rhasspy_speech_tpu/ops/adpcm.py:202", "library_ms": None,
+             "launches": counts["adpcm"]["adpcm_decode"], **k6}, texts["i16"])
+
+
+def odd_window_phase(root, model_dir, graph_dir, dev, pcms, fuzzy):
+    """Phase 22: a copy of the flagship model dir with
+    --round-to-power-of-two=false --frame-length=25.0625 (N = 401): the
+    batch call counted, its transcripts equal to the plain twins' path, K1
+    against its twin at [32, 48000] and timed beside the N = 512 launch;
+    one stream and the scheduler reach it too. Returns the kernels-line
+    entry."""
+    odd = linked_copy(model_dir, os.path.join(root, "odd_model"),
+                      {"round_to_power_of_two": False, "frame_length_ms": ODD_FRAME_MS})
+    t = Nnet3WavTranscriber(odd, graph_dir, device=dev)
+    cfg = t.am.frontend_config
+    check(cfg.padded_window_size == 401, f"odd window: N = {cfg.padded_window_size}")
+    texts, wall_ms, launches = counted_batch(t, pcms, fuzzy, "odd-window batch")
+    check(plain_texts_of(t, pcms, fuzzy) == texts, "odd window: kernels and plain twins differ")
+    pcm = t._pad_batch(pcms)[0]
+    params = t.am.frontend_params
+    feats, want = mfcc_batch(params, pcm), mfcc_batch_torch(params, pcm)
+    torch.cuda.synchronize()
+    err = float((feats - want).abs().max())
+    check(torch.allclose(feats, want, rtol=MFCC_RTOL, atol=MFCC_ATOL),
+          f"odd window: K1 vs twin max |d| {err}")
+    k1 = {"ms": cuda_ms(lambda: mfcc_batch(params, pcm)),
+          "plain_ms": cuda_ms(lambda: mfcc_batch_torch(params, pcm)), "max_abs_err": err}
+    k1["bound_ms"], k1["bound_by"] = bound(*mfcc_work(params, *pcm.shape, feats.shape[1]))
+    p512 = make_frontend_params(dataclasses.replace(cfg, round_to_power_of_two=True,
+                                                    frame_length_ms=25.0), dev)
+    ms512 = cuda_ms(lambda: mfcc_batch(p512, pcm))
+    st = Nnet3StreamTranscriber(odd, graph_dir, device=dev)
+    zero_counts()
+    stream_pcm(st, pcms[0], **fuzzy)
+    stream_k1 = read_counts()["mfcc"]
+    sched = StreamScheduler(odd, graph_dir, max_streams=4, device=dev, **fuzzy)
+    check(sched._device_feats, "odd window: the scheduler should keep features on the device")
+    sched_run(sched, pcms[:4])
+    sched_k1 = sched.kernel_launches["mfcc"]
+    check(stream_k1 > 0 and sched_k1 > 0, f"odd window: K1 launches stream {stream_k1}, "
+          f"scheduler {sched_k1}")
+    print(f"odd window (N = 401, a direct real DFT): batch {BATCH} x {SECONDS} s in {wall_ms:.1f} ms, "
+          f"launches {launches}, transcripts equal to the plain twins' path; K1 {list(pcm.shape)} -> "
+          f"{list(feats.shape)}: max |d| {err:.3e}, kernel {k1['ms']:.4f} ms against {ms512:.4f} ms "
+          f"at N = 512 (CUDA events, this call), plain {k1['plain_ms']:.4f} ms, bound "
+          f"{k1['bound_ms']:.4f} ms ({k1['bound_by']}); K1 launches on one stream {stream_k1}, on "
+          f"the scheduler (4 slots) {sched_k1}")
+    SUMMARY["k1_odd_vs_512"] = (k1["ms"], ms512)
+    return {"name": "mfcc_odd_window", "route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
+            "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122", "library_ms": None,
+            "launches": launches["mfcc"], **k1}
+
+
+def serve_process(model_dir, graph_dir, wavs, save):
+    """One run of _SERVE_PROCESS in a process of its own: its report."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVE_PROCESS, os.path.dirname(os.path.abspath(__file__)),
+         str(model_dir), str(graph_dir), *wavs, "save" if save else "-"],
+        capture_output=True, text=True, timeout=600,
+    )
+    check(proc.returncode == 0, f"serving process failed: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def cli_warmup_phase(root, model_dir, graph_dir, dev, pcms):
+    """Phase 23: ``cli.main(["transcribe", ...])`` on WAVs written from the
+    seeded utterances, on the card; then a cold process (no manifest)
+    serves them once and runs the CLI's ``warmup``, which writes the
+    manifest, and a second process constructs from it: its first calls run
+    no nvcc, load no library, make no AM plan and capture no tick, and
+    return the cold process's transcripts. Each process's time to its first
+    transcript is printed."""
+    wav_dir = os.path.join(root, "cli_wavs")
+    os.makedirs(wav_dir)
+    wavs = []
+    for i, pcm in enumerate(pcms):
+        wavs.append(os.path.join(wav_dir, f"u{i:02d}.wav"))
+        with wave.open(wavs[-1], "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(np.clip(np.round(pcm), -32768, 32767).astype(np.int16).tobytes())
+    cli_graph = shutil.copytree(graph_dir, os.path.join(root, "cli_graph"))
+    zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        rc = cli.main(["transcribe", *wavs, "--model-dir", str(model_dir), "--graph-dir", cli_graph])
+    launches = read_counts()
+    rows = [json.loads(line) for line in said.getvalue().splitlines() if line.startswith("{")]
+    check(rc == 0 and len(rows) == len(wavs) and [r["wav"] for r in rows] == wavs,
+          f"cli transcribe: rc {rc}, {len(rows)} rows")
+    check(launches["mfcc"] == 1 and launches["viterbi"] == 1, f"cli transcribe launches {launches}")
+    cold = serve_process(model_dir, cli_graph, wavs, save=True)
+    check(cold["warmup_rc"] == 0 and os.path.isfile(os.path.join(cli_graph, "aot", "warmup.json")),
+          f"cli warmup: {cold.get('warmup_said')}")
+    warm = serve_process(model_dir, cli_graph, wavs, save=False)
+    for rep in (cold, warm):
+        check(not rep["imported"], f"a serving process imported {rep['imported'][:3]}")
+    check(warm["texts"] == cold["texts"] == [r["nbest"] for r in rows],
+          "warm, cold and CLI batch transcripts differ")
+    check(warm["sched_texts"] == cold["sched_texts"], "warm and cold scheduler transcripts differ")
+    check(all(v == 0 for v in warm["batch_added"].values()),
+          f"warm process: the first batch call added {warm['batch_added']}")
+    check(all(v == 0 for v in warm["sched_added"].values()),
+          f"warm process: the first scheduled streams added {warm['sched_added']}")
+    print(f"cli transcribe: {len(rows)} WAVs on the card, launches {launches}; cli warmup wrote "
+          f"{os.path.join(cli_graph, 'aot', 'warmup.json')} in {cold['warmup_s']:.1f} s")
+    for name, rep in (("cold", cold), ("warm", warm)):
+        print(f"{name} process: time to first transcript {rep['ttft_s']:.2f} s from its start "
+              f"(transcriber constructed in {rep['construct_s']:.2f} s, first batch call "
+              f"{rep['first_call_ms']:.1f} ms, second {rep['second_call_ms']:.1f} ms; the first "
+              f"call added {rep['batch_added']}); scheduler constructed in "
+              f"{rep['sched_construct_s']:.2f} s, {len(wavs)} streams served in "
+              f"{rep['sched_serve_ms']:.1f} ms, adding {rep['sched_added']} "
+              f"({rep['captures']} tick bodies captured in all)")
+    SUMMARY["ttft"] = {"cold": cold["ttft_s"], "warm": warm["ttft_s"],
+                       "cold_first_ms": cold["first_call_ms"], "warm_first_ms": warm["first_call_ms"]}
+
+
+def mesh_phase(model_dir, graph_dir, dev, pcms, fuzzy, sched_texts):
+    """Phase 24: ``ShardedWavTranscriber`` over ``make_stream_mesh()``
+    (every card: the one of a plain run, all of them under ``--mesh``)
+    equals the single transcriber on the 32 utterances, and the scheduler
+    with ``mesh=`` equals the mesh-free scheduler's ``sched_texts``. Each
+    block's tick state lives on its card and one replay a block a tick is
+    held bit-equal to its eager body. Prints the wall time of a sharded
+    and a single batch call, and of both schedulers' runs."""
+    mesh = make_stream_mesh()
+    check(mesh.size == torch.cuda.device_count(), f"mesh of {mesh.size}")
+    single = Nnet3WavTranscriber(model_dir, graph_dir, device=dev)
+    want = single.transcribe_pcm_batch(pcms, **fuzzy)
+    sharded = ShardedWavTranscriber(model_dir, graph_dir, mesh=mesh)
+    sharded.transcribe_pcm_batch(pcms, **fuzzy)
+    zero_counts()
+    got = sharded.transcribe_pcm_batch(pcms, **fuzzy)
+    launches = read_counts()
+    check(got == want, "the sharded transcriber differs from the single one")
+    check(launches["mfcc"] == mesh.size and launches["viterbi"] == mesh.size,
+          f"sharded transcriber launches {launches}")
+    batch_s = {}
+    for name, t in (("single", single), ("sharded", sharded), ("sharded again", sharded),
+                    ("single again", single)):
+        t0 = time.perf_counter()
+        t.transcribe_pcm_batch(pcms, **fuzzy)
+        for d in mesh.devices:
+            torch.cuda.synchronize(d)
+        batch_s[name] = round(time.perf_counter() - t0, 4)
+    del sharded
+
+    sched = StreamScheduler(model_dir, graph_dir, max_streams=BATCH, mesh=mesh, device=dev, **fuzzy)
+    check(len(sched.shards) == mesh.size and sched._device_feats, "mesh scheduler route")
+    check(all(shard.device == d and all(x.device == d for x in shard._st.tensors().values())
+              for shard, d in zip(sched.shards, mesh.devices)), "a block's state is off its card")
+    runners = [shard._runner for shard in sched.shards]
+
+    def on_tick():
+        for r in runners:
+            r.check_next = True
+
+    on_tick()
+    texts, _ticks, _wall = sched_run(sched, pcms, on_tick)
+    for r in runners:
+        r.check_next = False
+    checks = [eq for r in runners for _k, eq in r.checks]
+    check(all(r.checks for r in runners) and all(all(eq.values()) for eq in checks),
+          "mesh scheduler: a block's replay differs from its eager tick body")
+    check(texts == sched_texts, "the mesh scheduler differs from the mesh-free one")
+    check(all(v > 0 for v in sched.kernel_launches.values()), "mesh scheduler: kernels not launched")
+    check(all(all(v > 0 for v in shard.kernel_launches.values()) for shard in sched.shards),
+          "mesh scheduler: a block launched no kernel")
+    plain = StreamScheduler(model_dir, graph_dir, max_streams=BATCH, device=dev, **fuzzy)
+    sched_run(plain, pcms)  # its captures
+    sched_s = {}
+    for name, sc in (("mesh", sched), ("single", plain), ("single again", plain),
+                     ("mesh again", sched)):
+        sched_s[name] = round(sched_run(sc, pcms)[2], 4)
+    print(f"mesh {[str(d) for d in mesh.devices]}: ShardedWavTranscriber transcripts equal the single "
+          f"transcriber's ({BATCH} utterances, launches {launches}); the scheduler with mesh= "
+          f"equals the mesh-free scheduler's {BATCH} transcripts, {len(checks)} block replays "
+          f"bit-equal to the eager body")
+    print(f"mesh wall s (host clock, synchronized): batch call {batch_s}; scheduler run "
+          f"(captured) {sched_s}")
+
+
+def mesh_main():
+    """``python3 chip_smoke.py --mesh``: only phase 24, over every card
+    the machine has, against the mesh-free scheduler run here on the
+    first card. The last line is the same ``{"ok": true, ...}`` object."""
+    dev = torch.device("cuda", 0)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.build, KERNELS))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        model_dir, graph_dir, _graph = build_profile(root)
+        rng = np.random.RandomState(SEED)
+        pcms = [(1000.0 * rng.randn(int(16000 * SECONDS))).astype(np.float32) for _ in range(BATCH)]
+        fuzzy = dict(max_fuzzy_cost=1.0e9)
+        sched = StreamScheduler(model_dir, graph_dir, max_streams=BATCH, device=dev, **fuzzy)
+        sched_texts = sched_run(sched, pcms)[0]
+        del sched
+        with phase("mesh"):
+            mesh_phase(model_dir, graph_dir, dev, pcms, fuzzy, sched_texts)
+    print(f"chip_smoke --mesh: {PHASE_S}")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+
 
 def main():
     run_t0 = time.time()
@@ -2895,6 +3351,17 @@ def main():
         with phase("all types"):
             all_types_phase(dev)
 
+        # -- the serving wires (K6), K1's odd window, the CLI and warm start,
+        # the mesh ------------------------------------------------------------
+        with phase("wires"):
+            k6_entry, i16_texts = wires_phase(root, model_dir, graph_dir, dev, pcms, fuzzy)
+        with phase("odd window"):
+            odd_entry = odd_window_phase(root, model_dir, graph_dir, dev, pcms, fuzzy)
+        with phase("cli and warmup"):
+            cli_warmup_phase(root, model_dir, graph_dir, dev, pcms)
+        with phase("mesh"):
+            mesh_phase(model_dir, graph_dir, dev, pcms, fuzzy, i16_texts)
+
     # -- K3: the windowed relaxation's entry point ----------------------------
     with phase("windowed relaxation"):
         k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = windowed_relax_phase(dev)
@@ -2955,6 +3422,8 @@ def main():
         *pitch_entries,
         *lstm_entries,
         dither_entry,
+        k6_entry,
+        odd_entry,
     ]
     loaded = sorted(m for m in sys.modules if m.partition(".")[0] in ("jax", "jaxlib", "rhasspy_speech_tpu"))
     check(not loaded, f"the port imported JAX or the JAX package: {loaded[:5]}")
@@ -2968,4 +3437,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--mesh"]:
+        mesh_main()
+    elif sys.argv[1:]:
+        sys.exit(f"usage: {sys.argv[0]} [--mesh]")
+    else:
+        main()

@@ -28,6 +28,7 @@ from .pipeline import (
     Nnet3StreamTranscriber,
     Nnet3WavTranscriber,
 )
+from .parallel import ShardedWavTranscriber
 from .pipeline.train import train_model, train_model_sync
 
 __version__ = "0.2.0"
@@ -41,6 +42,7 @@ __all__ = [
     "ModelType",
     "Nnet3StreamTranscriber",
     "Nnet3WavTranscriber",
+    "ShardedWavTranscriber",
     "WordCasing",
     "train_model",
     "train_model_sync",

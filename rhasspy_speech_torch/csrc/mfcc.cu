@@ -20,8 +20,8 @@
 // - One warp per frame, kFrames frames per block; every step of a frame is
 //   the warp's own (only __syncwarp between steps), and the block shares
 //   the twiddle table in shared memory.
-// - The power spectrum is a real N-point FFT (N = padded window, even and
-//   <= 512) computed as an N/2-point complex FFT of the packed pairs
+// - The power spectrum is a real N-point FFT (N = padded window, <= 512;
+//   an odd N takes a direct real DFT, below) computed as an N/2-point complex FFT of the packed pairs
 //   z[n] = x[2n] + i x[2n+1], then the split X[k] = E[k] + W^k O[k] for
 //   k = 0..N/2. For a power of two (Kaldi's default, the main path):
 //   bit-reversed load, log2(N/2) radix-2 DIT stages in place in shared
@@ -29,7 +29,10 @@
 //   lane). Otherwise (--round-to-power-of-two=false, e.g. N = 400): one
 //   Stockham stage per prime factor R of N/2 (200 = 2^3 5^2), each output a
 //   direct R-point sum, ping-ponging between the pair buffers and the frame
-//   buffer. f32 on the CUDA cores; no tensor cores, since TF32 loses the
+//   buffer. An odd N (--frame-length=25.0625 gives 401) has no half-size
+//   complex FFT: each lane sums its bins directly over the frame's samples
+//   from the same twiddle table, (N/2 + 1) x L x 2 FMAs a frame (about 20x
+//   the FFT's work at N = 401). f32 on the CUDA cores; no tensor cores, since TF32 loses the
 //   feature precision (ARCHITECTURE.md, "MXU precision").
 // - The mel filterbank walks each filter's nonzero band only (the wrapper
 //   passes the bands; adding the dense product's zeros changes no bit), and
@@ -160,100 +163,122 @@ __global__ void __launch_bounds__(kThreads) mfcc_kernel(
   float log_energy = logf(fmaxf(e, eps));
   if (energy_floored) log_energy = fmaxf(log_energy, log_energy_floor);
 
-  // z[n] = x[2n] + i x[2n+1]: Z[k] lands in (zre, zim) in natural order
-  float* zre = re;
-  float* zim = im;
-  if (pow2) {
-    // bit-reversed load, then radix-2 DIT in place: butterflies of span 2m,
-    // twiddle W_N^(p * H / m)
-    const int log2_half = __ffs(H) - 1;
-    for (int n = lane; n < H; n += 32) {
-      const int j = (int)(__brev((unsigned)n) >> (32 - log2_half));
-      re[j] = fr[2 * n];
-      im[j] = fr[2 * n + 1];
+  // the power spectrum's bins 0..H land in `spec`
+  float* spec = re;
+  if (N & 1) {
+    // odd padded window (--round-to-power-of-two=false with an odd frame,
+    // e.g. N = 401): no half-size complex FFT exists, so a direct real DFT
+    // of the frame, as the TPU kernel computes its DFT as a matmul. Each
+    // lane sums its bins over the frame's L samples (the padding is zero),
+    // the twiddle W_N^(k n) indexed by (k n) mod N, kept incrementally.
+    for (int k = lane; k <= H; k += 32) {
+      float xr = 0.0f, xi = 0.0f;
+      for (int n = 0, e = 0; n < L; ++n) {
+        const float v = fr[n];
+        xr = fmaf(v, twc[e], xr);
+        xi = fmaf(-v, tws[e], xi);
+        e += k;
+        if (e >= N) e -= N;
+      }
+      spec[k] = fmaf(xr, xr, xi * xi);
     }
     __syncwarp();
-    for (int lm2 = 0, m = 1; m < H; ++lm2, m <<= 1) {
-      for (int q = lane; q < (H >> 1); q += 32) {
-        const int p = q & (m - 1);
-        const int i0 = ((q >> lm2) << (lm2 + 1)) + p;
-        const int i1 = i0 + m;
-        const int k = p * (H >> lm2);
-        const float c = twc[k], s = tws[k];
-        const float br = re[i1], bi = im[i1];
-        const float tr = fmaf(c, br, s * bi);
-        const float ti = fmaf(c, bi, -s * br);
-        const float ar = re[i0], ai = im[i0];
-        re[i0] = ar + tr;
-        im[i0] = ai + ti;
-        re[i1] = ar - tr;
-        im[i1] = ai - ti;
-      }
-      __syncwarp();
-    }
   } else {
-    // natural-order load, then one Stockham stage per prime factor R of H
-    // (ns = the factors done so far): output o = (j - j % ns) * R + j % ns
-    // + u * ns is sum_t in[j + t * H/R] * W_H^(t * (j % ns + u * ns) * H/(ns * R)),
-    // with W_H^e = W_N^(2e) from the table. Ping-pong with the frame buffer,
-    // free once packed (H <= 255 here, so 2H <= kMaxN).
-    for (int n = lane; n < H; n += 32) {
-      re[n] = fr[2 * n];
-      im[n] = fr[2 * n + 1];
-    }
-    __syncwarp();
-    float* dre = fr;
-    float* dim = fr + H;
-    for (int ns = 1, rest = H; rest > 1;) {
-      int R = 2;
-      while (rest % R) ++R;
-      const int hr = H / R, tstep = hr / ns;
-      for (int q = lane; q < H; q += 32) {
-        const int u = q / hr, j = q - u * hr, k = j % ns;
-        const int step = k * tstep + u * hr;  // < H
-        float ar = 0.0f, ai = 0.0f;
-        for (int t = 0, e = 0; t < R; ++t) {
-          const float xr = zre[j + t * hr], xi = zim[j + t * hr];
-          const float c = twc[2 * e], s = tws[2 * e];
-          ar += fmaf(xr, c, xi * s);
-          ai += fmaf(xi, c, -xr * s);
-          e += step;
-          if (e >= H) e -= H;
-        }
-        const int o = (j - k) * R + k + u * ns;
-        dre[o] = ar;
-        dim[o] = ai;
+    // z[n] = x[2n] + i x[2n+1]: Z[k] lands in (zre, zim) in natural order
+    float* zre = re;
+    float* zim = im;
+    if (pow2) {
+      // bit-reversed load, then radix-2 DIT in place: butterflies of span 2m,
+      // twiddle W_N^(p * H / m)
+      const int log2_half = __ffs(H) - 1;
+      for (int n = lane; n < H; n += 32) {
+        const int j = (int)(__brev((unsigned)n) >> (32 - log2_half));
+        re[j] = fr[2 * n];
+        im[j] = fr[2 * n + 1];
       }
       __syncwarp();
-      float* t0 = zre;
-      float* t1 = zim;
-      zre = dre;
-      zim = dim;
-      dre = t0;
-      dim = t1;
-      ns *= R;
-      rest /= R;
-    }
-  }
-  // split into the real FFT's bins 0..H: power spectrum into whichever of
-  // the frame buffer and the pair buffer does not hold Z
-  float* spec = zre == re ? fr : re;
-  for (int k = lane; k <= H; k += 32) {
-    float xr, xi;
-    if (k == 0 || k == H) {
-      xr = k == 0 ? zre[0] + zim[0] : zre[0] - zim[0];
-      xi = 0.0f;
+      for (int lm2 = 0, m = 1; m < H; ++lm2, m <<= 1) {
+        for (int q = lane; q < (H >> 1); q += 32) {
+          const int p = q & (m - 1);
+          const int i0 = ((q >> lm2) << (lm2 + 1)) + p;
+          const int i1 = i0 + m;
+          const int k = p * (H >> lm2);
+          const float c = twc[k], s = tws[k];
+          const float br = re[i1], bi = im[i1];
+          const float tr = fmaf(c, br, s * bi);
+          const float ti = fmaf(c, bi, -s * br);
+          const float ar = re[i0], ai = im[i0];
+          re[i0] = ar + tr;
+          im[i0] = ai + ti;
+          re[i1] = ar - tr;
+          im[i1] = ai - ti;
+        }
+        __syncwarp();
+      }
     } else {
-      const float ar = zre[k], ai = zim[k], br = zre[H - k], bi = zim[H - k];
-      const float er = 0.5f * (ar + br), ei = 0.5f * (ai - bi);
-      const float or_ = 0.5f * (ai + bi), oi = -0.5f * (ar - br);
-      const float c = twc[k], s = tws[k];
-      xr = er + fmaf(or_, c, oi * s);
-      xi = ei + fmaf(oi, c, -or_ * s);
+      // natural-order load, then one Stockham stage per prime factor R of H
+      // (ns = the factors done so far): output o = (j - j % ns) * R + j % ns
+      // + u * ns is sum_t in[j + t * H/R] * W_H^(t * (j % ns + u * ns) * H/(ns * R)),
+      // with W_H^e = W_N^(2e) from the table. Ping-pong with the frame buffer,
+      // free once packed (H <= 255 here, so 2H <= kMaxN).
+      for (int n = lane; n < H; n += 32) {
+        re[n] = fr[2 * n];
+        im[n] = fr[2 * n + 1];
+      }
+      __syncwarp();
+      float* dre = fr;
+      float* dim = fr + H;
+      for (int ns = 1, rest = H; rest > 1;) {
+        int R = 2;
+        while (rest % R) ++R;
+        const int hr = H / R, tstep = hr / ns;
+        for (int q = lane; q < H; q += 32) {
+          const int u = q / hr, j = q - u * hr, k = j % ns;
+          const int step = k * tstep + u * hr;  // < H
+          float ar = 0.0f, ai = 0.0f;
+          for (int t = 0, e = 0; t < R; ++t) {
+            const float xr = zre[j + t * hr], xi = zim[j + t * hr];
+            const float c = twc[2 * e], s = tws[2 * e];
+            ar += fmaf(xr, c, xi * s);
+            ai += fmaf(xi, c, -xr * s);
+            e += step;
+            if (e >= H) e -= H;
+          }
+          const int o = (j - k) * R + k + u * ns;
+          dre[o] = ar;
+          dim[o] = ai;
+        }
+        __syncwarp();
+        float* t0 = zre;
+        float* t1 = zim;
+        zre = dre;
+        zim = dim;
+        dre = t0;
+        dim = t1;
+        ns *= R;
+        rest /= R;
+      }
     }
-    spec[k] = fmaf(xr, xr, xi * xi);
+    // split into the real FFT's bins 0..H: power spectrum into whichever of
+    // the frame buffer and the pair buffer does not hold Z
+    spec = zre == re ? fr : re;
+    for (int k = lane; k <= H; k += 32) {
+      float xr, xi;
+      if (k == 0 || k == H) {
+        xr = k == 0 ? zre[0] + zim[0] : zre[0] - zim[0];
+        xi = 0.0f;
+      } else {
+        const float ar = zre[k], ai = zim[k], br = zre[H - k], bi = zim[H - k];
+        const float er = 0.5f * (ar + br), ei = 0.5f * (ai - bi);
+        const float or_ = 0.5f * (ai + bi), oi = -0.5f * (ar - br);
+        const float c = twc[k], s = tws[k];
+        xr = er + fmaf(or_, c, oi * s);
+        xi = ei + fmaf(oi, c, -or_ * s);
+      }
+      spec[k] = fmaf(xr, xr, xi * xi);
+    }
+    __syncwarp();
   }
-  __syncwarp();
 
   float* lmf = lm[warp];
   for (int m = lane; m < M; m += 32) {

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Union
 
 import numpy as np
@@ -33,6 +34,14 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device (nothing
+    for the CPU). Calls that take no device (an event's record, a stream,
+    a graph capture) act on the current device, which is cuda:0 unless set:
+    work for another card runs inside this."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 _INDEX_CACHE: Dict[tuple, torch.Tensor] = {}

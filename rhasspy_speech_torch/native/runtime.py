@@ -200,9 +200,9 @@ def adpcm_encode_into(
         if rc != 0:
             raise RuntimeError("rss_adpcm_encode_blocks: bad block/width")
         return
-    raise NotImplementedError(
-        "the NumPy ADPCM wire encoder is not ported yet (ROADMAP Queue 1, item 16)"
-    )
+    from ..ops.adpcm import encode_blocks
+
+    encode_blocks(samples, lens, block, out)
 
 
 def _f32p(arr: np.ndarray):
@@ -496,11 +496,16 @@ class StreamPool:
                 raise RuntimeError("rss_pool_read_all_mulaw: count > available")
             return
         if out.dtype == np.uint8:
-            # stale native build / no native library
-            raise NotImplementedError(
-                "the NumPy mu-law wire encoder is not ported yet "
-                "(ROADMAP Queue 1, item 16)"
-            )
+            # stale native build / NumPy fallback: drain f32 then encode
+            from ..ops.mulaw import encode_f32
+
+            for i in range(self.num_slots):
+                n = int(counts[i])
+                if n <= 0:
+                    continue
+                pcm = self.read(i, n)
+                out[i, int(offs[i]) : int(offs[i]) + n] = encode_f32(pcm)
+            return
         if self._lib is not None and self.has_batched_drain:
             i16 = out.dtype == np.int16
             rc = self._lib.rss_pool_read_all(

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -28,6 +28,9 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# nvcc runs in this process (utils/warmup.py reads it: a warm process
+# compiles nothing on its first call)
+nvcc_runs = 0
 
 
 def _nvcc() -> str:
@@ -49,10 +52,12 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library for this exact source
     exists; raises with nvcc's output when the build fails."""
+    global nvcc_runs
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc_runs += 1
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -77,6 +82,12 @@ def load(name: str) -> ctypes.CDLL:
             lib.rss_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return lib
+
+
+def loaded() -> Tuple[str, ...]:
+    """Names of the kernel libraries this process has loaded."""
+    with _LOCK:
+        return tuple(sorted(_LIBS))
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

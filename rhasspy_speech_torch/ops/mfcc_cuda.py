@@ -8,7 +8,8 @@ kernel launches.
 
 The kernel's power spectrum is a real FFT of the padded window, computed
 as a half-size complex FFT: radix-2 stages when the window is a power of
-two, mixed-radix (Stockham) stages otherwise. ``fft_twiddles`` is its
+two, mixed-radix (Stockham) stages otherwise; an odd window (e.g. 401
+samples, ``round_to_power_of_two=false``) takes a direct real DFT. ``fft_twiddles`` is its
 table and ``mel_bands`` cuts ``FrontendParams.mel_weights`` to each
 filter's nonzero band; both are made once per ``FrontendParams`` (cached
 on it) and are reached by the CPU tests.
@@ -110,11 +111,6 @@ def mfcc_batch(
         noise = noise.contiguous()
     lib = _lib()
     N, L, M = cfg.padded_window_size, cfg.frame_length, cfg.num_mel_bins
-    if N % 2:
-        raise NotImplementedError(
-            f"mfcc kernel: an odd padded window (N={N}) is not ported "
-            "(ROADMAP Queue 1, odd MFCC window)"
-        )
     if not 4 <= N <= lib.rss_mfcc_max_window() or L > N or M > lib.rss_mfcc_max_mel():
         raise ValueError(
             f"mfcc kernel takes a padded window in [4, {lib.rss_mfcc_max_window()}] "

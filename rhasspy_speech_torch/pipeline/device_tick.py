@@ -12,9 +12,11 @@ the i-vector CMVN, for a pitch model a PCM history ring, and for a
 recurrent AM its per-slot recurrence rows ``[N, depth, dim]`` (``rec``). A
 tick's bodies update it in place:
 
-- ``body_fused``: one ``pcm_meta`` upload ``[N, L + 16]`` (PCM and seven
-  int32 slot scalars as 16-bit halves; ``[N, L + 24]`` and ten scalars for a
-  pitch model) -> one MFCC launch writing the new rows into the feature
+- ``body_fused``: one ``pcm_meta`` upload ``[N, L + 24]`` (PCM and ten
+  int32 slot scalars as 16-bit halves; on the uint8 wires ``[N, W + 48]``,
+  each half as two bytes) -> on the ``mulaw`` wire one 256-entry gather, on
+  the ``adpcm`` wire one ADPCM decode launch (K6, ``ops/adpcm_cuda.py``) ->
+  one MFCC launch writing the new rows into the feature
   rings -> for a pitch model, the pitch lane (``feed_pitch``: one
   pitch-Viterbi launch) -> AM windows gathered from the ring -> reset of
   reopened slots -> i-vector fold -> chunk AM -> one Viterbi launch with the
@@ -46,9 +48,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import on_device
 from ..ops import decoder as plain_decoder
+from ..ops.adpcm_cuda import adpcm_decode
 from ..ops.ivector import solve_ivector, window_stats
 from ..ops.mfcc_cuda import mfcc_batch
+from ..ops.mulaw import decode_u8_torch
 from ..ops.path_walk_cuda import path_walk, walk_start, walk_tables
 from ..ops.pitch import PitchConfig, num_pitch_frames, pitch_batch, pitch_tables
 from ..ops.pitch_viterbi_cuda import pitch_viterbi
@@ -60,12 +65,20 @@ from ..ops.viterbi_cuda import viterbi_decode
 # lane the window's start sample, the pitch frames already final and the
 # flush flag; zero without a pitch lane)
 META_COLS = 24
-KERNELS = ("mfcc", "viterbi", "path_walk", "pitch_viterbi")
+KERNELS = ("mfcc", "viterbi", "path_walk", "pitch_viterbi", "adpcm_decode")
+WIRES = ("i16", "mulaw", "adpcm")
 
 
 def kernel_counts() -> Dict[str, int]:
     return {"mfcc": mfcc_batch.launches, "viterbi": viterbi_decode.launches,
-            "path_walk": path_walk.launches, "pitch_viterbi": pitch_viterbi.launches}
+            "path_walk": path_walk.launches, "pitch_viterbi": pitch_viterbi.launches,
+            "adpcm_decode": adpcm_decode.launches}
+
+
+def meta_cols(wire: str) -> int:
+    """Trailing columns of the upload that carry the meta pack: a uint8
+    wire splits each 16-bit half into two bytes."""
+    return META_COLS if wire == "i16" else 2 * META_COLS
 
 
 @dataclass
@@ -125,6 +138,8 @@ class TickConfig:
     cmvn_g_cap: float
     pitch: Optional[PitchConfig] = None  # the pitch lane runs when set
     pitch_window: int = 0  # Wp: samples of the sliding pitch window
+    wire: str = "i16"  # the upload's PCM: int16 / f32, mu-law or ADPCM bytes
+    adpcm_block: int = 0  # samples an ADPCM block (the frame shift)
 
 
 class DeviceTick:
@@ -157,14 +172,29 @@ class DeviceTick:
 
     # -- pieces ---------------------------------------------------------------
 
-    @staticmethod
-    def unpack(pcm_meta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[N, L + META_COLS] int16 or f32 -> (PCM [N, L] f32, meta [N, 12]
-        int32; negative scalars round-trip)."""
-        enc = pcm_meta[:, -META_COLS:].to(torch.int64)
+    def unpack(self, pcm_meta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[N, L + META_COLS] int16 or f32 (i16 wire), or [N, W + 2 *
+        META_COLS] uint8 (mu-law or ADPCM wire) -> (PCM [N, L] f32, meta
+        [N, 12] int32; negative scalars round-trip). The uint8 wires decode
+        here: mu-law with one 256-entry gather, ADPCM with one launch of the
+        decode kernel."""
+        wire = self.cfg.wire
+        cols = meta_cols(wire)
+        enc = pcm_meta[:, -cols:].to(torch.int64)
+        if wire != "i16":
+            enc = enc[:, 0::2] | (enc[:, 1::2] << 8)
         meta = (enc[:, 0::2] & 0xFFFF) | ((enc[:, 1::2] & 0xFFFF) << 16)
         meta = torch.where(meta >= 1 << 31, meta - (1 << 32), meta).to(torch.int32)
-        return pcm_meta[:, :-META_COLS].to(torch.float32), meta
+        body = pcm_meta[:, :-cols]
+        if body.shape[1] == 0:
+            return body.to(torch.float32), meta
+        if self.probe is not None and wire == "adpcm":
+            self.probe["adpcm_decode"] = body.clone()
+        if wire == "mulaw":
+            return decode_u8_torch(body), meta
+        if wire == "adpcm":
+            return adpcm_decode(body, self.cfg.adpcm_block), meta
+        return body.to(torch.float32), meta
 
     def _ring_write(self, ring: torch.Tensor, rows: torch.Tensor, at: torch.Tensor,
                     mask: torch.Tensor, col: int = 0) -> None:
@@ -415,6 +445,8 @@ class TickRunner:
         self.graphs: Dict[tuple, Tuple[torch.cuda.CUDAGraph, List[torch.Tensor], Dict[str, int]]] = {}
         self.launches = dict.fromkeys(KERNELS, 0)
         self.uploads = self.downloads = self.download_bytes = 0
+        # keys whose body has run (on the card: been captured)
+        self.warm_keys: set = set()
         # set to check the next replay: the body runs first eagerly on
         # copies of the state and inputs, and ``checks`` gets (key, {state
         # field: the replay's result bit-equal to the eager run's})
@@ -438,7 +470,8 @@ class TickRunner:
         """One tick of ``body(st, *inputs)``; ``inputs`` are host tensors
         (pinned on the card), each one upload."""
         self.uploads += len(inputs)
-        with torch.no_grad():
+        self.warm_keys.add(key)
+        with torch.no_grad(), on_device(self.device):
             if self.device.type != "cuda":
                 body(st, *inputs)
             else:
@@ -491,7 +524,7 @@ class TickRunner:
         owner = getattr(body, "__self__", None)
         probe, owner.probe = owner.probe, None
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=self._pool, stream=side):
                 body(st, *static)
         finally:
             owner.probe = probe
@@ -505,10 +538,11 @@ class TickRunner:
         self.download_bytes += packed.numel() * packed.element_size()
         if packed.device.type != "cuda":
             return PackedFetch(packed.numpy().view(np.uint16).copy(), None, None)
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
+        with on_device(self.device):
+            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
         return PackedFetch(None, host, event)
 
 

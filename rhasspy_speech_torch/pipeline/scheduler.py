@@ -83,13 +83,33 @@ decode (``n_valid == 0``) keeps its rows, as the reference's. With
 recurrent nor a GMM computes in bf16 (``_bf16``; the reference keeps a
 recurrent model's carried state in f32); decode costs stay f32.
 
-The ``mulaw`` / ``adpcm`` wires and ``mesh`` (item 16) raise
-``NotImplementedError``.
+**Wires.** ``wire="i16"`` uploads int16 (or f32) PCM; on the fused route
+``"mulaw"`` uploads G.711 codewords (``ops/mulaw.py``, decoded in the tick
+by one 256-entry gather) and ``"adpcm"`` 4-bit block-ADPCM in frame-shift
+blocks (``ops/adpcm.py``, decoded in the tick by the ADPCM kernel K6,
+``ops/adpcm_cuda.py``); the upload's meta columns then ride as bytes. The
+carried frame tails are the decoded samples, which re-encode to themselves,
+so features never drift across a tick boundary. The other routes read the
+pool directly and ignore the wire.
+
+**Mesh.** ``mesh=`` (``parallel.make_stream_mesh``) gives a
+``MeshScheduler``: the slots in contiguous blocks, one block (one
+scheduler, its own device tick and captures) per mesh device, admission
+filling the blocks evenly.
+
+**Warm start.** ``warmup(seconds)`` builds and loads the kernels and
+drives silence through every slot, which runs (captures, on a card) each
+tick body the feeds give; ``save_aot(seconds)`` also records the shape in
+``<graph_dir>/aot/warmup.json``, and a scheduler of the same configuration
+warms it in its constructor (``utils/warmup.py``; the fused route without a
+mesh, as the reference gates its AOT store).
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
+import inspect
 import logging
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -98,14 +118,16 @@ from typing import Dict, List, Optional, Set, Tuple, Union
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import on_device, resolve_device
 from ..fst.core import SymbolTable
 from ..grammar.fst import decode_meta
 from ..native import StreamPool
+from ..native.runtime import adpcm_encode_into
 from ..ops import decoder as plain_decoder
 from ..ops.cmvn import CmvnConfig, stats_from_matrix
 from ..ops.decoder import _COMPACT_BP_MAX_ARC, DecodeGraph, backtrace_words
 from ..ops.ivector import solve_ivector, window_stats
+from ..ops.adpcm import block_bytes
 from ..ops.mfcc_cuda import mfcc_batch
 from ..ops.path_walk_cuda import PACKED_STAT_COLS
 from ..ops.pitch import num_pitch_frames, pitch_batch
@@ -115,11 +137,13 @@ from .artifacts import LangArtifacts
 from .device_tick import (
     KERNELS,
     META_COLS,
+    WIRES,
     DeviceTick,
     PackedFetch,
     TickConfig,
     TickRunner,
     TickState,
+    meta_cols,
 )
 from .endpoint import EndpointConfig, silence_pdfs_from_model, trailing_silence_frames
 from .fuzzy import get_fuzzy_text
@@ -128,7 +152,8 @@ from .streaming_features import (
     silence_weights_from_chunk,
     stage_ivector_window,
 )
-from .transcribe import AcousticModel, _not_ported, select_decoder
+from ..utils.warmup import Manifest, base_config, load_kernels
+from .transcribe import AcousticModel, select_decoder
 
 _LOGGER = logging.getLogger(__name__)
 
@@ -187,6 +212,13 @@ class StreamScheduler:
     # device route. A tick makes at most one MFCC call and one step.
     device_dispatches = 0
 
+    def __new__(cls, *args, mesh=None, **kwargs):
+        # a mesh gives the sharded scheduler (end of this module), which
+        # holds one StreamScheduler a block
+        if mesh is not None:
+            return MeshScheduler(*args, mesh=mesh, **kwargs)
+        return super().__new__(cls)
+
     def __init__(
         self,
         model_dir: Union[str, Path],
@@ -204,11 +236,7 @@ class StreamScheduler:
         wire: str = "i16",
         device: Union[str, torch.device] = "cuda",
     ):
-        if mesh is not None:
-            raise _not_ported("a stream mesh (mesh=)", "item 16")
-        if wire in ("mulaw", "adpcm"):
-            raise _not_ported(f"the {wire!r} serving wire", "item 16")
-        if wire != "i16":
+        if wire not in WIRES:
             raise ValueError(f"wire must be 'i16', 'mulaw' or 'adpcm', got {wire!r}")
         self.device = resolve_device(device)
         self._chunk_out = int(chunk_out_frames)
@@ -216,6 +244,7 @@ class StreamScheduler:
         self.artifacts = LangArtifacts.load(graph_dir)
         if self.artifacts.graph is None:
             raise ValueError(f"no graph.npz in {graph_dir}")
+        self.artifacts_dir = Path(graph_dir)
         self.graph = self.artifacts.graph
         self.device_graph = DecodeGraph.from_dense(self.graph, self.device)
         self.max_streams = max_streams
@@ -272,6 +301,18 @@ class StreamScheduler:
         )[0]
         self._compact = self.graph.num_arcs <= _COMPACT_BP_MAX_ARC
         self._choose_route(pool_capacity_samples)
+        # the serving wire: only the fused route uploads PCM (the host
+        # featurizer reads the pool directly)
+        self._wire = wire if self._device_feats else "i16"
+        self._meta_cols = meta_cols(self._wire)
+        if self._wire == "adpcm" and (self._frame_shift < 2 or 800 % self._frame_shift):
+            # block == frame_shift keeps the blocks at the same absolute
+            # sample positions every tick, and the 800-sample PCM buckets
+            # must stay whole blocks
+            raise ValueError(
+                "wire='adpcm' needs a frame shift that divides the 800-sample PCM "
+                f"bucket, got {self._frame_shift}; use wire='mulaw'"
+            )
 
         self._pending_reset = np.zeros(max_streams, dtype=bool)
         ivp = self._ivp
@@ -301,6 +342,89 @@ class StreamScheduler:
                 num_gauss, lda_dim = int(ivp.gconsts.shape[0]), int(ivp.lda.shape[0])
                 self._iv_gamma = torch.zeros((max_streams, num_gauss), device=self.device)
                 self._iv_X = torch.zeros((max_streams, num_gauss, lda_dim), device=self.device)
+        # the warm-start manifest (utils/warmup.py), as the reference gates
+        # its AOT store: the fused route (a mesh never reaches here)
+        self._aot = Manifest(Path(graph_dir) / "aot") if self._device_feats else None
+        if self._aot is not None:
+            for (seconds,) in self._aot.shapes("scheduler", self._warm_config, self._kernels()):
+                self.warmup(seconds)
+
+    # -- warm start (utils/warmup.py) -------------------------------------------
+
+    def _kernels(self) -> List[str]:
+        """The kernels this scheduler's ticks launch on a card."""
+        names = ["mfcc"]
+        if self.chunk_decoder == "dense":
+            names.append("viterbi")
+        if self._device_bp:
+            names.append("path_walk")
+        if self._featurizer.has_pitch:
+            names.append("pitch_viterbi")
+        if self._wire == "adpcm":
+            names.append("adpcm_decode")
+        return names
+
+    def _warm_config(self) -> Dict:
+        cfg = base_config(self.am, self.artifacts_dir, self.device)
+        cfg.update(
+            max_streams=self.max_streams, chunk_out_frames=self._chunk_out,
+            acoustic_scale=self.acoustic_scale, silence_weight=self.silence_weight,
+            endpointing=(None if self.endpointing is None
+                         else dataclasses.asdict(self.endpointing)),
+            pool_capacity_samples=self.pool.capacity, wire=self._wire,
+        )
+        return cfg
+
+    def warmup(self, seconds: float = 3.0) -> None:
+        """Pay the first ticks' one-time costs: build and load the kernels,
+        then drive silence through every slot as serving would (chunk-sized
+        feeds of ``seconds``-long streams, a dribble of small feeds and a
+        burst past the drain cap), which runs (on a card: captures) the
+        tick body of every PCM width those feeds give. Every stream is
+        closed after, and no result is kept."""
+        load_kernels(self._kernels(), self.device)
+        chunk_samples = self._chunk_in * self._frame_shift
+        n_chunks = max(2, int(round(seconds * 16000 / chunk_samples)))
+        pcm = np.zeros(chunk_samples, dtype=np.float32)
+        sids = []
+        while True:
+            sid = self.open_stream()
+            if sid < 0:
+                break
+            sids.append(sid)
+        for _ in range(n_chunks):
+            for sid in sids:
+                self.feed(sid, pcm)
+            self.step()
+        self._warm_drain(sids)
+        # a dribble walks the small widths, a burst the largest and its rest
+        burst = np.zeros(2 * self._drain_cap + 1600, dtype=np.float32)
+        for feeds in ([np.zeros(1200, dtype=np.float32)] * 8, [burst, burst[:0]]):
+            sid = self.open_stream()
+            for chunk in feeds:
+                self.feed(sid, chunk)
+                self.step()
+            self._warm_drain([sid])
+        self._retired.clear()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _warm_drain(self, sids: List[int]) -> None:
+        for sid in sids:
+            self.finish(sid)
+        self.run_until_idle()
+        for sid in sids:
+            self.poll(sid)
+            self.close(sid)
+
+    def save_aot(self, seconds: float = 3.0) -> Path:
+        """Warm (``warmup``) and record ``seconds`` in the manifest under
+        ``<graph_dir>/aot``; returns its directory. Only the fused route
+        without a mesh keeps a manifest, as the reference's AOT store."""
+        if self._aot is None:
+            raise RuntimeError("a warm-start manifest needs the fused device-feature route and no mesh")
+        self.warmup(seconds)
+        return self._aot.add("scheduler", self._warm_config(), self._kernels(), (seconds,))
 
     def _choose_route(self, pool_capacity_samples: int) -> None:
         """The reference's route flags (module docstring)."""
@@ -437,6 +561,8 @@ class StreamScheduler:
             cmvn_window=window, cmvn_g_count=float(g_count), cmvn_g_cap=g_cap,
             pitch=self.am.pitch_config if self._pitch_device else None,
             pitch_window=fz.pitch_window if self._pitch_device else 0,
+            wire=self._wire,
+            adpcm_block=self._frame_shift if self._wire == "adpcm" else 0,
         )
         self._tick = DeviceTick(
             tick_cfg, g, self._chunk_model, ivp,
@@ -467,7 +593,8 @@ class StreamScheduler:
         """Kernel launches the device route's ticks made (captured launches
         times replays), by the kernels the tick runs (``pitch_viterbi`` with
         the pitch lane only); all zero on the host route and on the CPU."""
-        names = [k for k in KERNELS if k != "pitch_viterbi" or self._pitch_device]
+        names = [k for k in KERNELS if (k != "pitch_viterbi" or self._pitch_device)
+                 and (k != "adpcm_decode" or self._wire == "adpcm")]
         if not self._device_bp:
             return dict.fromkeys(names, 0)
         return {k: self._runner.launches[k] for k in names}
@@ -957,15 +1084,21 @@ class StreamScheduler:
 
     @staticmethod
     def _write_meta_cols(batch: np.ndarray, meta: np.ndarray) -> None:
-        """The [N, k <= 12] int32 meta pack into the batch's META_COLS
-        trailing columns as lo / hi 16-bit halves in the PCM dtype (int16
-        wraps modulo 2^16, which the tick masks off; f32 holds the halves
-        exactly)."""
+        """The [N, k <= 12] int32 meta pack into the batch's trailing
+        columns as lo / hi 16-bit halves: META_COLS of them in the PCM dtype
+        (int16 wraps modulo 2^16, which the tick masks off; f32 holds the
+        halves exactly), or on a uint8 wire 2 * META_COLS bytes, each half
+        as its lo / hi byte."""
         k = meta.shape[1]
-        dt = batch.dtype
-        batch[:, -META_COLS:] = 0
-        batch[:, -META_COLS : -META_COLS + 2 * k : 2] = (meta & 0xFFFF).astype(dt)
-        batch[:, -META_COLS + 1 : -META_COLS + 1 + 2 * k : 2] = ((meta >> 16) & 0xFFFF).astype(dt)
+        halves = np.zeros((batch.shape[0], META_COLS), dtype=np.int64)
+        halves[:, 0 : 2 * k : 2] = meta & 0xFFFF
+        halves[:, 1 : 2 * k : 2] = (meta >> 16) & 0xFFFF
+        if batch.dtype == np.uint8:
+            cols = batch[:, -2 * META_COLS :]
+            cols[:, 0::2] = halves & 0xFF
+            cols[:, 1::2] = halves >> 8
+        else:
+            batch[:, -META_COLS:] = halves.astype(batch.dtype)
 
     def _prep_features_device(self):
         """The fused route's drain: every slot's new PCM (after its carried
@@ -1013,17 +1146,36 @@ class StreamScheduler:
             buf_lens = offs + drain
             max_len = _pcm_bucket(int(buf_lens.max()), self._drain_cap)
             exact_all = bool(exact[sel].all())
-            batch_t, batch = self._host_buffer(
-                (N, max_len + META_COLS), torch.int16 if exact_all else torch.float32
-            )
+            wire = self._wire
+            samples = None
+            if wire == "adpcm":
+                # drain f32 samples, then block-encode them into the upload
+                # in one call; the reconstructions land over ``samples``
+                wire_w = max_len // shift * block_bytes(shift)
+                samples = np.zeros((N, max_len), dtype=np.float32)
+                batch_t, batch = self._host_buffer((N, wire_w + self._meta_cols), torch.uint8)
+            else:
+                dtype = (torch.uint8 if wire == "mulaw"
+                         else torch.int16 if exact_all else torch.float32)
+                batch_t, batch = self._host_buffer((N, max_len + self._meta_cols), dtype)
             lanes = np.nonzero(sel)[0]
             new_frames = np.zeros(N, dtype=np.int64)
             for sid in lanes:
                 tail = self.slots[sid].feat_state.mfcc_tail
                 if tail.shape[0]:
-                    batch[sid, : tail.shape[0]] = tail.astype(np.int16) if exact_all else tail
+                    if wire == "adpcm":
+                        samples[sid, : tail.shape[0]] = tail
+                    elif wire == "mulaw":
+                        batch[sid, : tail.shape[0]] = tail  # the carried codewords
+                    else:
+                        batch[sid, : tail.shape[0]] = tail.astype(np.int16) if exact_all else tail
                 new_frames[sid] = frames_of(int(buf_lens[sid]))
-            pool.read_into(batch, offs, drain)
+            if wire == "adpcm":
+                pool.read_into(samples, offs, drain)
+                adpcm_encode_into(samples, np.where(sel, buf_lens, 0), shift, batch[:, :wire_w])
+            else:
+                # the mu-law wire encodes while it copies
+                pool.read_into(batch, offs, drain)
             has_new = sel & (new_frames > 0)
             if has_new.any():
                 prep = (batch_t, batch, self._feat_counts.copy(), has_new)
@@ -1034,11 +1186,22 @@ class StreamScheduler:
                     self._feat_counts.astype(np.int64)[has_new] * shift + buf_lens[has_new]
                 )
             for sid in lanes:
+                # the carried tail is what the device saw, so features never
+                # drift across the frame overlap: the reconstructed samples
+                # (ADPCM), which re-encode to themselves next tick, or the
+                # codewords themselves (mu-law: the reference carries their
+                # decoded values and re-encodes them, which gives back the
+                # same samples)
                 n = int(new_frames[sid])
-                row_tail = batch[sid, n * shift : int(buf_lens[sid])]
-                self.slots[sid].feat_state.mfcc_tail = (
-                    row_tail.astype(np.float32) if exact_all else row_tail.copy()
-                )
+                if wire == "adpcm":
+                    tail = samples[sid, n * shift : int(buf_lens[sid])].copy()
+                else:
+                    row_tail = batch[sid, n * shift : int(buf_lens[sid])]
+                    if wire == "mulaw":
+                        tail = row_tail.copy()
+                    else:
+                        tail = row_tail.astype(np.float32) if exact_all else row_tail.copy()
+                self.slots[sid].feat_state.mfcc_tail = tail
                 self._feat_counts[sid] += n
         for sid, state in enumerate(self.slots):
             if (
@@ -1078,7 +1241,8 @@ class StreamScheduler:
         if prep is not None:
             batch_t, batch, counts_before, has_new = prep
         else:
-            batch_t, batch = self._host_buffer((N, META_COLS), torch.int16)
+            batch_t, batch = self._host_buffer(
+                (N, self._meta_cols), torch.int16 if self._wire == "i16" else torch.uint8)
             counts_before = np.zeros(N, dtype=np.int32)
             has_new = np.zeros(N, dtype=bool)
         meta = np.zeros((N, 10), dtype=np.int32)
@@ -1458,3 +1622,130 @@ class StreamScheduler:
             self._fuzzy_cache.clear()
         self._fuzzy_cache[key] = result
         return list(result)
+
+
+class MeshScheduler:
+    """``StreamScheduler(mesh=...)``: the slots in contiguous blocks of
+    ``max_streams / mesh.size``, one block per mesh device, each block a
+    ``StreamScheduler`` of its own on its device (its own pool, device
+    state, tick and captures), driven with that device current. Slot
+    ``sid`` is slot ``sid % per`` of block ``sid // per``. A tick steps
+    the blocks one after another from the calling thread; a block's step
+    on the device route launches its tick and collects only what has
+    landed, so it does not wait for its card. Admission fills the blocks
+    evenly (the reference's ``_open_slot``), so at partial occupancy no
+    card ticks empty slots while another holds them all. The constructor's
+    ``device`` is not read: the devices are the mesh's. There is no
+    warm-start manifest under a mesh, as the reference keeps no AOT store
+    under one; ``warmup`` warms every block."""
+
+    def __init__(self, *args, mesh, **kwargs):
+        bound = inspect.signature(StreamScheduler.__init__).bind(None, *args, **kwargs)
+        bound.apply_defaults()
+        conf = dict(bound.arguments)
+        for name in ("self", "mesh", "device"):
+            conf.pop(name)
+        N = conf["max_streams"]
+        if N % mesh.size:
+            raise ValueError(f"max_streams={N} must be a multiple of the mesh size {mesh.size}")
+        self.mesh = mesh
+        self.max_streams = N
+        self._per = N // mesh.size
+        conf["max_streams"] = self._per
+        self.shards: List[StreamScheduler] = []
+        for dev in mesh.devices:
+            with on_device(dev):
+                self.shards.append(StreamScheduler(**conf, device=dev))
+        # every block takes the same route: the first block's flags
+        first = self.shards[0]
+        self._device_bp, self._device_feats = first._device_bp, first._device_feats
+        self._ep_device, self._sw_device = first._ep_device, first._sw_device
+        self._wire = first._wire
+
+    def _call(self, sid: int, method: str, *args, **kwargs):
+        """``method`` of the block holding slot ``sid``, on its slot there,
+        with the block's device current."""
+        shard = self.shards[sid // self._per]
+        with on_device(shard.device):
+            return getattr(shard, method)(sid % self._per, *args, **kwargs)
+
+    @property
+    def slots(self) -> List[_SlotState]:
+        return [s for shard in self.shards for s in shard.slots]
+
+    @property
+    def device_dispatches(self) -> int:
+        return sum(shard.device_dispatches for shard in self.shards)
+
+    @property
+    def kernel_launches(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for shard in self.shards:
+            for k, v in shard.kernel_launches.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    @property
+    def active_streams(self) -> int:
+        return sum(shard.active_streams for shard in self.shards)
+
+    def open_stream(self) -> int:
+        """Admit a stream into the block with the fewest open slots (the
+        lowest block on a tie); -1 when every slot is taken."""
+        occupancy = [sum(s.active for s in shard.slots) for shard in self.shards]
+        for b in sorted(range(len(self.shards)), key=lambda i: (occupancy[i], i)):
+            local = self.shards[b].open_stream()
+            if local >= 0:
+                return b * self._per + local
+        return -1
+
+    def feed(self, sid: int, pcm: np.ndarray) -> int:
+        return self._call(sid, "feed", pcm)
+
+    def feed_many(self, sids: np.ndarray, pcm: np.ndarray) -> np.ndarray:
+        sids = np.asarray(sids)
+        out = np.zeros(sids.shape[0], dtype=np.int64)
+        for b, shard in enumerate(self.shards):
+            rows = np.flatnonzero(sids // self._per == b)
+            if rows.size:
+                out[rows] = shard.feed_many(sids[rows] % self._per, pcm[rows])
+        return out
+
+    def finish(self, sid: int) -> None:
+        self._call(sid, "finish")
+
+    def poll(self, sid: int, block: bool = True) -> Optional[List[str]]:
+        return self._call(sid, "poll", block=block)
+
+    def close(self, sid: int) -> Tuple[int, int]:
+        return sid, self._call(sid, "close")[1]
+
+    def take_result(
+        self, ticket: Tuple[int, int], block: bool = False
+    ) -> Optional[List[str]]:
+        shard = self.shards[ticket[0] // self._per]
+        with on_device(shard.device):
+            return shard.take_result((ticket[0] % self._per, ticket[1]), block=block)
+
+    def error(self, sid: int) -> Optional[str]:
+        return self._call(sid, "error")
+
+    def step(self) -> int:
+        n = 0
+        for shard in self.shards:
+            with on_device(shard.device):
+                n += shard.step()
+        return n
+
+    def run_until_idle(self, max_steps: int = 10000) -> None:
+        for _ in range(max_steps):
+            if self.step() == 0 and not any(shard._pending_drain for shard in self.shards):
+                return
+
+    def warmup(self, seconds: float = 3.0) -> None:
+        for shard in self.shards:
+            with on_device(shard.device):
+                shard.warmup(seconds)
+
+    def save_aot(self, seconds: float = 3.0) -> Path:
+        raise RuntimeError("a warm-start manifest needs the fused device-feature route and no mesh")

@@ -102,6 +102,7 @@ from ..ops.lattice import Lattice, build_lattice, forward_backward
 from ..ops.mfcc_cuda import mfcc_batch
 from ..ops.pitch import PitchConfig, pitch_batch, pitch_config_from_conf
 from ..ops.viterbi_cuda import kernel_states, viterbi_decode
+from ..utils.warmup import Manifest, base_config, load_kernels
 from .artifacts import LangArtifacts
 from .endpoint import silence_pdfs_from_model
 from .fuzzy import get_fuzzy_text, rescore_nbest
@@ -112,14 +113,6 @@ _LOGGER = logging.getLogger(__name__)
 _BUCKET = 16  # output frames are padded to a multiple of this
 _BF16 = ("bfloat16", "bf16")
 _DITHER_SEED = 42
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, {item})")
-
-
-def _aot_not_ported() -> NotImplementedError:
-    return _not_ported("the AOT program store (aot_dir, save_aot)", "item 17")
 
 
 def read_wav(path: Union[str, Path]) -> np.ndarray:
@@ -415,9 +408,15 @@ class Nnet3WavTranscriber:
     decoder; the dense, scan and checkpointed decoders are exact.
     ``lattice_beam`` prunes the lattices of ``get_lattice``, ``confidence``
     and ``transcribe_rescore``. ``last_decode_plan`` is the (mode, argument)
-    ``select_decoder`` gave the latest decode. ``aot_dir`` and ``save_aot``
-    take the reference's arguments and raise: its store holds StableHLO
-    programs, which the port cannot run."""
+    ``select_decoder`` gave the latest decode.
+
+    ``warmup(batch, seconds, nbest)`` builds and loads the kernels the
+    model's routes use and decodes one zero batch of that shape, so the
+    first real call pays no build, library load, plan or table
+    (``utils/warmup.py``). ``save_aot(pcm_batch, nbest)`` warms at the
+    batch's shape and records it in ``<aot_dir>/warmup.json`` (default
+    ``<graph_dir>/aot``); a transcriber constructed with a manifest of its
+    own configuration warms the recorded shapes before it returns."""
 
     def __init__(
         self,
@@ -435,8 +434,6 @@ class Nnet3WavTranscriber:
         aot_dir: Optional[Union[str, Path]] = None,
         device: Union[str, torch.device] = "cuda",
     ):
-        if aot_dir is not None:
-            raise _aot_not_ported()
         self.device = resolve_device(device)
         self.model_dir = Path(model_dir)
         self.graph_dir = Path(graph_dir)
@@ -459,9 +456,50 @@ class Nnet3WavTranscriber:
         # the Viterbi kernel's reach on this card, for select_decoder
         self._kernel_states = kernel_states(self.device)
         self.last_decode_plan: Optional[Tuple[str, int]] = None
+        self._aot = Manifest(aot_dir if aot_dir is not None else self.graph_dir / "aot")
+        for batch, samples, nbest in self._aot.shapes("batch", self._warm_config, self._kernels()):
+            self._warm(batch, samples, nbest)
+
+    # -- warm start (utils/warmup.py) -------------------------------------------
+
+    def _kernels(self) -> List[str]:
+        """The kernels this model's batch routes launch on a card."""
+        return ["mfcc", "viterbi"] + (["pitch_viterbi"] if self.am.pitch_config is not None else [])
+
+    def _warm_config(self) -> Dict:
+        cfg = base_config(self.am, self.graph_dir, self.device)
+        cfg.update(
+            acoustic_scale=self.acoustic_scale, max_active=self.max_active, beam=self.beam,
+            min_active=self.min_active, silence_weight=self.silence_weight,
+            decode_memory_budget=self.decode_memory_budget,
+        )
+        return cfg
+
+    def _warm(self, batch: int, samples: int, nbest: int) -> None:
+        """Build and load the kernels, then decode one zero batch of
+        [batch, samples] (a dithering model's draws are left where they
+        were)."""
+        load_kernels(self._kernels(), self.device)
+        calls = self.am._dither_calls
+        self._decode_batch([np.zeros(samples, dtype=np.float32)] * batch, nbest)
+        self.am._dither_calls = calls
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def warmup(self, batch: int = 8, seconds: float = 3.0, nbest: int = 1) -> None:
+        """Pay the first call's one-time costs for ``batch`` utterances of
+        ``seconds``, decoded ``nbest`` (the constructor does it for the
+        shapes a manifest records)."""
+        self._warm(batch, int(round(seconds * self.am.frontend_config.samp_freq)), nbest)
 
     def save_aot(self, pcm_batch: List[np.ndarray], nbest: int = 1) -> Path:
-        raise _aot_not_ported()
+        """Warm at this batch's shape (its size and longest utterance) and
+        record it in the manifest; returns the manifest's directory. Run
+        once at deploy time with a batch shaped like production traffic."""
+        samples = max(p.shape[0] for p in pcm_batch)
+        self._warm(len(pcm_batch), samples, nbest)
+        return self._aot.add("batch", self._warm_config(), self._kernels(),
+                             (len(pcm_batch), samples, nbest))
 
     def _get_silence_pdfs(self) -> frozenset:
         """The model's silence pdfs, from ``model/phones.txt`` (empty

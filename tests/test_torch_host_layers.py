@@ -31,12 +31,13 @@ COPIED = [
     "const.py",
     *(f"fst/{m}.py" for m in ("__init__", "core", "determinize", "ops")),
     *(f"grammar/{m}.py" for m in (
-        "__init__", "compile", "expression", "fst", "intents", "numbers", "parser")),
+        "__init__", "compile", "expression", "fst", "intents", "numbers", "parser", "sentences",
+        "sentences_db")),
     *(f"graph/{m}.py" for m in (
         "__init__", "context", "dense", "from_kaldi", "hclg", "topology", "transitions")),
     *(f"io/{m}.py" for m in (
         "__init__", "gmm_am", "ivector", "kaldi_io", "lattice_io", "nnet3_file", "openfst",
-        "tflite", "transition_model", "tree")),
+        "table", "tflite", "transition_model", "tree")),
     *(f"lang/{m}.py" for m in ("__init__", "graphs", "lexicon_fst", "ngram")),
     *(f"lexicon/{m}.py" for m in ("__init__", "g2p", "g2p_decoder")),
     "native/__init__.py",
@@ -54,11 +55,12 @@ COPIED = [
 # path of a local checkout; the copies cite them relative to it.
 _CHECKOUT_PREFIX = re.compile(r'(?<=[\s("])/\w+/reference/')
 
-# The copies' only other edits, as (original, copy) snippets. The two
-# lazy branches into the NumPy wire encoders raise; the other lazy branches
-# into JAX modules reach the port's own module unchanged (the flagship's and
-# the synthetic profile's CMVN branches ``..ops.cmvn``, the Coqui trainer
-# ``.coqui``, the synthetic CTC profile ``..models.ctc``); the TFLite
+# The copies' only other edits, as (original, copy) snippets. The lazy
+# branches into JAX modules reach the port's own module unchanged (the
+# flagship's and the synthetic profile's CMVN branches ``..ops.cmvn``, the
+# Coqui trainer ``.coqui``, the synthetic CTC profile ``..models.ctc``, the
+# native runtime's NumPy wire encoders ``..ops.mulaw`` and ``..ops.adpcm``,
+# which carry the JAX package's NumPy codecs unchanged); the TFLite
 # converter builds the port's ``CtcModel`` on a device; the first g++
 # attempt of the native build also catches a missing compiler (ROADMAP
 # Queue 3, R2), the flagship graph builds its fallback grammar without
@@ -98,35 +100,6 @@ EDITS = {
         cmd.remove("-march=native")""",
             """    except (subprocess.CalledProcessError, FileNotFoundError):
         cmd.remove("-march=native")""",
-        ),
-        (
-            """    from ..ops.adpcm import encode_blocks
-
-    encode_blocks(samples, lens, block, out)
-""",
-            """    raise NotImplementedError(
-        "the NumPy ADPCM wire encoder is not ported yet (ROADMAP Queue 1, item 16)"
-    )
-""",
-        ),
-        (
-            """            # stale native build / NumPy fallback: drain f32 then encode
-            from ..ops.mulaw import encode_f32
-
-            for i in range(self.num_slots):
-                n = int(counts[i])
-                if n <= 0:
-                    continue
-                pcm = self.read(i, n)
-                out[i, int(offs[i]) : int(offs[i]) + n] = encode_f32(pcm)
-            return
-""",
-            """            # stale native build / no native library
-            raise NotImplementedError(
-                "the NumPy mu-law wire encoder is not ported yet "
-                "(ROADMAP Queue 1, item 16)"
-            )
-""",
         ),
     ],
     "testing/flagship.py": [
@@ -185,9 +158,12 @@ def test_copy_equals_original(rel):
 # module in the copy, which carries what the copy imports from it
 # (``FrontendConfig`` and ``mfcc_numpy``, pinned by tests/test_torch_frontend.py;
 # ``CtcModel``, whose constructor, ``save`` and ``from_numpy`` the synthetic
-# CTC profile and the TFLite converter call, pinned by tests/test_torch_ctc.py).
+# CTC profile and the TFLite converter call, pinned by tests/test_torch_ctc.py;
+# the NumPy wire codecs ``encode_f32`` and ``encode_blocks``, pinned by
+# tests/test_torch_mulaw.py and tests/test_torch_adpcm.py).
 OWN_MODULE_IMPORTS = {("testing/synthetic.py", "..ops.frontend"),
-                      ("testing/synthetic.py", "..models.ctc"), ("io/tflite.py", "..models.ctc")}
+                      ("testing/synthetic.py", "..models.ctc"), ("io/tflite.py", "..models.ctc"),
+                      ("native/runtime.py", "..ops.mulaw"), ("native/runtime.py", "..ops.adpcm")}
 
 
 def test_copies_import_no_jax_module():

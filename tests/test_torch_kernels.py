@@ -284,8 +284,8 @@ def test_viterbi_kernel_deployment_size_batch32(cuda):
 
 @pytest.mark.cuda
 def test_mfcc_kernel_main_path_shape_and_window_limit(cuda):
-    """[32, 48000] as the main path frames it; an odd window (not ported)
-    raises instead of running."""
+    """[32, 48000] as the main path frames it; an odd window (401 samples,
+    a direct real DFT in the kernel) against its twin too."""
     rng = np.random.RandomState(2)
     pcm = torch.as_tensor(np.stack([speech_like(rng, 48000) for _ in range(32)]), device=cuda)
     params = make_frontend_params(FrontendConfig(), cuda)
@@ -295,8 +295,11 @@ def test_mfcc_kernel_main_path_shape_and_window_limit(cuda):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=MFCC_RTOL, atol=MFCC_ATOL)
     odd = FrontendConfig(frame_length_ms=25.0625, round_to_power_of_two=False)
     assert odd.padded_window_size == 401
-    with pytest.raises(NotImplementedError, match="odd MFCC window"):
-        mfcc_batch(make_frontend_params(odd, cuda), pcm)
+    odd_params = make_frontend_params(odd, cuda)
+    got = mfcc_batch(odd_params, pcm)
+    want = mfcc_batch_torch(odd_params, pcm)
+    assert got.shape == (32, 298, 40)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=MFCC_RTOL, atol=MFCC_ATOL)
 
 
 @pytest.mark.cuda

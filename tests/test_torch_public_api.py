@@ -1,11 +1,12 @@
 """The port's public names and signatures against the JAX package's.
 
-``rhasspy_speech_torch`` and ``rhasspy_speech_torch.pipeline`` export every
-name the JAX package's ``__all__`` lists, less the names still to port
-(``PENDING``, each with its ROADMAP item). The transcriber, the stream
-scheduler and the Coqui transcriber take the reference's arguments in the
-reference's order, then ``device``; ``aot_dir`` and ``save_aot`` raise ``NotImplementedError``
-naming item 17, and ``aot_dir=None`` changes nothing.
+``rhasspy_speech_torch``, ``rhasspy_speech_torch.pipeline`` and
+``rhasspy_speech_torch.parallel`` export every name the JAX package's
+``__all__`` lists. The transcriber, the stream scheduler and the Coqui
+transcriber take the reference's arguments in the reference's order, then
+``device``; ``ShardedWavTranscriber`` takes the reference's ``mesh``.
+``aot_dir`` and ``save_aot`` answer (the warm-start manifest,
+``utils/warmup.py``), and ``aot_dir=None`` changes nothing.
 """
 
 import dataclasses
@@ -14,11 +15,13 @@ import inspect
 import pytest
 
 import rhasspy_speech_tpu
+import rhasspy_speech_tpu.parallel
 import rhasspy_speech_tpu.pipeline
 from rhasspy_speech_tpu.pipeline.coqui import CoquiSttTranscriber as JaxCoqui
 from rhasspy_speech_tpu.pipeline.scheduler import StreamScheduler as JaxScheduler
 
 import rhasspy_speech_torch
+import rhasspy_speech_torch.parallel
 import rhasspy_speech_torch.pipeline
 from rhasspy_speech_torch.const import LangSuffix
 from rhasspy_speech_torch.pipeline import Nnet3WavTranscriber, lang_dir_name
@@ -29,15 +32,13 @@ from rhasspy_speech_torch.testing import build_synthetic_profile, synthesize_sen
 
 from test_torch_pipeline import LEXICON
 
-PENDING = {"ShardedWavTranscriber": "ROADMAP Queue 1, item 16"}
-
-
 @pytest.mark.parametrize("ref,port", [
     (rhasspy_speech_tpu, rhasspy_speech_torch),
     (rhasspy_speech_tpu.pipeline, rhasspy_speech_torch.pipeline),
-], ids=["package", "pipeline"])
+    (rhasspy_speech_tpu.parallel, rhasspy_speech_torch.parallel),
+], ids=["package", "pipeline", "parallel"])
 def test_exports_cover_the_reference(ref, port):
-    missing = set(ref.__all__) - set(port.__all__) - set(PENDING)
+    missing = set(ref.__all__) - set(port.__all__)
     assert not missing, missing
     for name in port.__all__:
         assert hasattr(port, name), name
@@ -78,13 +79,24 @@ def profile_dirs(tmp_path_factory):
     return profile, root / "train" / lang_dir_name(LangSuffix.GRAMMAR)
 
 
+def test_sharded_transcriber_takes_the_reference_mesh():
+    ours = inspect.signature(rhasspy_speech_torch.ShardedWavTranscriber.__init__).parameters
+    theirs = inspect.signature(rhasspy_speech_tpu.ShardedWavTranscriber.__init__).parameters
+    assert list(ours) == list(theirs) and ours["mesh"].default is None
+
+
 def test_aot_store_raises_and_none_changes_nothing(profile_dirs, tmp_path):
+    """An empty ``aot_dir`` warms nothing, ``save_aot`` writes the manifest
+    there and returns the directory; ``aot_dir=None`` reads
+    ``<graph_dir>/aot`` (empty here) and changes nothing. No error names
+    item 17 any more."""
     profile, graph_dir = profile_dirs
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 17"):
-        Nnet3WavTranscriber(profile.model_dir, graph_dir, aot_dir=tmp_path, device="cpu")
-    t = Nnet3WavTranscriber(profile.model_dir, graph_dir, aot_dir=None, device="cpu")
+    t = Nnet3WavTranscriber(profile.model_dir, graph_dir, aot_dir=tmp_path, device="cpu")
+    assert not t.am._buckets
     pcm = synthesize_sentence(profile, "never mind", seed=5)
     assert t.transcribe_pcm_batch([pcm]) == [["never mind"]]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 17"):
-        t.save_aot([pcm])
-    assert not any(tmp_path.iterdir())
+    assert t.save_aot([pcm]) == tmp_path
+    assert [p.name for p in tmp_path.iterdir()] == ["warmup.json"]
+    t0 = Nnet3WavTranscriber(profile.model_dir, graph_dir, aot_dir=None, device="cpu")
+    assert not t0.am._buckets
+    assert t0.transcribe_pcm_batch([pcm]) == [["never mind"]]
