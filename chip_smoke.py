@@ -206,16 +206,19 @@ plain PyTorch twins:
 21. the serving wires: the flagship scheduler at 32 slots, captured, on
    ``wire="i16"``, ``"mulaw"`` and ``"adpcm"`` (replays bit-equal to the
    eager body, every kernel of the tick counted; the tick's p50 / p90 of
-   each in this call); the ADPCM decode kernel (K6) bit-equal to its twin
-   on the tick's probed wire bytes and timed by device time; the synthetic
+   each in this call); the ADPCM decode kernel (K6, a warp scan a block)
+   bit-equal to its twin on the tick's probed wire bytes and on a
+   saturating probe of that shape, and timed by device time; the synthetic
    speech profile's sentences scheduled on both wires equal to the batch
    transcripts of the wire's decoded audio (mu-law: all 8 the spoken
    sentence; ADPCM, a lossy 4-bit wire: at least 7);
 22. an odd MFCC window: a copy of the flagship model dir with
    ``--round-to-power-of-two=false --frame-length=25.0625`` (N = 401): the
    batch call counted, transcripts equal to the plain twins' path, K1
-   against its twin at [32, 48000] (K1's tolerance) and timed beside the N
-   = 512 launch; one stream and the scheduler launch K1 on it too;
+   (Bluestein's algorithm) against its twin at [32, 48000] (K1's
+   tolerance) and timed in one call beside its twin, the N = 512 launch
+   and ``torch.fft.rfft`` of the frames; one stream and the scheduler
+   launch K1 on it too;
 23. the command line and warm start: ``cli.main(["transcribe", ...])`` on
    the 32 utterances written as WAVs; a cold process serves them once
    (batch, then the scheduler at 32 slots) and runs ``cli warmup``, which
@@ -279,7 +282,7 @@ from rhasspy_speech_torch import (  # noqa: E402
 from rhasspy_speech_torch.ops import adpcm as adpcm_codec, mulaw as mulaw_codec  # noqa: E402
 from rhasspy_speech_torch.ops.adpcm import block_bytes, decode_blocks_torch  # noqa: E402
 from rhasspy_speech_torch.ops.adpcm_cuda import adpcm_decode  # noqa: E402
-from rhasspy_speech_torch.ops.frontend import make_frontend_params  # noqa: E402
+from rhasspy_speech_torch.ops.frontend import frame_indices, make_frontend_params  # noqa: E402
 from rhasspy_speech_torch.parallel import make_stream_mesh  # noqa: E402
 from rhasspy_speech_torch.pipeline.artifacts import LangArtifacts, lang_dir_name  # noqa: E402
 from rhasspy_speech_torch.pipeline.endpoint import EndpointConfig  # noqa: E402
@@ -335,6 +338,7 @@ from rhasspy_speech_torch.testing.big_grammar import (  # noqa: E402
     train_big_grammar,
     write_big_grammar_model_dir,
 )
+from rhasspy_speech_torch.testing.adpcm_wires import saturating_wire  # noqa: E402
 from rhasspy_speech_torch.testing.decode_graphs import random_decode_graph  # noqa: E402
 from rhasspy_speech_torch.testing.flagship import (  # noqa: E402
     build_flagship_graph,
@@ -437,6 +441,10 @@ ALL_TYPES_TOL = 2e-4
 PR9 = {"pitch_tick_p50": 6.452, "pitch_tick_p90": 9.573, "pitch_stream_rtf": 0.0960,
        "pitch_stage_ms": 6.451, "k5_batch": 4.8818, "k5_tick": 3.2356, "k5_push": 3.2429,
        "k4_flagship": 0.0282, "k4_13789": 0.0296, "k4_tri1 flagship": 0.0874}
+# K1's odd window and K6 before their redesign (a direct DFT; a thread a
+# block) and K1 at N = 512, as PERF.md section 6 records them (an H100 80GB
+# HBM3 at 700 W), printed beside this run's
+EARLIER_MS = {"k1_odd": 0.6356, "k1_512": 0.0713, "k6": 0.0276}
 SUMMARY = {}  # this run's figures of the same names
 PHASE_S = {}  # each phase's seconds in this run
 
@@ -2904,24 +2912,32 @@ def wire_decoded(wire, pcm):
 
 
 def adpcm_numbers(wire_bytes):
-    """K6 on the tick's probed wire bytes against its twin (bit-equal),
-    timed by device time beside the twin, with its bound: the bytes read,
-    the f32 samples written; a dozen integer operations a decoded sample."""
+    """K6 on the tick's probed wire bytes and on a saturating probe of the
+    same shape against its twin (bit-equal), timed by device time beside the
+    twin, with its bound: the bytes read, the f32 samples written; a dozen
+    integer operations a decoded sample."""
     block = 160
     got = adpcm_decode(wire_bytes, block)
     want = decode_blocks_torch(wire_bytes, block)
+    N, nb = wire_bytes.shape[0], wire_bytes.shape[1] // block_bytes(block)
+    sat = torch.as_tensor(saturating_wire(N, nb, block, seed=SEED), device=wire_bytes.device)
+    sat_got, sat_want = adpcm_decode(sat, block), decode_blocks_torch(sat, block)
     torch.cuda.synchronize()
     check(torch.equal(got, want), "ADPCM decode kernel differs from its twin at the tick's shape")
-    N, nb = wire_bytes.shape[0], wire_bytes.shape[1] // block_bytes(block)
+    check(torch.equal(sat_got, sat_want), "ADPCM decode kernel differs from its twin on the "
+          "saturating probe")
+    check(float(sat_want.max()) == 32767.0 and float(sat_want.min()) == -32768.0,
+          "the saturating probe missed a rail")
     out = {"ms": device_ms(lambda: adpcm_decode(wire_bytes, block)),
            "plain_ms": cuda_ms(lambda: decode_blocks_torch(wire_bytes, block), iters=3),
            "max_abs_err": float((got - want).abs().max())}
     out["bound_ms"], out["bound_by"] = bound(wire_bytes.numel() + 4 * got.numel(),
                                              12 * N * nb * (block - 1))
-    print(f"K6 adpcm_decode at the tick's shape {list(wire_bytes.shape)} bytes ({N} x {nb} blocks of "
-          f"{block_bytes(block)}) -> {list(got.shape)} f32: bit-equal to its twin; kernel "
-          f"{out['ms']:.4f} ms of device time, plain {out['plain_ms']:.4f} ms, bound "
-          f"{out['bound_ms']:.6f} ms ({out['bound_by']})")
+    print(f"K6 adpcm_decode (a warp scan a block) at the tick's shape {list(wire_bytes.shape)} bytes "
+          f"({N} x {nb} blocks of {block_bytes(block)}) -> {list(got.shape)} f32: bit-equal to its "
+          f"twin there and on a saturating probe of that shape; kernel {out['ms']:.4f} ms of device "
+          f"time (the thread-a-block kernel before it: {EARLIER_MS['k6']}), plain "
+          f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
     return out
 
 
@@ -3012,9 +3028,10 @@ def odd_window_phase(root, model_dir, graph_dir, dev, pcms, fuzzy):
     """Phase 22: a copy of the flagship model dir with
     --round-to-power-of-two=false --frame-length=25.0625 (N = 401): the
     batch call counted, its transcripts equal to the plain twins' path, K1
-    against its twin at [32, 48000] and timed beside the N = 512 launch;
-    one stream and the scheduler reach it too. Returns the kernels-line
-    entry."""
+    (Bluestein's algorithm) against its twin at [32, 48000] and timed in
+    one call beside the twin, the N = 512 launch and torch.fft.rfft of the
+    [B * T, 401] frames (the spectrum step alone); one stream and the
+    scheduler reach it too. Returns the kernels-line entry."""
     odd = linked_copy(model_dir, os.path.join(root, "odd_model"),
                       {"round_to_power_of_two": False, "frame_length_ms": ODD_FRAME_MS})
     t = Nnet3WavTranscriber(odd, graph_dir, device=dev)
@@ -3035,6 +3052,10 @@ def odd_window_phase(root, model_dir, graph_dir, dev, pcms, fuzzy):
     p512 = make_frontend_params(dataclasses.replace(cfg, round_to_power_of_two=True,
                                                     frame_length_ms=25.0), dev)
     ms512 = cuda_ms(lambda: mfcc_batch(p512, pcm))
+    # the spectrum step alone, as one library call: rfft of the [B * T, 401]
+    # frames (not K1's whole function: no framing, window, mel or DCT)
+    frames = pcm[:, cached_index(frame_indices(cfg, pcm.shape[1]), dev)].reshape(-1, cfg.frame_length)
+    rfft_ms = cuda_ms(lambda: torch.fft.rfft(frames, n=cfg.padded_window_size, dim=-1))
     st = Nnet3StreamTranscriber(odd, graph_dir, device=dev)
     zero_counts()
     stream_pcm(st, pcms[0], **fuzzy)
@@ -3045,12 +3066,14 @@ def odd_window_phase(root, model_dir, graph_dir, dev, pcms, fuzzy):
     sched_k1 = sched.kernel_launches["mfcc"]
     check(stream_k1 > 0 and sched_k1 > 0, f"odd window: K1 launches stream {stream_k1}, "
           f"scheduler {sched_k1}")
-    print(f"odd window (N = 401, a direct real DFT): batch {BATCH} x {SECONDS} s in {wall_ms:.1f} ms, "
-          f"launches {launches}, transcripts equal to the plain twins' path; K1 {list(pcm.shape)} -> "
-          f"{list(feats.shape)}: max |d| {err:.3e}, kernel {k1['ms']:.4f} ms against {ms512:.4f} ms "
-          f"at N = 512 (CUDA events, this call), plain {k1['plain_ms']:.4f} ms, bound "
-          f"{k1['bound_ms']:.4f} ms ({k1['bound_by']}); K1 launches on one stream {stream_k1}, on "
-          f"the scheduler (4 slots) {sched_k1}")
+    print(f"odd window (N = 401, Bluestein over Q = 1024): batch {BATCH} x {SECONDS} s in "
+          f"{wall_ms:.1f} ms, launches {launches}, transcripts equal to the plain twins' path; K1 "
+          f"{list(pcm.shape)} -> {list(feats.shape)}: max |d| {err:.3e}; CUDA events, this call: "
+          f"kernel {k1['ms']:.4f} ms, its twin {k1['plain_ms']:.4f} ms, K1 at N = 512 "
+          f"{ms512:.4f} ms, torch.fft.rfft of the {list(frames.shape)} frames alone "
+          f"{rfft_ms:.4f} ms; bound {k1['bound_ms']:.4f} ms ({k1['bound_by']}); recorded: "
+          f"the direct DFT {EARLIER_MS['k1_odd']} ms, N = 512 {EARLIER_MS['k1_512']} ms; K1 "
+          f"launches on one stream {stream_k1}, on the scheduler (4 slots) {sched_k1}")
     SUMMARY["k1_odd_vs_512"] = (k1["ms"], ms512)
     return {"name": "mfcc_odd_window", "route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
             "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122", "library_ms": None,

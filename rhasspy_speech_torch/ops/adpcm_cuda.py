@@ -4,7 +4,8 @@ stream scheduler's ``wire="adpcm"`` decode inside the captured tick.
 The kernel has no TPU original: it stands in for the ``lax.scan`` of the
 JAX package's ``decode_blocks_jnp`` (``rhasspy_speech_tpu/ops/adpcm.py``),
 which XLA fuses into the serving tick. Unfused in PyTorch, that recurrence
-is about a dozen launches a step for 159 steps; the kernel is one launch.
+is about a dozen launches a step for 159 steps; the kernel is one launch,
+a warp a block, both recurrences a scan of clamped adds.
 
 ``adpcm_decode`` launches the kernel for wire bytes on a CUDA device and
 runs the plain twin ``ops.adpcm.decode_blocks_torch`` for bytes on the

@@ -6,13 +6,17 @@ the plain twin ``ops.frontend.mfcc_batch_torch`` for samples on the CPU;
 it never falls back from one to the other. ``mfcc_batch.launches`` counts
 kernel launches.
 
-The kernel's power spectrum is a real FFT of the padded window, computed
-as a half-size complex FFT: radix-2 stages when the window is a power of
-two, mixed-radix (Stockham) stages otherwise; an odd window (e.g. 401
-samples, ``round_to_power_of_two=false``) takes a direct real DFT. ``fft_twiddles`` is its
-table and ``mel_bands`` cuts ``FrontendParams.mel_weights`` to each
-filter's nonzero band; both are made once per ``FrontendParams`` (cached
-on it) and are reached by the CPU tests.
+The kernel's power spectrum is a real FFT of the padded window. An even
+window is computed as a half-size complex FFT: radix-2 stages when the
+window is a power of two, mixed-radix (Stockham) stages otherwise, with
+``fft_twiddles`` as its table. An odd window (e.g. 401 samples,
+``round_to_power_of_two=false``) runs Bluestein's algorithm on two frames
+at once, with ``bluestein_table`` as its table: the frames packed as one
+complex sequence, times a chirp, convolved with the conjugate chirp through
+radix-2 FFTs of the power of two ``bluestein_size(n) >= 2n - 1``, and split
+into the two frames' bins. ``mel_bands`` cuts ``FrontendParams.mel_weights``
+to each filter's nonzero band. The tables are made once per
+``FrontendParams`` (cached on it) and are reached by the CPU tests.
 """
 
 from __future__ import annotations
@@ -51,6 +55,47 @@ def fft_twiddles(n: int) -> np.ndarray:
     return np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32)
 
 
+def bluestein_size(n: int) -> int:
+    """Q, the power of two >= 2n - 1 over which an odd n-point DFT runs as
+    a circular convolution (1,024 at n = 401)."""
+    return 1 << (2 * n - 2).bit_length()
+
+
+def bluestein_table(n: int) -> np.ndarray:
+    """The odd-window kernel's f32 table for an n-point DFT, Q =
+    ``bluestein_size(n)``, computed in float64 and rounded once:
+
+    - ``[0, Q)`` cos and ``[Q, 2Q)`` sin of the radix-2 stages' twiddles,
+      laid out by stage: entry m + p (m = 1, 2, .., Q/2; p < m) holds
+      W_2m^p = cos(pi p / m) - i sin(pi p / m); entry 0 is unused;
+    - ``[2Q, 2Q + n)`` cos and ``[2Q + n, 2Q + 2n)`` sin of the chirp w_k =
+      exp(-i pi k^2 / n) = cos - i sin, with k^2 reduced mod 2n in integers
+      so that no phase is lost at large k;
+    - ``[2Q + 2n, 3Q + 2n)`` real and ``[3Q + 2n, 4Q + 2n)`` imaginary parts
+      of the Q-point FFT of the conjugate chirp (w*_m at m and at Q - m,
+      zero between), divided by Q and in bit-reversed order, the order the
+      kernel's forward FFT leaves its output in."""
+    Q = bluestein_size(n)
+    tw = np.zeros((2, Q))
+    tw[0, 0] = 1.0
+    m = 1
+    while m < Q:
+        ang = np.pi * np.arange(m) / m
+        tw[0, m : 2 * m], tw[1, m : 2 * m] = np.cos(ang), np.sin(ang)
+        m *= 2
+    k = np.arange(n, dtype=np.int64)
+    ang = np.pi * ((k * k) % (2 * n)) / n
+    b = np.zeros(Q, np.complex128)
+    b[:n] = np.exp(1j * ang)
+    b[Q - k[1:]] = b[1:n]
+    bits = Q.bit_length() - 1
+    rev = [int(format(j, f"0{bits}b")[::-1], 2) for j in range(Q)]
+    spec = (np.fft.fft(b) / Q)[rev]
+    return np.concatenate(
+        [tw[0], tw[1], np.cos(ang), np.sin(ang), spec.real, spec.imag]
+    ).astype(np.float32)
+
+
 def mel_bands(mel_weights: np.ndarray):
     """The dense f32 mel matrix [bins, M] as bands: (ptr [M + 1], first bin
     [M], weights) with filter m's nonzero weights ``weights[ptr[m]:ptr[m +
@@ -66,12 +111,16 @@ def mel_bands(mel_weights: np.ndarray):
 
 
 def _tables(params: FrontendParams):
+    """(spectrum table, mel band pointers, first bins, weights) on the
+    params' device: ``fft_twiddles`` for an even window, ``bluestein_table``
+    for an odd one."""
     tables = params.kernel_cache.get("mfcc")
     if tables is None:
+        n = params.cfg.padded_window_size
         ptr, first, vals = mel_bands(params.mel_weights.cpu().numpy())
+        spectrum = bluestein_table(n) if n % 2 else fft_twiddles(n)
         tables = tuple(
-            torch.as_tensor(a, device=params.device)
-            for a in (fft_twiddles(params.cfg.padded_window_size), ptr, first, vals)
+            torch.as_tensor(a, device=params.device) for a in (spectrum, ptr, first, vals)
         )
         params.kernel_cache["mfcc"] = tables
     return tables

@@ -5,8 +5,12 @@ package's ``decode_blocks_jnp`` on the same seeded bytes, the native
 encoder byte-equal to the NumPy codec, and the stream scheduler over the
 wire on the CPU: transcripts equal to the JAX scheduler's on the same
 synthetic profile and wire, to the spoken sentences, and whatever the
-arrival timing. On a card, the decode kernel K6 (``ops/adpcm_cuda.py``) is
-bit-equal to the twin (marker ``cuda``).
+arrival timing. K6 (``ops/adpcm_cuda.py``) decodes a block as a warp scan
+of clamped adds: a NumPy emulation of that scan (32 lanes, each lane's
+maps composed, two scans) is bit-equal to the twin and to the JAX decode
+on seeded and saturating bytes at block sizes of 1 to 10 steps a lane. On
+a card the kernel is bit-equal to the twin on the same bytes (marker
+``cuda``).
 """
 
 import numpy as np
@@ -20,13 +24,17 @@ from rhasspy_speech_tpu.pipeline.scheduler import StreamScheduler as JaxSchedule
 import torch
 
 from rhasspy_speech_torch.ops import adpcm
+from rhasspy_speech_torch.ops.adpcm import INDEX_TABLE, STEP_TABLE, block_bytes
 from rhasspy_speech_torch.ops.adpcm_cuda import adpcm_decode
 from rhasspy_speech_torch.pipeline.scheduler import StreamScheduler
 from rhasspy_speech_torch.testing import synthesize_sentence
+from rhasspy_speech_torch.testing.adpcm_wires import saturating_wire
 
 from test_torch_mulaw import WIRE_TEXTS, pitch_profile, run_interleaved, run_whole, wire_profile  # noqa: F401
 
 BLOCK = 160
+# 1, 2, 3, 5 and 10 steps a lane of K6's scan
+SCAN_BLOCKS = (2, 33, 80, 160, 321)
 
 
 @pytest.fixture
@@ -47,15 +55,89 @@ def _encode(x: np.ndarray, block: int = BLOCK):
     return out, samples  # recon in place
 
 
-def _seeded_wire(seed, N=4, nb=5):
+def _seeded_wire(seed, N=4, nb=5, block=BLOCK):
     """Seeded ADPCM bytes [N, nb * bpb] (full, partial and empty lanes)."""
     rng = np.random.RandomState(seed)
-    samples = (rng.randn(N, nb * BLOCK) * 5000).astype(np.float32)
-    samples[1] = np.clip(np.cumsum(rng.randn(nb * BLOCK)) * 9000, -40000, 40000)
-    out = np.zeros((N, nb * adpcm.block_bytes(BLOCK)), np.uint8)
-    lens = np.array([nb * BLOCK, 3 * BLOCK + 17, 0, BLOCK] + [nb * BLOCK] * (N - 4))
-    adpcm.encode_blocks(samples, lens, BLOCK, out)
+    samples = (rng.randn(N, nb * block) * 5000).astype(np.float32)
+    samples[1] = np.clip(np.cumsum(rng.randn(nb * block)) * 9000, -40000, 40000)
+    out = np.zeros((N, nb * adpcm.block_bytes(block)), np.uint8)
+    lens = np.array([nb * block, 3 * block + block // 9, 0, block] + [nb * block] * (N - 4))
+    adpcm.encode_blocks(samples, lens, block, out)
     return out
+
+
+_K_BIG, _K_SAT = 1 << 29, 1 << 20  # csrc/adpcm_decode.cu's kBig, kSat
+_IDENTITY = (0, -_K_BIG, _K_BIG)
+
+
+def _then(f, g):
+    """The clamped add x -> min(max(x + a, l), h) f, then g."""
+    return (np.clip(f[0] + g[0], -_K_SAT, _K_SAT), np.clip(f[1] + g[0], g[1], g[2]),
+            np.clip(f[2] + g[0], g[1], g[2]))
+
+
+def _exclusive_scan(f):
+    """[M, 32] lane maps -> each lane's composition of the lanes below it,
+    by the kernel's 5 rounds of __shfl_up_sync."""
+    lane = np.arange(32)
+    for off in (1, 2, 4, 8, 16):
+        up = _then(tuple(np.roll(x, off, axis=1) for x in f), f)
+        f = tuple(np.where(lane >= off, u, x) for u, x in zip(up, f))
+    return tuple(np.where(lane == 0, i, np.roll(x, 1, axis=1)) for i, x in zip(_IDENTITY, f))
+
+
+def scan_decode(wire, block):
+    """K6's decode in NumPy: one warp a block, lane j owning steps 1 + jK ..
+    (j + 1)K, K = ceil((block - 1) / 32); the lanes' index maps composed and
+    scanned from the header's index, the predictor maps (their increments
+    from the walked indices) composed and scanned from the header's sample,
+    then each lane's samples. int64 arithmetic, held inside int32."""
+    bpb = block_bytes(block)
+    N, nb = wire.shape[0], wire.shape[1] // bpb
+    blk = wire[:, : nb * bpb].reshape(N * nb, bpb).astype(np.int64)
+    pred0 = blk[:, 0] | (blk[:, 1] << 8)
+    pred0 = (pred0 - 2 * (pred0 & 0x8000))[:, None]
+    idx0 = np.minimum(blk[:, 2], 88)[:, None]
+    nib = np.zeros((N * nb, block), np.int64)
+    nib[:, 1::2] = (blk[:, 3:] & 0xF)[:, : (block // 2)]
+    nib[:, 2::2] = (blk[:, 3:] >> 4)[:, : (block - 1) // 2]
+    K = -(-(block - 1) // 32)
+    t0 = 1 + K * np.arange(32)
+    steps = [(np.minimum(t0 + i, block - 1), t0 + i < block) for i in range(K)]
+    step_table = STEP_TABLE.astype(np.int64)
+
+    def walk(idx):
+        """Each step's (nibble, code, increment, valid), the index walked."""
+        for t, valid in steps:
+            n = nib[:, t]
+            code = n & 7
+            step = step_table[idx]
+            dq = (step >> 3) + np.where(code & 4, step, 0) + np.where(code & 2, step >> 1, 0) \
+                + np.where(code & 1, step >> 2, 0)
+            yield t, valid, code, np.where(n & 8, -dq, dq)
+            idx = np.where(valid, np.clip(idx + INDEX_TABLE[code], 0, 88), idx)
+
+    def compose(maps):
+        f = tuple(np.broadcast_to(np.int64(x), (N * nb, 32)) for x in _IDENTITY)
+        for valid, g in maps:
+            f = tuple(np.where(valid, a, b) for a, b in zip(_then(f, g), f))
+        assert all(np.abs(x).max() < 2 ** 31 for x in f)
+        return f
+
+    def apply(f, x):
+        return np.clip(x + f[0], f[1], f[2])
+
+    idx_maps = compose((v, (INDEX_TABLE[nib[:, t] & 7], 0, 88)) for t, v in steps)
+    idx_start = apply(_exclusive_scan(idx_maps), idx0)
+    pred_maps = compose((v, (d, -32768, 32767)) for _t, v, _c, d in walk(idx_start))
+    pred = apply(_exclusive_scan(pred_maps), pred0)
+    out = np.zeros((N * nb, block), np.int64)
+    out[:, 0] = pred0[:, 0]
+    rows = np.arange(N * nb)[:, None]
+    for t, valid, _code, d in walk(idx_start):
+        pred = np.where(valid, np.clip(pred + d, -32768, 32767), pred)
+        out[rows, np.where(valid, t, 0)] = np.where(valid, pred, out[:, :1])
+    return out.reshape(N, nb * block).astype(np.float32)
 
 
 def test_codec_quality_and_exact_integers():
@@ -119,6 +201,20 @@ def test_device_decode_matches_jax():
         np.testing.assert_array_equal(got.numpy(), want)
         np.testing.assert_array_equal(got.numpy(), adpcm.decode_blocks(out, BLOCK))
         np.testing.assert_array_equal(adpcm_decode(torch.as_tensor(out), BLOCK).numpy(), want)
+
+
+@pytest.mark.parametrize("block", SCAN_BLOCKS)
+def test_scan_emulation_bit_equal(block):
+    """K6's scan, emulated, against the twin and the JAX decode: bit-equal
+    on seeded wire bytes and on bytes that saturate both recurrences."""
+    decode_jax = jax.jit(jax_adpcm.decode_blocks_jnp, static_argnums=1)
+    for wire in (_seeded_wire(block, N=5, nb=3, block=block), saturating_wire(5, 4, block)):
+        got = scan_decode(wire, block)
+        want = adpcm.decode_blocks_torch(torch.as_tensor(wire), block).numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, np.asarray(decode_jax(wire, block)))
+    if block >= 33:  # the saturating bytes reach both of the sample's clamps
+        assert got.max() == 32767 and got.min() == -32768
 
 
 def test_native_encode_matches_python():
@@ -222,3 +318,23 @@ def test_decode_kernel_bit_equal(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want)
     assert adpcm_decode.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", SCAN_BLOCKS)
+def test_decode_kernel_scan_cases(cuda, block):
+    """K6 against its twin at every block size of the emulation, on seeded
+    and saturating bytes, with block counts that leave the last CTA (4
+    blocks) partly filled, and on a column slice of a wider batch."""
+    before = adpcm_decode.launches
+    for wire in (_seeded_wire(block + 1, N=5, nb=3, block=block), saturating_wire(5, 3, block)):
+        assert (wire.shape[0] * wire.shape[1] // block_bytes(block)) % 4
+        want = adpcm.decode_blocks_torch(torch.as_tensor(wire), block)
+        wide = np.zeros((wire.shape[0], wire.shape[1] + 13), np.uint8)
+        wide[:, : wire.shape[1]] = wire
+        for dev_wire in (torch.as_tensor(wire, device=cuda),
+                         torch.as_tensor(wide, device=cuda)[:, : wire.shape[1]]):
+            got = adpcm_decode(dev_wire, block)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want)
+    assert adpcm_decode.launches == before + 4
