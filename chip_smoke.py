@@ -254,6 +254,7 @@ import dataclasses
 import functools
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -436,15 +437,6 @@ BF16_SPREAD_SHARE, BF16_MIN_AGREE = 0.05, 0.9  # tests/test_bf16.py's bf16 bound
 # the all-types graph, card vs CPU: one or two small f32 products a branch,
 # tests/test_torch_nnet3_components.py's tolerance
 ALL_TYPES_TOL = 2e-4
-# The pitch lane's and K4's figures before their redesign (PERF.md, PR 9's
-# chip run, an H100 80GB HBM3 at 700 W), printed beside this run's
-PR9 = {"pitch_tick_p50": 6.452, "pitch_tick_p90": 9.573, "pitch_stream_rtf": 0.0960,
-       "pitch_stage_ms": 6.451, "k5_batch": 4.8818, "k5_tick": 3.2356, "k5_push": 3.2429,
-       "k4_flagship": 0.0282, "k4_13789": 0.0296, "k4_tri1 flagship": 0.0874}
-# K1's odd window and K6 before their redesign (a direct DFT; a thread a
-# block) and K1 at N = 512, as PERF.md section 6 records them (an H100 80GB
-# HBM3 at 700 W), printed beside this run's
-EARLIER_MS = {"k1_odd": 0.6356, "k1_512": 0.0713, "k6": 0.0276}
 SUMMARY = {}  # this run's figures of the same names
 PHASE_S = {}  # each phase's seconds in this run
 
@@ -509,21 +501,17 @@ def mfcc_work(params, B, S, T):
     removal, pre-emphasis and window (and energy), the power spectrum, the
     mel bands, log, DCT and lifter. At a power of two the spectrum is the
     real FFT as an N/2-point complex FFT (10 operations a radix-2
-    butterfly) and its split. At an odd N it is counted as Bluestein's
-    algorithm, not as the direct DFT the kernel runs: two frames packed as
-    one complex sequence, chirp-multiplied (6 operations a sample),
-    convolved with the chirp through radix-2 FFTs of the power of two Q >=
-    2N - 1 (forward, a product with the chirp's spectrum, inverse), the N
-    outputs chirp-multiplied and split into the two frames' H + 1 bins (4
-    operations a bin), and the power taken (3 a bin). Rader's algorithm
-    over a mixed-radix FFT of N - 1 would count fewer still."""
+    butterfly) and its split. At an odd N the kernel runs Bluestein's
+    algorithm over radix-2 FFTs of 2N - 1 points and more; the bound counts
+    less than that or Rader's algorithm (about twice as much at N = 401):
+    the nominal 5 N log2 N operations of an N-point complex FFT of the two
+    frames packed as one sequence, then the split into the two frames'
+    H + 1 bins (4 operations a bin) and the power (3 a bin)."""
     cfg = params.cfg
     N, L, M, C = cfg.padded_window_size, cfg.frame_length, cfg.num_mel_bins, cfg.num_ceps
     H = N // 2
     if N % 2:
-        Q = 1 << (2 * N - 2).bit_length()
-        pair = 6 * N + 2 * 10 * (Q // 2) * (Q.bit_length() - 1) + 6 * Q + 6 * N
-        spectrum = pair // 2 + 7 * (H + 1)
+        spectrum = round(5 * N * math.log2(N) / 2) + 7 * (H + 1)
     else:
         check(H & (H - 1) == 0, f"mfcc_work counts a power-of-two or odd window, got N={N}")
         spectrum = 10 * (H // 2) * (H.bit_length() - 1) + 14 * (H + 1)
@@ -1359,7 +1347,7 @@ def path_walk_numbers(name, sched, dev):
     print(f"K4 path_walk on {name} ({sched.device_graph.num_states} states), ring "
           f"{list(st.ring.shape)}, {steps} frames walked over {st.offs.shape[0]} slots, arc table "
           f"{tk.walk_tables.smem_bytes} B staged: bit-equal to its twin; kernel {out['ms']:.4f} ms "
-          f"of device time (PR 9: {PR9.get('k4_' + name, 'not measured')}), plain "
+          f"of device time, plain "
           f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
     return out
 
@@ -2054,7 +2042,7 @@ def k5_numbers(label, cfg, pcm):
     local_ms = cuda_ms(lambda: pitch_local(cfg, pcm))
     batch_ms = cuda_ms(lambda: pitch_batch(cfg, pcm))
     print(f"K5 pitch_viterbi {label} {list(local.shape)}: states bit-equal to the twin; kernel "
-          f"{out['ms']:.4f} ms (PR 9: {PR9['k5_' + label]}) in clusters of {plan.cluster}, "
+          f"{out['ms']:.4f} ms in clusters of {plan.cluster}, "
           f"{plan.lanes} lanes a strip, {plan.threads} threads; rank 0's cycles: min-plus pass "
           f"{100 * pas / (fwd + back):.1f}%, merge {100 * merge / (fwd + back):.1f}%, wait "
           f"{100 * (fwd - pas - merge) / (fwd + back):.1f}%, final argmin + traceback "
@@ -2296,13 +2284,10 @@ def pitch_phase(root, model_dir, graph_dir, graph, dev, pcms, fuzzy, plain_stage
     del sched, probes
     k5_sweep()
     tick = SUMMARY["pitch flagship"]
-    print(f"pitch lane against PR 9: captured tick p50 / p90 {tick['tick_p50']:.3f} / "
-          f"{tick['tick_p90']:.3f} ms (PR 9: {PR9['pitch_tick_p50']} / {PR9['pitch_tick_p90']}); "
-          f"pitch stream real-time factor {SUMMARY['pitch_stream_rtf']:.5f} (PR 9: "
-          f"{PR9['pitch_stream_rtf']}); batch pitch stage {SUMMARY['pitch_stage_ms']:.3f} ms "
-          f"(PR 9: {PR9['pitch_stage_ms']}); K5 batch / tick / push {k5['ms']:.4f} / "
-          f"{k5_tick['ms']:.4f} / {k5_push['ms']:.4f} ms (PR 9: {PR9['k5_batch']} / "
-          f"{PR9['k5_tick']} / {PR9['k5_push']})")
+    print(f"pitch lane: captured tick p50 / p90 {tick['tick_p50']:.3f} / "
+          f"{tick['tick_p90']:.3f} ms; pitch stream real-time factor "
+          f"{SUMMARY['pitch_stream_rtf']:.5f}; batch pitch stage {SUMMARY['pitch_stage_ms']:.3f} ms; "
+          f"K5 batch / tick / push {k5['ms']:.4f} / {k5_tick['ms']:.4f} / {k5_push['ms']:.4f} ms")
     entry = {"route": "cuda", "source": "rhasspy_speech_torch/csrc/pitch_viterbi.cu",
              "replaces": "rhasspy_speech_tpu/ops/pitch.py:255", "library_ms": None}
     return [
@@ -2936,7 +2921,7 @@ def adpcm_numbers(wire_bytes):
     print(f"K6 adpcm_decode (a warp scan a block) at the tick's shape {list(wire_bytes.shape)} bytes "
           f"({N} x {nb} blocks of {block_bytes(block)}) -> {list(got.shape)} f32: bit-equal to its "
           f"twin there and on a saturating probe of that shape; kernel {out['ms']:.4f} ms of device "
-          f"time (the thread-a-block kernel before it: {EARLIER_MS['k6']}), plain "
+          f"time, plain "
           f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
     return out
 
@@ -3071,9 +3056,7 @@ def odd_window_phase(root, model_dir, graph_dir, dev, pcms, fuzzy):
           f"{list(pcm.shape)} -> {list(feats.shape)}: max |d| {err:.3e}; CUDA events, this call: "
           f"kernel {k1['ms']:.4f} ms, its twin {k1['plain_ms']:.4f} ms, K1 at N = 512 "
           f"{ms512:.4f} ms, torch.fft.rfft of the {list(frames.shape)} frames alone "
-          f"{rfft_ms:.4f} ms; bound {k1['bound_ms']:.4f} ms ({k1['bound_by']}); recorded: "
-          f"the direct DFT {EARLIER_MS['k1_odd']} ms, N = 512 {EARLIER_MS['k1_512']} ms; K1 "
-          f"launches on one stream {stream_k1}, on the scheduler (4 slots) {sched_k1}")
+          f"{rfft_ms:.4f} ms; bound {k1['bound_ms']:.4f} ms ({k1['bound_by']}); K1 launches on one stream {stream_k1}, on the scheduler (4 slots) {sched_k1}")
     SUMMARY["k1_odd_vs_512"] = (k1["ms"], ms512)
     return {"name": "mfcc_odd_window", "route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
             "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122", "library_ms": None,

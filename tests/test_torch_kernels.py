@@ -285,7 +285,7 @@ def test_viterbi_kernel_deployment_size_batch32(cuda):
 @pytest.mark.cuda
 def test_mfcc_kernel_main_path_shape_and_window_limit(cuda):
     """[32, 48000] as the main path frames it; an odd window (401 samples,
-    a direct real DFT in the kernel) against its twin too."""
+    Bluestein's algorithm in the kernel) against its twin too."""
     rng = np.random.RandomState(2)
     pcm = torch.as_tensor(np.stack([speech_like(rng, 48000) for _ in range(32)]), device=cuda)
     params = make_frontend_params(FrontendConfig(), cuda)
