@@ -24,6 +24,10 @@ plain PyTorch twins:
    requires equal transcripts;
 4. compares the MFCC kernel with its twin (rtol 2e-3 / atol 3e-2, the JAX
    package's tolerance for its own DFT-as-matmul kernel against rfft) and
+   holds it, and prints its twin's ratio, against float64 within
+   ``testing/feature_tolerance.py``'s allowance on the main path's PCM and
+   on int16 tone bursts at gains over 4 decades (phase 22 does the same at
+   N = 401), and compares
    the Viterbi kernel with its twin bit for bit, at B=32 and B=1, on the
    flagship graph and on a seeded folded graph of 14,200 states / 38,400
    arcs / 3,072 pdfs (``testing/decode_graphs.py``), and times the Viterbi
@@ -216,7 +220,8 @@ plain PyTorch twins:
    ``--round-to-power-of-two=false --frame-length=25.0625`` (N = 401): the
    batch call counted, transcripts equal to the plain twins' path, K1
    (Bluestein's algorithm) against its twin at [32, 48000] (K1's
-   tolerance) and timed in one call beside its twin, the N = 512 launch
+   tolerance) and against float64 (as in 4.) and timed in one call beside
+   its twin, the N = 512 launch
    and ``torch.fft.rfft`` of the frames; one stream and the scheduler
    launch K1 on it too;
 23. the command line and warm start: ``cli.main(["transcribe", ...])`` on
@@ -351,6 +356,11 @@ from rhasspy_speech_torch.ops import frontier  # noqa: E402
 from rhasspy_speech_torch.ops import windowed_relax_cuda as k3  # noqa: E402
 from rhasspy_speech_torch.examples import windowed_cost  # noqa: E402
 from rhasspy_speech_torch.ops.frontend import mfcc_batch_torch  # noqa: E402
+from rhasspy_speech_torch.testing.feature_tolerance import (  # noqa: E402
+    frames_of,
+    mfcc_allowance,
+    worst,
+)
 from rhasspy_speech_torch.ops.ivector import extract_ivectors  # noqa: E402
 from rhasspy_speech_torch.ops.lattice import forward_backward  # noqa: E402
 from rhasspy_speech_torch.ops.mfcc_cuda import mel_bands, mfcc_batch  # noqa: E402
@@ -486,6 +496,45 @@ def device_ms(fn, iters=20):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def tone_bursts(seed=SEED):
+    """[1, S] PCM: two tones (300 and 1,200 Hz) rounded to int16 at gains
+    over 4 decades, each followed by 0.15 s of silence at the synthetic
+    profile's level. The tones' frames reach 10^10 above their weakest mel
+    band, where an f32 FFT's rounding dominates the log-mel error."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(3200) / 16000.0
+    parts = []
+    for gain in 10.0 ** np.linspace(-3.3, 0.7, 9):
+        phase = 2 * np.pi * rng.rand(2)
+        tones = 4000 * np.sin(2 * np.pi * 300 * t + phase[0]) + 1500 * np.sin(2 * np.pi * 1200 * t + phase[1])
+        parts += [np.round(gain * tones), 20.0 * rng.randn(2400)]
+    return np.concatenate(parts).astype(np.float32)[None]
+
+
+def k1_against_float64(params, inputs):
+    """K1 and its twin against float64 on each named [B, S] PCM batch of
+    ``inputs``: each one's worst ratio to testing/feature_tolerance.py's
+    allowance (rtol 1e-4 / atol 2e-3, widened where an f32 FFT's rounding,
+    scaled by the frame's power over a weak mel band, exceeds atol), printed
+    beside K1's largest |d|; K1 must lie within it. Returns {name: (K1's
+    worst ratio, the twin's, K1's max |d|)}."""
+    cfg = params.cfg
+    out = {}
+    for name, pcm in inputs.items():
+        pcm = torch.as_tensor(pcm, device=params.device)
+        allow = mfcc_allowance(cfg, frames_of(cfg, pcm))
+        feats_k, feats_p = mfcc_batch(params, pcm), mfcc_batch_torch(params, pcm)
+        (rk, at), (rp, _) = worst(feats_k, allow.reference, allow), worst(feats_p, allow.reference, allow)
+        err = float(np.abs(feats_k.cpu().numpy() - allow.reference).max())
+        print(f"K1 vs float64 at N = {cfg.padded_window_size}, {name} {list(pcm.shape)}: K1 max |d| "
+              f"{err:.3e}, worst ratio to the allowance {rk:.4f} (at {at}, frame conditioning "
+              f"{float(allow.conditioning[at[:-1]]):.2e}); its twin {rp:.4f}")
+        check(rk <= 1.0, f"K1 vs float64 at N = {cfg.padded_window_size}, {name}: worst ratio "
+              f"{rk:.4f} to the allowance")
+        out[name] = (rk, rp, err)
+    return out
 
 
 def bound(nbytes, nops):
@@ -3013,10 +3062,10 @@ def odd_window_phase(root, model_dir, graph_dir, dev, pcms, fuzzy):
     """Phase 22: a copy of the flagship model dir with
     --round-to-power-of-two=false --frame-length=25.0625 (N = 401): the
     batch call counted, its transcripts equal to the plain twins' path, K1
-    (Bluestein's algorithm) against its twin at [32, 48000] and timed in
-    one call beside the twin, the N = 512 launch and torch.fft.rfft of the
-    [B * T, 401] frames (the spectrum step alone); one stream and the
-    scheduler reach it too. Returns the kernels-line entry."""
+    (Bluestein's algorithm) against its twin at [32, 48000] and against
+    float64, and timed in one call beside the twin, the N = 512 launch and
+    torch.fft.rfft of the [B * T, 401] frames (the spectrum step alone); one
+    stream and the scheduler reach it too. Returns the kernels-line entry."""
     odd = linked_copy(model_dir, os.path.join(root, "odd_model"),
                       {"round_to_power_of_two": False, "frame_length_ms": ODD_FRAME_MS})
     t = Nnet3WavTranscriber(odd, graph_dir, device=dev)
@@ -3037,6 +3086,7 @@ def odd_window_phase(root, model_dir, graph_dir, dev, pcms, fuzzy):
     p512 = make_frontend_params(dataclasses.replace(cfg, round_to_power_of_two=True,
                                                     frame_length_ms=25.0), dev)
     ms512 = cuda_ms(lambda: mfcc_batch(p512, pcm))
+    k1_against_float64(params, {"odd-window batch": pcm, "tone bursts": tone_bursts()})
     # the spectrum step alone, as one library call: rfft of the [B * T, 401]
     # frames (not K1's whole function: no framing, window, mel or DCT)
     frames = pcm[:, cached_index(frame_indices(cfg, pcm.shape[1]), dev)].reshape(-1, cfg.frame_length)
@@ -3292,6 +3342,8 @@ def main():
         print(f"K1 mfcc [{BATCH}, {pcm.shape[1]}] -> {tuple(feats_k.shape)}: max |d| {k1_err:.3e}; "
               f"kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound {k1_bound[0]:.4f} ms "
               f"({k1_bound[1]})")
+        k1_against_float64(
+            t.am.frontend_params, {"main path": pcm, "tone bursts": tone_bursts()})
 
         # -- K2: Viterbi kernel vs twin, bit for bit ---------------------------
         lp_k = t.am.log_probs(feats_k, n_out, feat_lengths=feat_lengths)

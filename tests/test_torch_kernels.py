@@ -11,7 +11,10 @@ Tolerances: the decode and windowed-relaxation kernels must be bit-identical to 
 kernel computes its own f32 FFT and sums the mel bands in another order
 than the twin's rfft and cuBLAS, so it is held to rtol 2e-3 / atol 3e-2 --
 the tolerance the JAX package holds its own DFT-as-matmul kernel to
-against rfft (tests/test_pallas_mfcc.py).
+against rfft (tests/test_pallas_mfcc.py). Against the float64
+``mfcc_numpy`` it is held, at both of its bodies (the power-of-two FFT and
+Bluestein's algorithm for an odd window), to the allowance of
+``rhasspy_speech_torch/testing/feature_tolerance.py``.
 """
 
 import numpy as np
@@ -24,6 +27,7 @@ from rhasspy_speech_torch.ops.frontend import (
     FrontendConfig,
     make_frontend_params,
     mfcc_batch_torch,
+    mfcc_numpy,
 )
 from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch
 from rhasspy_speech_torch.ops.viterbi_cuda import (
@@ -42,6 +46,11 @@ from rhasspy_speech_torch.ops.windowed_relax_cuda import (
     windowed_relax_torch,
 )
 from rhasspy_speech_torch.examples.windowed_cost import make_step_tables
+from rhasspy_speech_torch.testing.feature_tolerance import (
+    assert_mfcc_close,
+    frames_of,
+    mfcc_allowance,
+)
 
 MFCC_RTOL, MFCC_ATOL = 2e-3, 3e-2
 
@@ -300,6 +309,25 @@ def test_mfcc_kernel_main_path_shape_and_window_limit(cuda):
     want = mfcc_batch_torch(odd_params, pcm)
     assert got.shape == (32, 298, 40)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=MFCC_RTOL, atol=MFCC_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [FrontendConfig(), FrontendConfig(frame_length_ms=25.0625,
+                                                                  round_to_power_of_two=False)],
+                         ids=["n512", "n401_bluestein"])
+def test_mfcc_kernel_within_float64_allowance(cuda, cfg):
+    """Both K1 bodies against float64 on speech-like bursts and their clean
+    tones at gains over 4 decades (tests/test_torch_feature_tolerance.py:
+    frames up to 10^10 above their weakest mel band) and on the main path's
+    seeded noise."""
+    from test_torch_feature_tolerance import bursts
+
+    family = bursts()
+    noise = (1000.0 * np.random.RandomState(0).randn(2, family.shape[0])).astype(np.float32)
+    pcm = np.concatenate([family[None], noise])
+    got = mfcc_batch(make_frontend_params(cfg, cuda), torch.as_tensor(pcm, device=cuda))
+    want = np.stack([mfcc_numpy(cfg, x) for x in pcm])
+    assert_mfcc_close(got, want, mfcc_allowance(cfg, frames_of(cfg, pcm)), "K1 against float64")
 
 
 @pytest.mark.cuda

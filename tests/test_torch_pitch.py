@@ -10,7 +10,8 @@ within atol 1e-3 (f32 sums in another order; the POV feature's 0.15 power
 amplifies NCCF differences near 1: measured 1.6e-4); on noise, where many
 lags are near ties, at most 5% of the frames may take another lag and the
 others hold the same tolerance. ``AcousticModel`` on a pitch model appends
-the 3 columns and its i-vector reads only the base MFCC columns, with and
+the 3 columns (the MFCC columns within ``testing/feature_tolerance.py``'s
+allowance for two f32 front ends) and its i-vector reads only the base MFCC columns, with and
 without the extractor's CMVN stats; log-probs within the rtol 1e-4 / atol
 1e-3 of tests/test_torch_pipeline.py. Batch transcripts equal the JAX
 package's and the spoken sentences for an nnet3 pitch profile (the
@@ -39,6 +40,11 @@ from rhasspy_speech_torch.pipeline import transcribe as transcribe_mod
 from rhasspy_speech_torch.pipeline.transcribe import AcousticModel
 from rhasspy_speech_torch.pipeline.train import train_model_sync
 from rhasspy_speech_torch.testing import build_synthetic_profile, synthesize_sentence
+from rhasspy_speech_torch.testing.feature_tolerance import (
+    assert_mfcc_close,
+    frames_of,
+    mfcc_allowance,
+)
 
 from test_torch_scheduler import LEXICON, _gmm_with_pitch
 
@@ -182,7 +188,8 @@ def test_acoustic_model_appends_pitch(tmp_path, monkeypatch, cmvn):
     C = am.frontend_config.num_ceps
     assert feats.shape[-1] == C + 3
     want = np.asarray(jam.features(pcm))
-    np.testing.assert_allclose(feats[..., :C].numpy(), want[..., :C], rtol=1e-4, atol=2e-3)
+    cfg = am.frontend_config
+    assert_mfcc_close(feats[..., :C], want[..., :C], mfcc_allowance(cfg, frames_of(cfg, pcm), sides=2))
     np.testing.assert_allclose(feats[..., C:].numpy(), want[..., C:], atol=ATOL)
     assert np.abs(feats[..., C:].numpy()).max() > 0.01
 

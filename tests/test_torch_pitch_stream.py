@@ -4,8 +4,9 @@ and both routes of the stream scheduler, on the CPU.
 - The featurizer's rows (40 MFCC + 3 pitch columns) equal the JAX
   featurizer's push by push, over several chunkings of 2.5 s of a voiced
   signal (the sliding 2 s pitch window moves): the same row counts, the
-  MFCC columns within tests/test_torch_streaming_features.py's rtol 1e-4 /
-  atol 2e-3, the pitch columns within atol 1e-3 (tests/test_torch_pitch.py's
+  MFCC columns within ``testing/feature_tolerance.py``'s allowance for two
+  f32 front ends (rtol 1e-4 / atol 2e-3, widened only on ill-conditioned
+  frames), the pitch columns within atol 1e-3 (tests/test_torch_pitch.py's
   tolerance). The scheduler's batched path through the featurizer gives
   ``push``'s rows bit for bit.
 - The single stream's transcript equals the JAX stream transcriber's and
@@ -51,10 +52,14 @@ from rhasspy_speech_torch.pipeline.scheduler import StreamScheduler
 from rhasspy_speech_torch.pipeline.train import train_model_sync
 from rhasspy_speech_torch.testing import build_synthetic_profile, synthesize_sentence
 from rhasspy_speech_torch.testing.synthetic import _silence_wave
+from rhasspy_speech_torch.testing.feature_tolerance import (
+    assert_mfcc_close,
+    frames_of,
+    mfcc_allowance,
+)
 
 from test_torch_scheduler import LEXICON, _gmm_with_pitch
 
-MFCC_RTOL, MFCC_ATOL = 1e-4, 2e-3
 PITCH_ATOL = 1e-3
 ROUTE_ATOL = 1e-4
 TEXTS = ["turn on the light", "never mind"]
@@ -78,9 +83,15 @@ def _voiced(n, seed=9):
     return (sig + 200 * rng.randn(n)).astype(np.float32)
 
 
-def _check_rows(got, want, C):
+def _allowance(cfg, pcm):
+    """Both featurizers' MFCC rows against each other: rows are the frames
+    of the whole PCM."""
+    return mfcc_allowance(cfg, frames_of(cfg, pcm), sides=2)
+
+
+def _check_rows(got, want, C, allow):
     assert got.shape == want.shape
-    np.testing.assert_allclose(got[:, :C], want[:, :C], rtol=MFCC_RTOL, atol=MFCC_ATOL)
+    assert_mfcc_close(got[:, :C], want[:, :C], allow)
     np.testing.assert_allclose(got[:, C:], want[:, C:], atol=PITCH_ATOL)
 
 
@@ -100,12 +111,13 @@ def test_featurizer_pitch_rows_equal_jax(chunking):
     tfz, jfz = _featurizers()
     assert tfz.has_pitch and tfz.feat_dim == 43 and tfz.pitch_window == jfz.pitch_window
     ts, js = tfz.new_state(), jfz.new_state()
+    allow = _allowance(tfz.am.frontend_config, pcm)
     off, total = 0, 0
     for n in CHUNKINGS[chunking] + [None]:  # None: the flush
         chunk = pcm[off : off + n] if n is not None else np.zeros(0, np.float32)
         flush = n is None
         got, want = tfz.push(ts, chunk, flush=flush), jfz.push(js, chunk, flush=flush)
-        _check_rows(got, want, 40)
+        _check_rows(got, want, 40, allow.rows(slice(total, total + got.shape[0])))
         assert ts.pitch_done == js.pitch_done and ts.total_samples == js.total_samples
         off += 0 if n is None else n
         total += got.shape[0]
@@ -180,7 +192,8 @@ def test_single_stream_equals_jax(nnet3_pitch):
     assert got == want == [TEXTS[0]]
     C = st.am.frontend_config.num_ceps
     assert state.feats.shape[1] == C + 3
-    _check_rows(state.feats, np.asarray(jstate.feats), C)
+    allow = _allowance(st.am.frontend_config, pcms[0]).rows(slice(0, state.feats.shape[0]))
+    _check_rows(state.feats, np.asarray(jstate.feats), C, allow)
 
 
 def _run_scheduler(sched, pcms, finish=True, ticks=300):

@@ -7,7 +7,10 @@ with silence between them) are streamed in 1,024-sample chunks through both
 packages' ``Nnet3StreamTranscriber``: transcripts must be equal, and equal
 to the port's batch transcripts, plain, with ``silence_weight``, with
 ``nbest=3``, through ``finish_stream_rescore`` and through
-``async_transcribe``. Chunk by chunk the carried i-vector statistics
+``async_transcribe``. Chunk by chunk the streamed MFCCs and the pending
+i-vector window agree within ``testing/feature_tolerance.py``'s allowance
+for two f32 front ends (rtol 1e-4 / atol 2e-3, widened only on frames
+whose weak mel bands an f32 FFT cannot resolve), the carried i-vector statistics
 ``(gamma, X)`` agree within rtol 1e-4 (atol 1e-4 on near-zero entries) and
 the i-vectors solved from them within 2e-3, the tolerance
 tests/test_torch_ivector.py states; the statistics are folded one chunk
@@ -37,6 +40,11 @@ import rhasspy_speech_torch
 from rhasspy_speech_torch import Nnet3StreamTranscriber, Nnet3WavTranscriber
 from rhasspy_speech_torch.ops.ivector import solve_ivector
 from rhasspy_speech_torch.pipeline import stream as stream_mod
+from rhasspy_speech_torch.testing.feature_tolerance import (
+    assert_mfcc_close,
+    frames_of,
+    mfcc_allowance,
+)
 
 from test_torch_pipeline import LEXICON
 
@@ -56,6 +64,13 @@ def trained(tmp_path_factory):
         "en", intents, root / "train", profile.model_dir,
         lang_suffixes=[LangSuffix.GRAMMAR, LangSuffix.ARPA, LangSuffix.ARPA_RESCORE])
     dirs = {s: root / "train" / lang_dir_name(s) for s in LangSuffix}
+    pcms = utterances(profile)
+    assert max(len(p) for p in pcms) >= 3 * 16000
+    return profile.model_dir, dirs, pcms
+
+
+def utterances(profile):
+    """SPOKEN as PCM: each sentence's last two words after a silence gap."""
     sil = _silence_wave(16000, np.random.RandomState(0))[:10000]
     pcms = []
     for i, text in enumerate(SPOKEN):
@@ -64,8 +79,7 @@ def trained(tmp_path_factory):
         parts = [synthesize_sentence(profile, " ".join(words[:cut]), seed=i)] if cut else []
         parts += [sil, synthesize_sentence(profile, " ".join(words[cut:]), seed=10 + i), sil]
         pcms.append(np.concatenate(parts).astype(np.float32))
-    assert max(len(p) for p in pcms) >= 3 * 16000
-    return profile.model_dir, dirs, pcms
+    return pcms
 
 
 def _stream(t, pcm, chunk=1024):
@@ -106,6 +120,9 @@ def test_chunk_by_chunk_state_equals_jax(trained, kw):
     js = JaxStreamTranscriber(model_dir, graph_dir, **kw)
     ts = Nnet3StreamTranscriber(model_dir, graph_dir, device="cpu", **kw)
     pcm = pcms[0]
+    cfg = ts.am.frontend_config
+    allow = mfcc_allowance(cfg, frames_of(cfg, pcm), sides=2)  # rows: frames of the whole PCM
+    sl, sr, chunk_in = ts._ivp.splice_left, ts._ivp.splice_right, ts._chunk_in
     jstate, tstate = js.start_stream(), ts.start_stream()
     folds = 0
     for off in range(0, pcm.shape[0], 1024):
@@ -113,12 +130,15 @@ def test_chunk_by_chunk_state_equals_jax(trained, kw):
         ts.process_chunk(tstate, pcm[off : off + 1024])
         assert tstate.frames_consumed == jstate.frames_consumed
         assert tstate.out_frames == jstate.out_frames and len(tstate.bps) == len(jstate.bps)
-        np.testing.assert_allclose(tstate.feats, jstate.feats, rtol=1e-4, atol=2e-3)
+        have = tstate.feats.shape[0]
+        assert_mfcc_close(tstate.feats, jstate.feats, allow.rows(slice(0, have)))
         if len(tstate.bps) > folds:
             folds = len(tstate.bps)
             np.testing.assert_array_equal(tstate.bps[-1], np.asarray(jstate.bps[-1]))
-            np.testing.assert_allclose(tstate.iv_pending_win, jstate.iv_pending_win,
-                                       rtol=1e-4, atol=2e-3)
+            # the last chunk's staged window: its rows, clamped as stage_ivector_window clamps
+            t0 = tstate.frames_consumed - chunk_in
+            rows = np.clip(np.arange(t0 - sl, t0 + chunk_in + sr), 0, max(have - 1, 0))
+            assert_mfcc_close(tstate.iv_pending_win, jstate.iv_pending_win, allow.rows(rows))
             np.testing.assert_array_equal(tstate.iv_pending_w, jstate.iv_pending_w)
             gamma, X = tstate.iv_gamma.numpy(), tstate.iv_X.numpy()
             np.testing.assert_allclose(gamma, np.asarray(jstate.iv_gamma), rtol=1e-4, atol=1e-4)

@@ -2,10 +2,12 @@
 
 ``StreamFeaturizer`` rows over uneven chunkings, for ``snip_edges`` true and
 false, against the JAX featurizer's rows at the same chunking and against
-the port's batch rows: rtol 1e-4 / atol 2e-3, the tolerance
-tests/test_torch_frontend.py holds the port's MFCC to against the JAX
-package's (both f32, summed in another order). A framing fault shifts whole
-windows and misses that by orders of magnitude. The host functions copied
+the port's batch rows, within ``testing/feature_tolerance.py``'s allowance
+for two f32 front ends on the batch frames of the whole PCM (rtol 1e-4 /
+atol 2e-3, widened only on ill-conditioned frames), as
+tests/test_torch_frontend.py holds the port's MFCC against the JAX
+package's. A framing fault shifts whole windows and misses that by orders
+of magnitude. The host functions copied
 from the JAX module (``_reflect_idx``, ``stage_ivector_window``,
 ``silence_weights_from_chunk``, ``online_cmvn_numpy``) must equal their
 originals exactly.
@@ -26,8 +28,12 @@ from rhasspy_speech_torch.ops import frontend as tfe
 from rhasspy_speech_torch.ops import pitch as tp
 from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch
 from rhasspy_speech_torch.pipeline import streaming_features as tsf
+from rhasspy_speech_torch.testing.feature_tolerance import (
+    assert_mfcc_close,
+    frames_of,
+    mfcc_allowance,
+)
 
-RTOL, ATOL = 1e-4, 2e-3
 CFG = dict(num_mel_bins=23, num_ceps=13)
 
 
@@ -41,6 +47,11 @@ def _torch_am(snip):
     cfg = tfe.FrontendConfig(snip_edges=snip, **CFG)
     return types.SimpleNamespace(frontend_config=cfg, device=torch.device("cpu"),
                                  frontend_params=tfe.make_frontend_params(cfg, "cpu"))
+
+
+def _allowance(am, pcm):
+    cfg = am.frontend_config
+    return mfcc_allowance(cfg, frames_of(cfg, pcm), sides=2)
 
 
 def _stream_rows(fz, pcm, chunks):
@@ -72,10 +83,11 @@ def test_featurizer_matches_jax_and_batch(snip, n_samples, chunks):
     got = _stream_rows(tsf.StreamFeaturizer(am), pcm, chunks)
     want = _stream_rows(jsf.StreamFeaturizer(_jax_am(snip)), pcm, chunks)
     assert got.shape == want.shape == (tfe.num_frames(am.frontend_config, n_samples), 13)
-    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    allow = _allowance(am, pcm)
+    assert_mfcc_close(got, want, allow)
     if got.shape[0]:
         batch = mfcc_batch(am.frontend_params, torch.as_tensor(pcm[None]))[0].numpy()
-        np.testing.assert_allclose(got, batch, rtol=RTOL, atol=ATOL)
+        assert_mfcc_close(got, batch, allow)
 
 
 def test_prepare_commit_contract_matches_batch():
@@ -98,7 +110,7 @@ def test_prepare_commit_contract_matches_batch():
     got = np.concatenate(rows, axis=0)
     want = mfcc_batch(am.frontend_params, torch.as_tensor(pcm[None]))[0].numpy()
     assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert_mfcc_close(got, want, _allowance(am, pcm))
 
 
 @pytest.mark.parametrize("snip", [True, False], ids=["snip", "no_snip"])
@@ -129,7 +141,7 @@ def test_push_with_base_equals_original(snip):
         rows.append(got)
     rows.append(tfz.push(tstate, np.zeros(0, np.float32), flush=True))
     want = mfcc_batch(am.frontend_params, torch.as_tensor(pcm[None]))[0].numpy()
-    np.testing.assert_allclose(np.concatenate(rows, axis=0), want, rtol=RTOL, atol=ATOL)
+    assert_mfcc_close(np.concatenate(rows, axis=0), want, _allowance(am, pcm))
     # a pitch featurizer pairs the MFCC rows with the pitch rows it is
     # given, as the JAX featurizer does; both refuse pitch with
     # snip_edges=false
