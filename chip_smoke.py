@@ -11,12 +11,12 @@ Kaldi tri1 GMM system and a DeepSpeech-width Coqui STT model), a chain
 model with Kaldi pitch features and a TDNN-LSTM chain model, then bf16
 compute, dither and every nnet3 component type, the mu-law and ADPCM
 serving wires, an odd MFCC window, the command line with a warm start, and
-the stream mesh, and checks the six hand-written kernels against their
-plain PyTorch twins:
+the stream mesh, and checks the six hand-written kernels (K2 in three
+bodies) against their plain PyTorch twins:
 
-1. builds ``csrc/mfcc.cu``, ``csrc/viterbi.cu``, ``csrc/windowed_relax.cu``,
-   ``csrc/path_walk.cu``, ``csrc/pitch_viterbi.cu`` and
-   ``csrc/adpcm_decode.cu`` with nvcc for sm_90a, in parallel;
+1. builds ``csrc/mfcc.cu``, ``csrc/viterbi.cu``, ``csrc/viterbi_large.cu``,
+   ``csrc/windowed_relax.cu``, ``csrc/path_walk.cu``, ``csrc/pitch_viterbi.cu``
+   and ``csrc/adpcm_decode.cu`` with nvcc for sm_90a, in parallel;
 2. transcribes 32 seeded 3 s utterances (1-best) with the launch counters
    zeroed just before and read just after, and requires the MFCC and
    Viterbi kernels to have run;
@@ -69,13 +69,30 @@ plain PyTorch twins:
    never cheaper than the dense decode, and at least 12 of the 32 must
    reach a final state; with n-best 12 on 4 utterances a call the same
    rule leaves every state, and each top hypothesis, its cost and the
-   transcript equal the dense run's). On seeded log-probs ``viterbi_decode_checkpointed`` is
-   bit-equal to the Viterbi kernel, ``viterbi_topk`` with K = S equals the
-   dense decode by both dedup strategies, and a seeded graph of 40,000
-   states (past the kernel's shared memory, where the kernel raises)
-   decodes through the transcriber in ``select_decoder``'s "scan" mode, the
-   per-frame scan, equal to the checkpointed result and to the same decode on CPU tensors. Each decoder
-   is timed at B=32 with CUDA events;
+   transcript equal the dense run's). The checkpointed route launches K2
+   twice a segment (forward, then the recompute), counted. On seeded
+   log-probs the checkpointed route through K2 and the twin's are bit-equal
+   to K2's dense decode, and ``viterbi_topk`` with K = S equals the dense
+   decode by both dedup strategies. Each decoder is timed at B=32 with CUDA
+   events. Then K2 past one SM's shared memory (``csrc/viterbi_large.cu``):
+   its halo body on a seeded 40,000-state graph at [32, 112, 3072] and [1,
+   112, 3072], bit-equal to the twin (traces, final states, costs, alpha,
+   backpointers) and timed beside the twin's scan with its bound and share,
+   and at every cluster size and body that fits; the generated grammar
+   trained past the replicated body's reach (``PAST_REACH_SIZES``: 37,072
+   states, 86,216 arcs) through ``transcribe_pcm_batch`` (plan "dense", one
+   halo-body launch counted, traces and transcripts equal to the twin
+   route's), 8 utterances streamed (one halo launch a 7-frame chunk with
+   ``alpha0``, each held bit-equal to ``viterbi(alpha0=...)``) and the
+   scheduler's host route at 8 slots (one launch a tick with a chunk, each
+   held the same; at least 6 of 8 transcripts equal the stream's); the
+   scheduler's captured device route at 32 slots on a seeded 30,000-state
+   graph of 62,400 arcs (halo body; replays bit-equal to the eager body; K4
+   on its ring against its twin); and the global body on a seeded graph
+   past the halo body's reach (16 slices each one state past two alpha
+   buffers, 8 slices where the card runs no cluster of 16) through the
+   transcriber, counted, and at [8, 112, 3072] bit-equal to the twin and
+   timed beside it;
 11. streaming: 8 utterances streamed in 1,024-sample chunks through
    ``Nnet3StreamTranscriber`` (one with ``silence_weight``, one with
    ``nbest=3``, two through ``async_transcribe``), the launch counters
@@ -367,15 +384,23 @@ from rhasspy_speech_torch.ops.mfcc_cuda import mel_bands, mfcc_batch  # noqa: E4
 from rhasspy_speech_torch.ops.path_walk_cuda import path_walk, path_walk_torch, walk_start  # noqa: E402
 from rhasspy_speech_torch.ops.viterbi_cuda import (  # noqa: E402
     CLUSTER_SIZES,
+    LARGE_CLUSTER_SIZES,
     MAX_SLICE_STATES,
-    kernel_states,
+    alpha_fits,
+    card_smem,
+    large_smem_layout,
     launch,
+    max_alpha_states,
     max_clusters,
+    plan_global,
+    plan_halo,
     plan_viterbi,
     select_plan,
     smem_layout,
     viterbi_decode,
+    viterbi_decode_checkpointed as k2_checkpointed,
 )
+from rhasspy_speech_torch.pipeline import stream as stream_mod  # noqa: E402
 from rhasspy_speech_torch.ops.windowed_relax_cuda import (  # noqa: E402
     prepare_steps,
     windowed_relax,
@@ -398,7 +423,13 @@ FRONTIER_NBEST = 3
 FRONTIER_MIN_FINISHED = 12  # of 32 utterances whose beam must reach a final state
 FRONTIER_EXACT_BATCH = 4  # utterances a call in the exact (K = S) frontier run
 STREAMS_MIN_EQUAL = 6  # of 8 streamed transcripts that must equal the batch's
-PAST_KERNEL_STATES = 40000  # alpha's two buffers exceed an SM's shared memory
+HALO_STATES = 40000  # alpha's two buffers exceed an SM's shared memory: the halo body
+# the generated grammar's slot lists trained past the replicated body's reach
+# (37,072 states, 86,216 arcs: int32 backpointers, the scheduler's host route)
+PAST_REACH_SIZES = dict(areas=980, devices=630, scenes=490)
+DEVICE_ROUTE_STATES = 30000  # a seeded graph past the reach within the ring's 65,532 arcs
+DEVICE_ROUTE_EXTRA_ARCS = 2000
+LARGE_STREAMS = 8  # streams of the past-reach stream and scheduler checks
 STREAMS = 8
 STREAM_CHUNK = 1024  # samples a push
 STREAM_NBEST = 3
@@ -423,7 +454,8 @@ COQUI_CHARS = sorted(set("turnonofflightstop"))
 COQUI_SENTENCES = ["turn (on|off) light", "stop"]
 COQUI_TEXTS = ["turn on light", "stop", "turn off light"]
 COQUI_PRUNE = 30.0  # synthetic char boundaries are harsher than speech (tests/test_coqui.py)
-KERNELS = ("mfcc", "viterbi", "windowed_relax", "path_walk", "pitch_viterbi", "adpcm_decode")
+KERNELS = ("mfcc", "viterbi", "viterbi_large", "windowed_relax", "path_walk", "pitch_viterbi",
+           "adpcm_decode")
 # Pitch, card vs CPU tensors: the POV feature and the delta of frames whose
 # lags agree within 1e-3 (tests/test_torch_pitch.py's tolerance against the
 # JAX package; f32 sums in another order, the POV's 0.15 power amplifying
@@ -669,6 +701,12 @@ def build_profile(root):
 def zero_counts():
     for fn in (mfcc_batch, viterbi_decode, windowed_relax, path_walk, pitch_viterbi, adpcm_decode):
         fn.launches = 0
+    viterbi_decode.body_launches = dict.fromkeys(viterbi_decode.body_launches, 0)
+
+
+def body_counts():
+    """K2's launches by body since the last ``zero_counts``."""
+    return dict(viterbi_decode.body_launches)
 
 
 def read_counts():
@@ -956,7 +994,8 @@ def big_graph_phase(root, dev, pcms):
           f"{NUM_PDFS}, max out-degree {dense_t._graph_out_degree()}; model and graph built in "
           f"{time.time() - t0:.1f} s")
     check(S > 7000, f"the generated grammar compiled to {S} states, expected more than 7,000")
-    check(S <= kernel_states(dev), "the generated graph should be within K2's reach")
+    check(select_plan(dense_t.device_graph, BATCH)[0].body == "replicated",
+          "the generated graph should be within K2's replicated body's reach")
 
     log_probs, lengths = dense_t._acoustic_batch(pcms)
     N = log_probs.shape[1]
@@ -978,13 +1017,15 @@ def big_graph_phase(root, dev, pcms):
                                  decode_memory_budget=N * S * 2 - 1)
     ckpt_texts, ckpt_ms, counts, plan = run(ckpt_t, 1)
     check(plan[0] == "checkpointed", f"expected the checkpointed decoder, got {plan}")
-    check(counts["viterbi"] == 0, f"the checkpointed route launched K2: {counts}")
+    ckpt_launches = 2 * -(-N // 32) * -(-BATCH // plan[1])  # forward and back, a segment
+    check(counts["viterbi"] == ckpt_launches,
+          f"the checkpointed route made {counts['viterbi']} K2 launches, expected {ckpt_launches}")
     check(ckpt_texts == dense_texts, "checkpointed transcripts differ from the dense run's")
     ckpt_best = hyps_text_and_cost(ckpt_t, ckpt_t._decode_batch(pcms, 1))
     check(ckpt_best == dense_best, "checkpointed words or costs differ from the dense run's")
-    print(f"checkpointed route (sub-batches of {plan[1]}): {BATCH} x {SECONDS} s in {ckpt_ms:.1f} ms "
-          f"(dense route {dense_ms:.1f} ms); transcripts and costs equal the dense run's; "
-          f"first: {ckpt_texts[0]}")
+    print(f"checkpointed route (sub-batches of {plan[1]}, {counts['viterbi']} K2 launches): "
+          f"{BATCH} x {SECONDS} s in {ckpt_ms:.1f} ms (dense route {dense_ms:.1f} ms); transcripts "
+          f"and costs equal the dense run's; first: {ckpt_texts[0]}")
 
     # -- frontier (n-best) at the batch: a beam of K states a frame ---------
     k = FRONTIER_NBEST
@@ -1050,9 +1091,15 @@ def big_graph_phase(root, dev, pcms):
     lp = torch.as_tensor(rng.randn(BATCH, N, NUM_PDFS).astype(np.float32), device=dev)
     lens = torch.as_tensor(rng.randint(N // 2, N + 1, size=BATCH), dtype=torch.int32, device=dev)
     k2 = [x.cpu().numpy() for x in viterbi_decode(dg, lp, 1.0, lens)]
-    ck = twin_decoder.viterbi_decode_checkpointed(dg, lp, 1.0, lengths=lens)
+    zero_counts()
+    ck = k2_checkpointed(dg, lp, 1.0, lengths=lens)
+    ck_launches = read_counts()["viterbi"]
+    check(ck_launches == 2 * -(-N // 32), f"the checkpointed route made {ck_launches} K2 launches")
     check(all(np.array_equal(a, b) for a, b in zip(ck, k2)),
-          "viterbi_decode_checkpointed differs from the Viterbi kernel")
+          "the checkpointed route through K2 differs from the dense decode")
+    ck_twin = twin_decoder.viterbi_decode_checkpointed(dg, lp, 1.0, lengths=lens)
+    check(all(np.array_equal(a, b) for a, b in zip(ck_twin, k2)),
+          "the twin's viterbi_decode_checkpointed differs from the Viterbi kernel")
     fg = frontier.FrontierGraph.from_dense(g, dev, base=dg)
     for name, scratch in (("dense dedup", 2 << 30), ("sort dedup", 0)):
         tri = [x.cpu().numpy() for x in frontier.viterbi_topk(
@@ -1065,7 +1112,8 @@ def big_graph_phase(root, dev, pcms):
     ms = {
         "K2": cuda_ms(lambda: viterbi_decode(dg, lp, 1.0, lens), iters=5),
         "plain scan": cuda_ms(lambda: twin_decoder.viterbi_decode(dg, lp, 1.0, lens), iters=2),
-        "checkpointed": cuda_ms(
+        "checkpointed (K2)": cuda_ms(lambda: k2_checkpointed(dg, lp, 1.0, lengths=lens), iters=2),
+        "checkpointed (twin)": cuda_ms(
             lambda: twin_decoder.viterbi_decode_checkpointed(dg, lp, 1.0, lengths=lens), iters=2),
         f"frontier K={K} dense dedup": cuda_ms(lambda: frontier.viterbi_topk(
             fg, lp, K, 1.0, lens, beam=24.0, min_active=200), iters=2),
@@ -1074,46 +1122,269 @@ def big_graph_phase(root, dev, pcms):
         f"frontier K=S={S} B=1 dense dedup": cuda_ms(lambda: frontier.viterbi_topk(
             fg, lp[:1], S, 1.0, lens[:1]), iters=1),
     }
-    print(f"decoders on seeded log-probs {tuple(lp.shape)}, {S} states: checkpointed bit-equal to "
-          f"K2; viterbi_topk (K = S) equal to the dense decode by both dedups; ms at B={BATCH} "
+    print(f"decoders on seeded log-probs {tuple(lp.shape)}, {S} states: checkpointed through K2 "
+          f"({ck_launches} launches) and the twin's bit-equal to K2's dense decode; viterbi_topk (K = S) equal to the dense decode by both dedups; ms at B={BATCH} "
           f"(CUDA events): { {n: round(v, 3) for n, v in ms.items()} }")
     del lp, fg, dense_t, ckpt_t, front_t, exact_t
-
-    # -- a graph past K2's shared memory: select_decoder names the scan -----
-    dense40 = random_decode_graph(np.random.RandomState(SEED + 4), PAST_KERNEL_STATES,
-                                  num_pdfs=NUM_PDFS)
-    dir40 = os.path.join(root, "graph_past_kernel")
-    LangArtifacts(words=LangArtifacts.load(graph_dir).words, graph=dense40).save(dir40)
-    t40 = Nnet3WavTranscriber(model_dir, dir40, device=dev)
-    check(PAST_KERNEL_STATES > kernel_states(dev),
-          f"{PAST_KERNEL_STATES} states should be past the Viterbi kernel's shared memory")
-    lp = torch.as_tensor(rng.randn(BATCH, N, NUM_PDFS).astype(np.float32), device=dev)
-    try:
-        viterbi_decode(t40.device_graph, lp[:1], t40.acoustic_scale, lens[:1])
-    except ValueError as e:
-        check("shared memory" in str(e), f"K2 past its reach raised another error: {e}")
-    else:
-        check(False, "K2 should raise on a graph past its shared memory")
-    zero_counts()
-    got = t40._decode_traces(lp, lens)
-    torch.cuda.synchronize()
-    check(t40.last_decode_plan == ("scan", BATCH) and read_counts()["viterbi"] == 0,
-          f"past the kernel's reach the plan is the scan: {t40.last_decode_plan}")
-    ck = twin_decoder.viterbi_decode_checkpointed(t40.device_graph, lp, t40.acoustic_scale,
-                                                  lengths=lens)
-    check(all(np.array_equal(a, b) for a, b in zip(got, ck)),
-          "the scan differs from the checkpointed decode on the 40,000-state graph")
-    g40_cpu = twin_decoder.DecodeGraph.from_dense(dense40, "cpu")
-    cpu = twin_decoder.viterbi_decode(g40_cpu, lp[:4].cpu(), t40.acoustic_scale, lens[:4].cpu())
-    check(all(np.array_equal(a[:4], b.numpy()) for a, b in zip(got, cpu)),
-          "the scan differs between the card and CPU tensors")
-    scan_ms = cuda_ms(lambda: twin_decoder.viterbi_decode(
-        t40.device_graph, lp, t40.acoustic_scale, lens), iters=2)
-    print(f"graph past K2's reach ({dense40.num_states} states, {dense40.num_arcs} arcs; the kernel "
-          f"holds {kernel_states(dev)} and raises): select_decoder's \"scan\" mode decoded "
-          f"{tuple(lp.shape)} by the per-frame scan, equal to the checkpointed decode and to CPU "
-          f"tensors (4 streams); scan {scan_ms:.3f} ms (CUDA events)")
     return model_dir, graph_dir
+
+
+def k2_numbers(name, g, lp, lens, scale=1.0, twin_iters=2):
+    """K2 on graph ``g`` against its twin, bit for bit (all five outputs),
+    timed by CUDA events beside the twin's per-frame scan in this call,
+    with its bound and share. Returns the kernels-line numbers and the
+    plan."""
+    compact = g.num_arcs <= twin_decoder._COMPACT_BP_MAX_ARC
+
+    def twin():
+        alpha, bps = twin_decoder.viterbi(g, lp, scale, lens, compact_bp=compact)
+        return twin_decoder.backtrace(g, alpha, bps) + (alpha, bps)
+
+    got = viterbi_decode(g, lp, scale, lens, return_forward=True)
+    want = twin()
+    torch.cuda.synchronize()
+    check(decode_outputs_equal(got, want), f"K2 differs from its twin ({name}, B={lp.shape[0]})")
+    err = float((got[3] - want[3]).abs().max())
+    del got, want
+    plan, resident = select_plan(g, lp.shape[0])
+    ms = cuda_ms(lambda: viterbi_decode(g, lp, scale, lens), iters=5)
+    plain_ms = cuda_ms(twin, iters=twin_iters)
+    bound_ms, bound_by = bound(*viterbi_work(g, *lp.shape, lens))
+    print(f"K2 {plan.body} body {tuple(lp.shape)} on {name} ({g.num_states} states, {g.num_arcs} "
+          f"arcs): bit-exact (traces, final states, costs, alpha, backpointers); cluster "
+          f"{plan.cluster}, tables {'in shared memory' if resident else 'in L2'}; kernel {ms:.4f} ms, "
+          f"plain scan {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share "
+          f"{bound_ms / ms:.4f}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err}, plan
+
+
+class HeldToTwin:
+    """``viterbi_decode`` as a module calls it, each call's alpha and
+    backpointers held bit-equal to ``viterbi(alpha0=...)`` on the same
+    inputs (the twin launches nothing)."""
+
+    def __init__(self, module):
+        self.module, self.real, self.held = module, module.viterbi_decode, []
+
+    def __call__(self, graph, lp, scale, lengths, return_forward=False, alpha0=None):
+        out = self.real(graph, lp, scale, lengths, return_forward=return_forward, alpha0=alpha0)
+        want = twin_decoder.viterbi(graph, lp, scale, lengths, alpha0=alpha0,
+                                    compact_bp=graph.num_arcs <= twin_decoder._COMPACT_BP_MAX_ARC)
+        self.held.append(decode_outputs_equal(out[3:], want))
+        return out
+
+    def __enter__(self):
+        self.module.viterbi_decode = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.viterbi_decode = self.real
+
+
+def large_graph_phase(root, dev, pcms, model_dir, graph_dir):
+    """K2 past one SM's shared memory: the halo body at 40,000 states; a
+    trained grammar past the replicated body's reach through the batch
+    transcriber, the stream transcriber and the scheduler's host route; the
+    captured device route at 30,000 states with K4; the global body at a
+    seeded graph the halo body cannot hold. Returns the kernels-line entries
+    of the halo and global bodies."""
+    fuzzy = dict(max_fuzzy_cost=1.0e9)
+    words = LangArtifacts.load(graph_dir).words
+    rng = np.random.RandomState(SEED + 6)
+    N = 112
+    lp = torch.as_tensor(rng.randn(BATCH, N, NUM_PDFS).astype(np.float32), device=dev)
+    lens = torch.as_tensor(rng.randint(N // 2, N + 1, size=BATCH), dtype=torch.int32, device=dev)
+
+    # -- the halo body at 40,000 states, B = 32 and 1, T = 112 ---------------
+    g40 = twin_decoder.DecodeGraph.from_dense(
+        random_decode_graph(np.random.RandomState(SEED + 4), HALO_STATES, num_pdfs=NUM_PDFS), dev)
+    smem = card_smem(dev, HALO_STATES)
+    check(not alpha_fits(HALO_STATES, smem), f"{HALO_STATES} states should be past the replicated body")
+    halo40 = {}
+    for B in (BATCH, 1):
+        halo40[B], plan = k2_numbers("a seeded 40,000-state graph", g40, lp[:B].contiguous(),
+                                     lens[:B].contiguous(), twin_iters=3)
+        check(plan.body == "halo", f"40,000 states at B={B}: the {plan.body} body, expected halo")
+    sweep = {}
+    for c in LARGE_CLUSTER_SIZES:
+        p = plan_halo(g40, c)
+        if not alpha_fits(p.max_local, smem):
+            continue
+        for res in (True, False):
+            n = max_clusters(g40, p, res)
+            if n and (not res or large_smem_layout(p, g40.folded, True)[1] <= smem):
+                sweep[f"halo C={c}{'' if res else ' L2 tables'} x{n}"] = round(
+                    cuda_ms(lambda: launch(g40, p, res, lp, 1.0, lens), iters=3), 4)
+    for c in (8, 16):
+        p = plan_global(g40, c)
+        n = max_clusters(g40, p, False)
+        if n:
+            sweep[f"global C={c} x{n}"] = round(cuda_ms(lambda: launch(g40, p, False, lp, 1.0, lens),
+                                                        iters=3), 4)
+    print(f"K2 at 40,000 states [{BATCH}, {N}, {NUM_PDFS}] by body and cluster size (x clusters the "
+          f"card runs at once; halo: local space of the largest CTA {plan_halo(g40, 8).max_local} "
+          f"states at C = 8): {sweep}")
+    c_max = 16 if max_clusters(g40, plan_halo(g40, 16), False) > 0 else 8
+    del g40
+
+    # -- a trained grammar past the reach: batch, stream, scheduler ----------
+    t0 = time.time()
+    past_dir = train_big_grammar(os.path.join(root, "past_train"), model_dir, seed=SEED,
+                                 **PAST_REACH_SIZES)
+    t = Nnet3WavTranscriber(model_dir, past_dir, device=dev)
+    gp = t.artifacts.graph
+    S, A = gp.num_states, gp.num_arcs
+    print(f"generated grammar {PAST_REACH_SIZES}: {S} states, {A} arcs; trained in "
+          f"{time.time() - t0:.1f} s")
+    check(not alpha_fits(S, card_smem(dev, S)) and A > 65532,
+          f"the past-reach grammar has {S} states, {A} arcs: expected past "
+          f"{max_alpha_states(card_smem(dev, 1))} states and 65,532 arcs")
+    t.transcribe_pcm_batch(pcms, **fuzzy)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.time()
+    texts = t.transcribe_pcm_batch(pcms, **fuzzy)
+    torch.cuda.synchronize()
+    batch_ms = (time.time() - t0) * 1000.0
+    counts, bodies = read_counts(), body_counts()
+    check(t.last_decode_plan == ("dense", BATCH), f"past-reach plan {t.last_decode_plan}")
+    check(counts["viterbi"] == bodies["halo"] == 1 and counts["mfcc"] == 1,
+          f"past-reach batch launches {counts}, by body {bodies}")
+    halo_launches = bodies["halo"]
+    log_probs, lengths = t._acoustic_batch(pcms)
+    got = t._decode_traces(log_probs, lengths)
+    want = [r.cpu().numpy() for r in twin_decoder.viterbi_decode(
+        t.device_graph, log_probs, t.acoustic_scale, lengths)]
+    check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+          "past-reach traces differ between K2 and the twin route")
+    twin_words = twin_decoder.traces_to_words_batch(gp, *want)
+    twin_texts = t._texts([[] if w is None else [(w, c)] for w, c in twin_words], None,
+                          require_fuzzy=False, **fuzzy)
+    check(twin_texts == texts, "past-reach transcripts differ from the twin route's")
+    halo_main, plan = k2_numbers(f"the trained grammar", t.device_graph, log_probs, lengths,
+                                 t.acoustic_scale)
+    check(plan.body == "halo", f"the trained past-reach grammar took the {plan.body} body")
+    print(f"past-reach batch: {BATCH} x {SECONDS} s in {batch_ms:.1f} ms, plan {t.last_decode_plan}, "
+          f"launches {counts}, by body {bodies}; transcripts equal the twin route's; first: "
+          f"{texts[0]}")
+
+    st = Nnet3StreamTranscriber(model_dir, past_dir, device=dev)
+    utts = pcms[:LARGE_STREAMS]
+    with HeldToTwin(stream_mod) as held:
+        stream_pcm(st, utts[0], **fuzzy)  # warm-up
+        zero_counts()
+        held.held.clear()
+        streamed = [stream_pcm(st, p, **fuzzy) for p in utts]
+        torch.cuda.synchronize()
+        counts, bodies = read_counts(), body_counts()
+    chunks = sum(len(state.bps) for _texts, state, _n in streamed)
+    check(counts["viterbi"] == bodies["halo"] == chunks == len(held.held) and all(held.held),
+          f"past-reach stream: {counts['viterbi']} K2 launches ({bodies}) for {chunks} chunks, "
+          f"{sum(held.held)} of {len(held.held)} chunks bit-equal to viterbi(alpha0=...)")
+    stream_texts = [x[0] for x in streamed]
+    print(f"past-reach stream: {LARGE_STREAMS} utterances in {STREAM_CHUNK}-sample pushes, {chunks} "
+          f"7-frame chunks, one halo-body launch each with alpha0, every chunk's alpha and "
+          f"backpointers bit-equal to viterbi(alpha0=...); {stream_texts[:2]}")
+
+    sched = StreamScheduler(model_dir, past_dir, max_streams=LARGE_STREAMS, device=dev, **fuzzy)
+    check(not sched._device_bp, "past 65,532 arcs the scheduler should take the host route")
+    with HeldToTwin(sched_mod) as held:
+        sched_run(sched, utts)  # warm-up
+        zero_counts()
+        held.held.clear()
+        sched_texts, ticks, wall = sched_run(sched, utts)
+        torch.cuda.synchronize()
+        counts, bodies = read_counts(), body_counts()
+    chunk_ticks = sum(1 for tk in ticks if tk[1] > 0)
+    check(counts["viterbi"] == bodies["halo"] == chunk_ticks == len(held.held) and all(held.held),
+          f"past-reach scheduler: {counts['viterbi']} K2 launches ({bodies}) for {chunk_ticks} ticks "
+          f"with a chunk, {sum(held.held)} of {len(held.held)} bit-equal to viterbi(alpha0=...)")
+    same = sum(a == b for a, b in zip(sched_texts, stream_texts))
+    check(same >= STREAMS_MIN_EQUAL, f"past-reach scheduler: only {same} of {LARGE_STREAMS} "
+          f"transcripts equal the stream transcriber's: {sched_texts} vs {stream_texts}")
+    print(f"past-reach scheduler, host route, {LARGE_STREAMS} slots: {chunk_ticks} ticks with a chunk, "
+          f"one halo-body launch each, each bit-equal to viterbi(alpha0=...); {same} of "
+          f"{LARGE_STREAMS} transcripts equal the stream transcriber's; fleet wall "
+          f"{wall * 1000:.1f} ms; tick ms p50 / p90 {tick_ms(ticks)}")
+    del t, st, sched
+
+    # -- the captured device route past the reach, K4 beside it --------------
+    dense30 = random_decode_graph(np.random.RandomState(SEED + 7), DEVICE_ROUTE_STATES,
+                                  DEVICE_ROUTE_EXTRA_ARCS, NUM_PDFS)
+    dense30.final_weight[:] = 0.0  # every state final: each stream ends on a path
+    dir30 = os.path.join(root, "graph_device_route")
+    LangArtifacts(words=words, graph=dense30).save(dir30)
+    sched = StreamScheduler(model_dir, dir30, max_streams=BATCH, device=dev, **fuzzy)
+    check(sched._device_bp and dense30.num_arcs <= 65532,
+          f"{DEVICE_ROUTE_STATES} states, {dense30.num_arcs} arcs: not on the device route")
+    check(select_plan(sched.device_graph, BATCH)[0].body == "halo", "the tick should take the halo body")
+    sched_run(sched, pcms)  # warm-up: each tick body's first call, then its capture
+    runner = sched._runner
+
+    def on_tick():
+        runner.check_next = True
+
+    runner.check_next = True
+    zero_counts()
+    runner.launches = dict.fromkeys(runner.launches, 0)
+    n_checks = len(runner.checks)
+    _texts, ticks, wall = sched_run(sched, pcms, on_tick)
+    runner.check_next = False
+    torch.cuda.synchronize()
+    counts = sched.kernel_launches
+    checks = runner.checks[n_checks:]
+    chunk_ticks = sum(1 for tk in ticks if tk[1] > 0)
+    check(counts["viterbi"] == chunk_ticks and counts["path_walk"] > 0 and counts["mfcc"] > 0,
+          f"{DEVICE_ROUTE_STATES}-state device route: launches {counts} for {chunk_ticks} ticks")
+    check(len(checks) > 0 and all(all(eq.values()) for _k, eq in checks),
+          f"{DEVICE_ROUTE_STATES}-state device route: a replay differs from the eager tick body")
+    print(f"scheduler on a seeded {DEVICE_ROUTE_STATES}-state graph ({dense30.num_arcs} arcs), device "
+          f"route, captured, {BATCH} slots: launches {counts} over {len(ticks)} ticks; {len(checks)} "
+          f"replays bit-equal to the eager tick body; tick ms p50 / p90 {tick_ms(ticks)}")
+    k4_30 = path_walk_numbers(f"{DEVICE_ROUTE_STATES}", sched, dev)
+    k4_30["launches"] = counts["path_walk"]
+    del sched
+
+    # -- the global body past the halo body's reach ------------------------
+    S_glob = c_max * (max_alpha_states(card_smem(dev, HALO_STATES)) + 1)
+    dense_g = random_decode_graph(np.random.RandomState(SEED + 8), S_glob, num_pdfs=NUM_PDFS)
+    dir_g = os.path.join(root, "graph_global")
+    LangArtifacts(words=words, graph=dense_g).save(dir_g)
+    tg = Nnet3WavTranscriber(model_dir, dir_g, device=dev)
+    check(select_plan(tg.device_graph, LARGE_STREAMS)[0].body == "global",
+          f"{S_glob} states should take the global body")
+    tg.transcribe_pcm_batch(utts)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    tg.transcribe_pcm_batch(utts)
+    torch.cuda.synchronize()
+    counts, bodies = read_counts(), body_counts()
+    check(counts["viterbi"] == bodies["global"] > 0, f"global-body batch launches {counts}, {bodies}")
+    global_launches = bodies["global"]
+    glob, plan = k2_numbers(f"a seeded graph past the halo body ({c_max} x "
+                            f"{max_alpha_states(card_smem(dev, HALO_STATES)) + 1} states)",
+                            tg.device_graph, lp[:LARGE_STREAMS].contiguous(),
+                            lens[:LARGE_STREAMS].contiguous(), twin_iters=1)
+    check(plan.body == "global", f"the global-size graph took the {plan.body} body")
+    print(f"global body: {LARGE_STREAMS} utterances through the transcriber on {S_glob} states: "
+          f"launches {counts}, by body {bodies}, plan {tg.last_decode_plan}; K2 cluster "
+          f"{plan.cluster}")
+    del tg
+
+    entry = {"route": "cuda", "replaces": "rhasspy_speech_tpu/ops/pallas_decoder.py:370",
+             "library_ms": None}
+    return [
+        {"name": "viterbi_halo", "source": "rhasspy_speech_torch/csrc/viterbi_large.cu",
+         "launches": halo_launches, **entry, **halo_main},
+        {"name": "viterbi_halo_40000", "source": "rhasspy_speech_torch/csrc/viterbi_large.cu",
+         "launches": halo_launches, **entry, **halo40[BATCH]},
+        {"name": "viterbi_global", "source": "rhasspy_speech_torch/csrc/viterbi_large.cu",
+         "launches": global_launches, **entry, **glob},
+        {"name": "path_walk_30000", "source": "rhasspy_speech_torch/csrc/path_walk.cu",
+         "replaces": "rhasspy_speech_tpu/pipeline/scheduler.py:838", "route": "cuda",
+         "library_ms": None, **k4_30},
+    ]
 
 
 def carried_alpha_phase(t, lp_k, lengths, dev):
@@ -1197,7 +1468,6 @@ def stream_phase(root, model_dir, graph_dir, t, dev, pcms, fuzzy):
     one streamed utterance and the push shape's K1 numbers."""
     utts = pcms[:STREAMS]
     st = Nnet3StreamTranscriber(model_dir, graph_dir, device=dev)
-    check(st.chunk_decoder == "dense", "the stream's chunks should decode on the Viterbi kernel")
     stream_pcm(st, utts[0], **fuzzy)  # warm-up: the chunk plan's first calls
 
     # -- one utterance, counted: one K1 launch a push, one K2 launch a chunk --
@@ -1417,7 +1687,6 @@ def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy, min_equal=SCH
     g = sched.device_graph
     check(sched._device_bp and sched._device_feats != host_feats,
           f"{name}: not on the device route {'with host' if host_feats else 'with device'} features")
-    check(sched.chunk_decoder == "dense", f"{name}: the tick should decode on the Viterbi kernel")
     sched_run(sched, pcms)  # warm-up: each tick body's first call, then its capture
     runner = sched._runner
 
@@ -1801,7 +2070,7 @@ def gmm_stream_part(tri1_dir, graph_dir, t, dev, pcms):
     the stream's real-time factor."""
     utts = pcms[:STREAMS]
     st = Nnet3StreamTranscriber(tri1_dir, graph_dir, device=dev)
-    check(st.chunk_decoder == "dense" and st._chunk_in == CHUNK_FRAMES, "tri1 stream: chunk decoder")
+    check(st._chunk_in == CHUNK_FRAMES, "tri1 stream: chunk frames")
     stream_pcm(st, utts[0])  # warm-up
     zero_counts()
     texts0, state, pushes = stream_pcm(st, utts[0])
@@ -3378,6 +3647,10 @@ def main():
         with phase("big graph"):
             big_dirs = big_graph_phase(root, dev, pcms)
 
+        # -- K2 past one SM's shared memory: the halo and global bodies -------
+        with phase("K2 past one SM"):
+            large_entries = large_graph_phase(root, dev, pcms, *big_dirs)
+
         # -- the stream scheduler: one K1 and one K2 launch a tick --------------
         with phase("scheduler"):
             sched_counts, k1_tick, k2_tick, k4_tick, k4_big = scheduler_phase(
@@ -3441,7 +3714,13 @@ def main():
     # for pitch_track's XLA scans) on the pitch model's batch call ([32,
     # 296, 417]), on a push's 2 s window ([1, 196, 417]; its launches one
     # streamed utterance's) and on the tick's probed windows ([32, 196,
-    # 417]; its launches the scheduler's count).
+    # 417]; its launches the scheduler's count). "viterbi_halo" is K2's halo
+    # body on the trained past-reach grammar's batch call ([32, 112, 3072]),
+    # "viterbi_halo_40000" the same body on the seeded 40,000-state graph,
+    # both with the launches of that batch call; "viterbi_global" the global
+    # body on the seeded graph past the halo body's reach ([8, 112, 3072]),
+    # its launches the transcriber's call on that graph; path_walk_30000 is
+    # K4 on the 30,000-state device route's ring, its launches that run's.
     kernels = [
         {"name": "mfcc", "route": "cuda", "source": "rhasspy_speech_torch/csrc/mfcc.cu",
          "replaces": "rhasspy_speech_tpu/ops/pallas_mfcc.py:122",
@@ -3475,6 +3754,7 @@ def main():
          "replaces": "examples/pallas_windowed_cost.py:59",
          "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
+        *large_entries,
         *gmm_entries,
         *coqui_entries,
         *pitch_entries,

@@ -49,7 +49,6 @@ import numpy as np
 import torch
 
 from ..device import on_device
-from ..ops import decoder as plain_decoder
 from ..ops.adpcm_cuda import adpcm_decode
 from ..ops.ivector import solve_ivector, window_stats
 from ..ops.mfcc_cuda import mfcc_batch
@@ -124,7 +123,6 @@ class TickConfig:
     win_hi: int
     num_ceps: int
     acoustic_scale: float
-    dense: bool  # decode on the Viterbi kernel (else the plain scan)
     carry_device: bool  # the i-vector tap window is cut on the device
     cmvn_device: bool  # ... and normalized from the cumulative ring
     sw_device: bool
@@ -390,13 +388,9 @@ class DeviceTick:
             log_probs = self.chunk_model(windows, ivec)
         if self.probe is not None:
             self.probe["viterbi"] = (log_probs.clone(), n_valid.clone(), st.alpha.clone())
-        if cfg.dense:
-            out = viterbi_decode(self.graph, log_probs, cfg.acoustic_scale, n_valid,
-                                 return_forward=True, alpha0=st.alpha)
-            alpha, bps = out[3], out[4]
-        else:
-            alpha, bps = plain_decoder.viterbi(self.graph, log_probs, cfg.acoustic_scale, n_valid,
-                                               compact_bp=True, alpha0=st.alpha)
+        out = viterbi_decode(self.graph, log_probs, cfg.acoustic_scale, n_valid,
+                             return_forward=True, alpha0=st.alpha)
+        alpha, bps = out[3], out[4]
         b = bps.to(torch.int32)  # [k, N, S] arc + 2: 0 no frame, 1 dead
         if cfg.sw_device:
             st.sw_w.copy_(self._silence_weights(b - 2, alpha, n_valid))

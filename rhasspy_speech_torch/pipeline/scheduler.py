@@ -42,9 +42,9 @@ the AM window does not cover).
 On the card the device route's tick runs as a captured CUDA graph, one per
 body and PCM width (``device_tick.TickRunner``); on the CPU the same bodies
 run eagerly with the kernels' plain twins. ``kernel_launches`` counts the
-kernels the ticks ran, captured launches times replays. ``chunk_decoder``
-is ``"dense"`` (the Viterbi kernel) or, for a graph past its reach on the
-card, ``"scan"`` (the plain ``ops.decoder.viterbi``, no kernel launch).
+kernels the ticks ran, captured launches times replays. Every tick's decode
+is one Viterbi kernel launch on the card whatever the graph's size (its
+replicated, halo or global body, by the graph's states), on both routes.
 
 **The lag rule.** On the device route, results and endpoint statistics
 land asynchronously. A tick's packed row is copied into pinned host memory
@@ -123,15 +123,14 @@ from ..fst.core import SymbolTable
 from ..grammar.fst import decode_meta
 from ..native import StreamPool
 from ..native.runtime import adpcm_encode_into
-from ..ops import decoder as plain_decoder
 from ..ops.cmvn import CmvnConfig, stats_from_matrix
-from ..ops.decoder import _COMPACT_BP_MAX_ARC, DecodeGraph, backtrace_words
+from ..ops.decoder import DecodeGraph, backtrace_words
 from ..ops.ivector import solve_ivector, window_stats
 from ..ops.adpcm import block_bytes
 from ..ops.mfcc_cuda import mfcc_batch
 from ..ops.path_walk_cuda import PACKED_STAT_COLS
 from ..ops.pitch import num_pitch_frames, pitch_batch
-from ..ops.viterbi_cuda import kernel_states, viterbi_decode
+from ..ops.viterbi_cuda import libraries as viterbi_libraries, viterbi_decode
 from ..utils.metrics import StageTimer, get_metrics
 from .artifacts import LangArtifacts
 from .device_tick import (
@@ -153,7 +152,7 @@ from .streaming_features import (
     stage_ivector_window,
 )
 from ..utils.warmup import Manifest, base_config, load_kernels
-from .transcribe import AcousticModel, select_decoder
+from .transcribe import AcousticModel
 
 _LOGGER = logging.getLogger(__name__)
 
@@ -291,15 +290,6 @@ class StreamScheduler:
             and bool(self._silence_pdfs)
         )
 
-        # the 1-best chunk decoder by the batch transcriber's rule: "dense"
-        # (the Viterbi kernel on a card), or "scan" past the kernel's reach
-        S = self.graph.num_states
-        self.chunk_decoder = select_decoder(
-            S, max_streams, self._chunk_out, 1, 7000, budget=1 << 62,
-            num_arcs=self.graph.num_arcs,
-            kernel_states=kernel_states(self.device),
-        )[0]
-        self._compact = self.graph.num_arcs <= _COMPACT_BP_MAX_ARC
         self._choose_route(pool_capacity_samples)
         # the serving wire: only the fused route uploads PCM (the host
         # featurizer reads the pool directly)
@@ -353,9 +343,7 @@ class StreamScheduler:
 
     def _kernels(self) -> List[str]:
         """The kernels this scheduler's ticks launch on a card."""
-        names = ["mfcc"]
-        if self.chunk_decoder == "dense":
-            names.append("viterbi")
+        names = ["mfcc"] + viterbi_libraries(self.graph.num_states)
         if self._device_bp:
             names.append("path_walk")
         if self._featurizer.has_pitch:
@@ -551,7 +539,7 @@ class StreamScheduler:
         tick_cfg = TickConfig(
             N=N, ring_frames=F, chunk_out=self._chunk_out, chunk_in=self._chunk_in,
             win_lo=self._win_lo, win_hi=self._win_hi, num_ceps=C,
-            acoustic_scale=self.acoustic_scale, dense=self.chunk_decoder == "dense",
+            acoustic_scale=self.acoustic_scale,
             carry_device=self._iv_carry_device, cmvn_device=cmvn_device,
             sw_device=self._sw_device,
             sw_factor=float(self.silence_weight) if self._sw_device else 1.0,
@@ -923,19 +911,12 @@ class StreamScheduler:
         the first ``rows`` frames' backpointers [rows, N, S] on the device
         (uint16 ``arc + 2`` or int32 arc ids; a slot's rows at or past its
         length are STAY)."""
-        if self.chunk_decoder == "dense":
-            out = viterbi_decode(
-                self.device_graph, log_probs, self.acoustic_scale, lengths,
-                return_forward=True, alpha0=self._alpha,
-            )
-            alpha, bps = out[3], out[4]
-        else:
-            alpha, bps = plain_decoder.viterbi(
-                self.device_graph, log_probs, self.acoustic_scale, lengths,
-                compact_bp=self._compact, alpha0=self._alpha,
-            )
-        self._alpha = alpha
-        return bps[:rows]
+        out = viterbi_decode(
+            self.device_graph, log_probs, self.acoustic_scale, lengths,
+            return_forward=True, alpha0=self._alpha,
+        )
+        self._alpha = out[3]
+        return out[4][:rows]
 
     @staticmethod
     def _download(bps: torch.Tensor) -> np.ndarray:

@@ -23,11 +23,9 @@ to 7 frames. With ``nbest == 1`` on a CUDA device that decode is ONE launch
 of the Viterbi kernel (``ops.viterbi_cuda.viterbi_decode`` with ``alpha0``
 the carried alpha, ``lengths`` the chunk's valid frames, B = 1); the alpha
 it returns stays on the device for the next chunk. On the CPU the same call
-runs the plain ``ops.decoder.viterbi``. ``chunk_decoder`` names the 1-best
-chunk decoder, chosen at construction by ``transcribe.select_decoder``:
-``"dense"`` is that call, ``"scan"`` (a graph past the kernel's reach on the
-card) the plain per-frame scan. ``nbest > 1`` carries alpha [S, K] through
-the plain ``kbest_step``.
+runs the plain ``ops.decoder.viterbi``. The kernel takes a graph of any size
+on the card (its replicated, halo or global body, by the graph's states).
+``nbest > 1`` carries alpha [S, K] through the plain ``kbest_step``.
 
 Per chunk the host uploads the feature window, the pending i-vector window
 and its weights, and downloads the chunk's backpointers (the silence
@@ -66,9 +64,7 @@ from ..device import resolve_device
 from ..fst.core import SymbolTable
 from ..grammar.fst import decode_meta
 from ..graph.dense import NEG_INF_F32
-from ..ops import decoder as plain_decoder
 from ..ops.decoder import (
-    _COMPACT_BP_MAX_ARC,
     DecodeGraph,
     backtrace_nbest,
     backtrace_words,
@@ -82,7 +78,7 @@ from ..ops.ivector import (
     splice_frames,
 )
 from ..ops.lattice import build_lattice, forward_backward
-from ..ops.viterbi_cuda import kernel_states, viterbi_decode
+from ..ops.viterbi_cuda import viterbi_decode
 from .artifacts import LangArtifacts
 from .endpoint import silence_pdfs_from_model
 from .fuzzy import get_fuzzy_text, rescore_nbest
@@ -92,7 +88,7 @@ from .streaming_features import (
     silence_weights_from_chunk,
     stage_ivector_window,
 )
-from .transcribe import AcousticModel, select_decoder
+from .transcribe import AcousticModel
 
 _LOGGER = logging.getLogger(__name__)
 
@@ -128,7 +124,7 @@ class Nnet3StreamTranscriber:
         model_dir: Union[str, Path],
         graph_dir: Union[str, Path],
         tools: Optional[object] = None,  # unused; reference API parity
-        max_active: int = 7000,
+        max_active: int = 7000,  # unused; reference API parity
         lattice_beam: float = 8.0,
         acoustic_scale: float = 1.0,
         beam: float = 24.0,
@@ -155,16 +151,6 @@ class Nnet3StreamTranscriber:
         self._chunk_in = CHUNK_OUT_FRAMES * self.am.subsampling
         self._has_ivector = self.am._has_ivector
         self._ivp = self.am.ivector_params if self._has_ivector else None
-        # The 1-best chunk decoder by the batch transcriber's rule: "dense"
-        # (the Viterbi kernel on a card), or "scan" for a graph past the
-        # kernel's reach
-        graph = self.artifacts.graph
-        self.chunk_decoder = select_decoder(
-            graph.num_states, 1, CHUNK_OUT_FRAMES, 1, max_active, budget=1 << 62,
-            num_arcs=graph.num_arcs,
-            kernel_states=kernel_states(self.device),
-        )[0]
-        self._compact = self.artifacts.graph.num_arcs <= _COMPACT_BP_MAX_ARC
         # a chunk's valid frames as a [1] int32 tensor, made once per count
         self._chunk_lengths = [
             torch.full((1,), n, dtype=torch.int32, device=self.device)
@@ -261,19 +247,12 @@ class Nnet3StreamTranscriber:
         if self.nbest == 1:
             lengths = self._chunk_lengths[n_valid]
             alpha0 = state.alpha[None]
-            if self.chunk_decoder == "dense":
-                out = viterbi_decode(
-                    self.device_graph, log_probs, self.acoustic_scale, lengths,
-                    return_forward=True, alpha0=alpha0,
-                )
-                alpha, bps = out[3], out[4]
-            else:
-                alpha, bps = plain_decoder.viterbi(
-                    self.device_graph, log_probs, self.acoustic_scale, lengths,
-                    compact_bp=self._compact, alpha0=alpha0,
-                )
-            state.alpha = alpha[0]
-            return bps[:n_valid, 0]
+            out = viterbi_decode(
+                self.device_graph, log_probs, self.acoustic_scale, lengths,
+                return_forward=True, alpha0=alpha0,
+            )
+            state.alpha = out[3][0]
+            return out[4][:n_valid, 0]
         am_costs = (-self.acoustic_scale) * log_probs[0]  # [7, P]
         alpha = state.alpha
         rows = []

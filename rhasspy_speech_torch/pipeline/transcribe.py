@@ -13,16 +13,14 @@ plain PyTorch on either device, as they are plain JAX in the JAX package.
 ``select_decoder`` picks the decoder per call from the backpointer bytes
 against ``decode_memory_budget``, as the JAX package does: ``"dense"``
 (1-best or k-best, in sub-batches), ``"checkpointed"`` (1-best,
-``ops.decoder.viterbi_decode_checkpointed``) or ``"frontier"``
+``ops.viterbi_cuda.viterbi_decode_checkpointed``) or ``"frontier"``
 (``ops.frontier.viterbi_topk`` with K from ``max_active`` and the budget,
-``beam`` and ``min_active``). The port adds a fourth mode, ``"scan"``: the
-Viterbi kernel keeps alpha in shared memory, which holds about 29,000
-states on an H100 (``ops.viterbi_cuda.kernel_states``), and where the
-budget allows a dense 1-best decode of a larger graph on the card,
-``select_decoder`` names the per-frame scan (``ops.decoder.viterbi`` +
-``backtrace``, the JAX package's own dense decoder) instead. Each mode
-runs exactly its decoder: ``"dense"`` on the card is the kernel, which
-raises past its reach and when it fails to build or launch.
+``beam`` and ``min_active``). On a card both 1-best modes run the Viterbi
+kernel at any graph size: its replicated body holds up to ~29,000 states,
+its halo body about C x 29,000 less the halos, its global body the rest
+(``ops.viterbi_cuda.select_plan``); the checkpointed mode launches it once
+per segment forward and once per segment back. The kernel raises when it
+fails to build or launch; nothing falls back to a plain twin on the card.
 
 With ``silence_weight`` set (and an i-vector extractor present), a
 first-pass 1-best decode marks the silence frames, their weight in the
@@ -81,13 +79,11 @@ from ..models.gmm import GmmAm, GmmChunkModel
 from ..models.nnet3 import CompiledNnet3, compile_nnet3
 from ..ops.cmvn import online_cmvn
 from ..ops.deltas import add_deltas
-from ..ops import decoder as plain_decoder
 from ..ops.decoder import (
     _COMPACT_BP_MAX_ARC,
     DecodeGraph,
     kbest_traces_to_nbest,
     traces_to_words_batch,
-    viterbi_decode_checkpointed,
     viterbi_kbest_decode,
 )
 from ..ops.frontier import FrontierGraph, topk_backtrace_nbest, viterbi_topk_cached
@@ -101,7 +97,12 @@ from ..ops.ivector import extract_ivectors, make_ivector_params
 from ..ops.lattice import Lattice, build_lattice, forward_backward
 from ..ops.mfcc_cuda import mfcc_batch
 from ..ops.pitch import PitchConfig, pitch_batch, pitch_config_from_conf
-from ..ops.viterbi_cuda import kernel_states, viterbi_decode
+from ..ops.viterbi_cuda import (
+    kernel_scratch_bytes,
+    libraries as viterbi_libraries,
+    viterbi_decode,
+    viterbi_decode_checkpointed,
+)
 from ..utils.warmup import Manifest, base_config, load_kernels
 from .artifacts import LangArtifacts
 from .endpoint import silence_pdfs_from_model
@@ -373,26 +374,25 @@ def select_decoder(
     out_degree: Optional[int] = None,
     num_arcs: Optional[int] = None,
     min_sub_batch: int = 1,
-    kernel_states: Optional[int] = None,
+    kernel_scratch: int = 0,
 ) -> Tuple[str, int]:
     """Pick the decoder from the backpointer footprint (bytes), as the JAX
     package does: ("dense", sub_batch), ("checkpointed", sub_batch) or
-    ("frontier", K). ``kernel_states`` is the largest graph the dense
-    1-best decoder of the caller's device holds (the Viterbi kernel's reach
-    on a card, None where there is no limit): a dense 1-best decode of a
-    larger graph is ("scan", sub_batch), the per-frame scan with the same
-    backpointer footprint."""
+    ("frontier", K). ``kernel_scratch`` is the device memory a stream of
+    the 1-best kernel holds besides its backpointers
+    (``ops.viterbi_cuda.kernel_scratch_bytes``: the global body's alpha
+    scratch); it counts toward the budget of both 1-best modes."""
     min_sub = max(1, min(min_sub_batch, batch))
     bp_bytes = 2 if k == 1 and num_arcs is not None and num_arcs <= _COMPACT_BP_MAX_ARC else 4
     per_stream_dense = frames * num_states * k * bp_bytes
     if k > 1 and num_arcs is not None:
         per_stream_dense += num_arcs * k * 4
+    if k == 1:
+        per_stream_dense += kernel_scratch
     if per_stream_dense * min_sub <= budget:
-        past_kernel = k == 1 and kernel_states is not None and num_states > kernel_states
-        mode = "scan" if past_kernel else "dense"
-        return mode, max(min_sub, min(batch, budget // per_stream_dense))
+        return "dense", max(min_sub, min(batch, budget // per_stream_dense))
     n_seg = -(-frames // segment)
-    per_stream_ckpt = (n_seg + segment) * num_states * 4
+    per_stream_ckpt = (n_seg + segment) * num_states * 4 + kernel_scratch
     if k == 1 and per_stream_ckpt * min_sub <= budget:
         return "checkpointed", max(min_sub, min(batch, budget // per_stream_ckpt))
     k_mem = budget // max(1, frames * batch * 3 * 4)
@@ -405,7 +405,7 @@ class Nnet3WavTranscriber:
     """Reference-compatible WAV transcriber on one device.
 
     ``max_active``, ``beam`` and ``min_active`` only matter to the frontier
-    decoder; the dense, scan and checkpointed decoders are exact.
+    decoder; the dense and checkpointed decoders are exact.
     ``lattice_beam`` prunes the lattices of ``get_lattice``, ``confidence``
     and ``transcribe_rescore``. ``last_decode_plan`` is the (mode, argument)
     ``select_decoder`` gave the latest decode.
@@ -453,8 +453,8 @@ class Nnet3WavTranscriber:
         self._silence_pdfs: Optional[frozenset] = None
         self._frontier_graph: Optional[FrontierGraph] = None
         self._out_degree: Optional[int] = None
-        # the Viterbi kernel's reach on this card, for select_decoder
-        self._kernel_states = kernel_states(self.device)
+        # the Viterbi kernel's scratch a stream on this card, for select_decoder
+        self._kernel_scratch = kernel_scratch_bytes(self.device_graph)
         self.last_decode_plan: Optional[Tuple[str, int]] = None
         self._aot = Manifest(aot_dir if aot_dir is not None else self.graph_dir / "aot")
         for batch, samples, nbest in self._aot.shapes("batch", self._warm_config, self._kernels()):
@@ -464,7 +464,8 @@ class Nnet3WavTranscriber:
 
     def _kernels(self) -> List[str]:
         """The kernels this model's batch routes launch on a card."""
-        return ["mfcc", "viterbi"] + (["pitch_viterbi"] if self.am.pitch_config is not None else [])
+        return (["mfcc"] + viterbi_libraries(self.device_graph.num_states)
+                + (["pitch_viterbi"] if self.am.pitch_config is not None else []))
 
     def _warm_config(self) -> Dict:
         cfg = base_config(self.am, self.graph_dir, self.device)
@@ -527,7 +528,7 @@ class Nnet3WavTranscriber:
         graph = self.artifacts.graph
         plan = select_decoder(
             graph.num_states, log_probs.shape[0], log_probs.shape[1], 1, self.max_active,
-            budget=1 << 62, num_arcs=graph.num_arcs, kernel_states=self._kernel_states,
+            budget=1 << 62, num_arcs=graph.num_arcs, kernel_scratch=self._kernel_scratch,
         )
         trace, _final, _cost = self._decode_traces(log_probs, lengths, plan)
         # trace [B, T_out]: arc id, STAY, or -1
@@ -618,7 +619,7 @@ class Nnet3WavTranscriber:
         plan = select_decoder(
             graph.num_states, batch, frames, k, self.max_active, self.decode_memory_budget,
             out_degree=self._graph_out_degree(), num_arcs=graph.num_arcs,
-            kernel_states=self._kernel_states,
+            kernel_scratch=self._kernel_scratch,
         )
         self.last_decode_plan = plan
         return plan
@@ -630,19 +631,15 @@ class Nnet3WavTranscriber:
         plan: Optional[Tuple[str, int]] = None,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Exact 1-best decode in sub-batches sized to the budget, by the
-        decoder the plan names ("dense": ``ops.viterbi_cuda.viterbi_decode``,
-        the Viterbi kernel on a card; "scan": the per-frame scan;
-        "checkpointed"): (arc_trace [B, N], final_state [B], total_cost
-        [B]) on the host."""
+        decoder the plan names ("dense": ``ops.viterbi_cuda.viterbi_decode``;
+        "checkpointed": ``ops.viterbi_cuda.viterbi_decode_checkpointed``;
+        both the Viterbi kernel on a card): (arc_trace [B, N], final_state
+        [B], total_cost [B]) on the host."""
         B, N = log_probs.shape[0], log_probs.shape[1]
         mode, sub = plan or self._plan(B, N, 1)
         if mode == "frontier":
             raise ValueError("the frontier decoder keeps no arc traces; see _decode_frontier")
-        decode = {
-            "dense": viterbi_decode,
-            "scan": plain_decoder.viterbi_decode,
-            "checkpointed": viterbi_decode_checkpointed,
-        }[mode]
+        decode = {"dense": viterbi_decode, "checkpointed": viterbi_decode_checkpointed}[mode]
         parts = []
         for start in range(0, B, sub):
             res = decode(

@@ -1,7 +1,12 @@
 """Seeded decode graphs of a deployment's size class for the decode kernel:
-chain + self-loops + random arcs + hub states, as ``DenseGraph``s."""
+chain + self-loops + random arcs + hub states, as ``DenseGraph``s; and a
+trained graph directory padded past a size with states no path reaches."""
 
 from __future__ import annotations
+
+import shutil
+from pathlib import Path
+from typing import Union
 
 import numpy as np
 
@@ -39,3 +44,40 @@ def random_decode_graph(
         final_weight=final, final_wseq=np.zeros(S, np.int32), init_weight=init,
         init_wseq=np.zeros(S, np.int32), word_seqs=[()], num_pdfs=num_pdfs,
     )
+
+
+def padded_graph_dir(
+    graph_dir: Union[str, Path], out_dir: Union[str, Path], num_states: int
+) -> Path:
+    """A copy of a trained graph directory whose ``graph.npz`` holds
+    ``num_states`` states: the trained graph, then states no path reaches
+    (infinite initial and final weights), each with a weightless self-loop
+    reading pdf 0. Every decode on it finds the trained graph's paths, so a
+    test can take a graph of a given size class and keep its transcripts."""
+    out_dir = Path(out_dir)
+    shutil.copytree(graph_dir, out_dir)
+    g = DenseGraph.load(str(out_dir / "graph.npz"))
+    pad = num_states - g.num_states
+    if pad < 0:
+        raise ValueError(f"the graph already holds {g.num_states} > {num_states} states")
+    new = np.arange(g.num_states, num_states, dtype=np.int32)
+
+    def arcs(a, fill):
+        return None if a is None else np.concatenate([a, np.full(pad, fill, a.dtype)])
+
+    def states(a, fill):
+        return np.concatenate([a, np.full(pad, fill, a.dtype)])
+
+    padded = DenseGraph(
+        num_states=num_states,
+        arc_src=np.concatenate([g.arc_src, new]), arc_dst=np.concatenate([g.arc_dst, new]),
+        arc_pdf=arcs(g.arc_pdf, 0), arc_wseq=arcs(g.arc_wseq, 0),
+        arc_weight=arcs(g.arc_weight, 0.0),
+        final_weight=states(g.final_weight, NEG_INF_F32), final_wseq=states(g.final_wseq, 0),
+        init_weight=states(g.init_weight, NEG_INF_F32), init_wseq=states(g.init_wseq, 0),
+        word_seqs=g.word_seqs, num_pdfs=g.num_pdfs,
+        arc_phone=arcs(g.arc_phone, 0), arc_tcost=arcs(g.arc_tcost, 0.0),
+        arc_self=arcs(g.arc_self, 1),
+    )
+    padded.save(str(out_dir / "graph.npz"))
+    return out_dir

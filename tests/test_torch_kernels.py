@@ -32,11 +32,18 @@ from rhasspy_speech_torch.ops.frontend import (
 from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch
 from rhasspy_speech_torch.ops.viterbi_cuda import (
     CLUSTER_SIZES,
-    kernel_states,
+    LARGE_CLUSTER_SIZES,
+    H100_MAX_SMEM,
+    alpha_fits,
     launch,
+    max_clusters,
+    plan_global,
+    plan_halo,
     plan_viterbi,
+    select_plan,
     smem_layout,
     viterbi_decode,
+    viterbi_decode_checkpointed,
 )
 from rhasspy_speech_torch.testing.decode_graphs import random_decode_graph
 from rhasspy_speech_torch.ops import windowed_relax_cuda
@@ -109,11 +116,16 @@ def random_graph(rng, num_states, extra_arcs, num_pdfs=40, folded=True, hubs=0):
 
 
 def assert_decode_bit_exact(dense, device, B=5, T=11, lengths=None, scale=0.7, seed=0,
-                            cluster=None, resident=True):
+                            cluster=None, resident=True, plan=None, grid=None):
     """The kernel (through viterbi_decode, or one launch with a forced
-    cluster size) bit-equal to the plain twin on all five outputs."""
+    cluster size of the replicated body, or a forced ``plan(graph)`` of any
+    body) bit-equal to the plain twin on all five outputs; ``grid`` rounds
+    the log-probs to its multiples (ties)."""
     rng = np.random.RandomState(seed)
-    lp = torch.as_tensor(rng.randn(B, T, dense.num_pdfs).astype(np.float32), device=device)
+    lp = rng.randn(B, T, dense.num_pdfs).astype(np.float32)
+    if grid is not None:
+        lp = (np.round(lp / grid) * grid).astype(np.float32)
+    lp = torch.as_tensor(lp, device=device)
     lens = torch.as_tensor(T if lengths is None else lengths, dtype=torch.int32, device=device)
     lens = lens.expand(B).contiguous()
     g = DecodeGraph.from_dense(dense, device)
@@ -121,7 +133,9 @@ def assert_decode_bit_exact(dense, device, B=5, T=11, lengths=None, scale=0.7, s
     want_alpha, want_bps = viterbi(g, lp, scale, lens, compact_bp=compact)
     want = backtrace(g, want_alpha, want_bps)
     before = viterbi_decode.launches
-    if cluster is None:
+    if plan is not None:
+        got = launch(g, plan(g), resident, lp, scale, lens)
+    elif cluster is None:
         got = viterbi_decode(g, lp, scale, lens, return_forward=True)
     else:
         got = launch(g, plan_viterbi(g, cluster), resident, lp, scale, lens)
@@ -208,7 +222,8 @@ def test_viterbi_kernel_every_cluster_size(cuda, cluster, resident):
                             cluster=cluster, resident=resident)
 
 
-def assert_chunked_decode_bit_exact(dense, device, B, cluster=None, resident=True, seed=0):
+def assert_chunked_decode_bit_exact(dense, device, B, cluster=None, resident=True, seed=0,
+                                    plan=None):
     """A stream decoded in 7-frame chunks, each one launch that starts from
     the alpha the previous launch returned: alpha and backpointers equal to
     the plain ``viterbi(alpha0=...)`` chunk by chunk, and the final alpha to
@@ -228,7 +243,9 @@ def assert_chunked_decode_bit_exact(dense, device, B, cluster=None, resident=Tru
         want_alpha, want_bps = viterbi(g, chunk, 0.7, clen, compact_bp=compact, alpha0=alpha)
         want = backtrace(g, want_alpha, want_bps) + (want_alpha, want_bps)
         before = viterbi_decode.launches
-        if cluster is None:
+        if plan is not None:
+            got = launch(g, plan(g), resident, chunk, 0.7, clen, alpha)
+        elif cluster is None:
             got = viterbi_decode(g, chunk, 0.7, clen, return_forward=True, alpha0=alpha)
         else:
             got = launch(g, plan_viterbi(g, cluster), resident, chunk, 0.7, clen, alpha)
@@ -341,14 +358,137 @@ def test_viterbi_kernel_large_graph_shared_memory(cuda):
 
 @pytest.mark.cuda
 def test_viterbi_kernel_rejects_oversized_graph(cuda):
-    """``kernel_states`` is the kernel's reach (``select_decoder`` names the
-    scan past it); a launch past it raises."""
+    """Past the replicated body's shared memory (40,000 states) the kernel
+    no longer refuses: ``viterbi_decode`` takes the halo body, bit-equal to
+    the plain twin at B = 1 and B = 32."""
     rng = np.random.RandomState(12)
-    g = DecodeGraph.from_dense(random_graph(rng, 40000, 10), cuda)
-    assert 14200 < kernel_states(cuda) < 40000
-    lp = torch.zeros((1, 2, 40), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        viterbi_decode(g, lp)
+    dense = random_graph(rng, 40000, 10)
+    assert not alpha_fits(40000, H100_MAX_SMEM)
+    g = DecodeGraph.from_dense(dense, cuda)
+    for B in (1, 32):
+        assert select_plan(g, B)[0].body == "halo"
+        before = dict(viterbi_decode.body_launches)
+        assert_decode_bit_exact(dense, cuda, B=B, T=12, seed=B)
+        assert viterbi_decode.body_launches["halo"] == before["halo"] + 1
+
+
+def card_runs(g, plan, resident):
+    return max_clusters(g, plan, resident) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", LARGE_CLUSTER_SIZES)
+@pytest.mark.parametrize("resident", [True, False], ids=["smem_tables", "l2_tables"])
+def test_viterbi_halo_body_every_cluster_size(cuda, cluster, resident):
+    """The halo body forced at each cluster size (16 where the card runs
+    it), tables in shared and in global memory, on a graph whose group and
+    hub states and final states fall in different slices."""
+    dense = random_decode_graph(np.random.RandomState(13), 4000, 2500, 500, hubs=3, hub_arcs=40)
+    g = DecodeGraph.from_dense(dense, cuda)
+    if not card_runs(g, plan_halo(g, cluster), resident):
+        pytest.skip(f"the card runs no cluster of {cluster} CTAs of this shape")
+    assert_decode_bit_exact(dense, cuda, B=4, T=10, lengths=[10, 3, 0, 10], seed=14,
+                            resident=resident, plan=lambda g: plan_halo(g, cluster))
+
+
+def edge_tie_graph(cluster):
+    """A 600-state graph with costs on a coarse grid (weights in quarters;
+    states of 40 and 300 in-arcs) whose states on either side of the first
+    slice edge of a ``cluster``-CTA cut both start and end at cost 0: a
+    stream of no frames ties them across the edge, and the lower state must
+    win."""
+    from test_torch_viterbi_plan import hubby_graph
+
+    dense = hubby_graph(5, num_states=600, extra_arcs=1500)
+    bounds = plan_global(DecodeGraph.from_dense(dense, "cpu"), cluster).slice_state.numpy()
+    edge = int(bounds[np.flatnonzero((bounds > 0) & (bounds < 600))[0]])
+    dense.init_weight[[edge - 1, edge]] = 0.0
+    dense.final_weight[[edge - 1, edge]] = 0.0
+    return dense, edge
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["halo", "global"])
+@pytest.mark.parametrize("cluster", LARGE_CLUSTER_SIZES)
+def test_viterbi_large_bodies_on_ties(cuda, body, cluster):
+    """Both large bodies on costs on a coarse grid: ties within a state's
+    in-arcs, across a group's or a warp's lanes and between final states on
+    either side of a slice edge go as the twin takes them."""
+    dense, _edge = edge_tie_graph(cluster)
+    make = plan_halo if body == "halo" else plan_global
+    g = DecodeGraph.from_dense(dense, cuda)
+    if not card_runs(g, make(g, cluster), body == "halo"):
+        pytest.skip(f"the card runs no cluster of {cluster} CTAs of this shape")
+    assert_decode_bit_exact(dense, cuda, B=3, T=9, lengths=[9, 0, 5], scale=0.5, seed=29,
+                            resident=body == "halo", plan=lambda g: make(g, cluster), grid=0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int32_bp", "unfolded"])
+@pytest.mark.parametrize("cluster", [4, 16])
+def test_viterbi_halo_body_int32_and_unfolded(cuda, kind, cluster):
+    """The halo body forced on int32 backpointers (arc ids read from the
+    CSR, not the packed word) and on an unfolded graph (the per-arc am
+    term), tables resident."""
+    rng = np.random.RandomState(27)
+    dense = {"int32_bp": lambda: random_graph(rng, 3000, 66000, hubs=1),
+             "unfolded": lambda: random_graph(rng, 700, 900, folded=False, hubs=2)}[kind]()
+    g = DecodeGraph.from_dense(dense, cuda)
+    if not card_runs(g, plan_halo(g, cluster), True):
+        pytest.skip(f"the card runs no cluster of {cluster} CTAs of this shape")
+    assert_decode_bit_exact(dense, cuda, B=3, T=9, lengths=[9, 4, 0], seed=28,
+                            plan=lambda g: plan_halo(g, cluster))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["compact", "int32_bp", "unfolded"])
+@pytest.mark.parametrize("cluster", [2, 8, 16])
+def test_viterbi_global_body(cuda, kind, cluster):
+    """The global body at a plan that forces it, bit-equal to the twin, on
+    compact and int32 backpointers and an unfolded graph."""
+    rng = np.random.RandomState(19)
+    dense = {"compact": lambda: random_decode_graph(rng, 4000, 2500, 500, hubs=3, hub_arcs=40),
+             "int32_bp": lambda: random_graph(rng, 3000, 66000, hubs=1),
+             "unfolded": lambda: random_graph(rng, 700, 900, folded=False, hubs=2)}[kind]()
+    g = DecodeGraph.from_dense(dense, cuda)
+    if not card_runs(g, plan_global(g, cluster), False):
+        pytest.skip(f"the card runs no cluster of {cluster} CTAs of this shape")
+    before = viterbi_decode.body_launches["global"]
+    assert_decode_bit_exact(dense, cuda, B=3, T=9, lengths=[9, 4, 0], seed=20, resident=False,
+                            plan=lambda g: plan_global(g, cluster))
+    assert viterbi_decode.body_launches["global"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["halo", "global"])
+def test_viterbi_large_bodies_carried_alpha_chunk(cuda, body):
+    """A T = 7 chunk with ``alpha0``, as the stream and the scheduler launch
+    it, through the halo and the global body on 40,000 states."""
+    dense = random_decode_graph(np.random.RandomState(23), 40000, num_pdfs=500)
+    plan, res = select_plan(DecodeGraph.from_dense(dense, cuda), 4)
+    assert plan.body == "halo"
+    if body == "global":
+        res = False
+    assert_chunked_decode_bit_exact(
+        dense, cuda, B=4, seed=26, resident=res,
+        plan=lambda g: select_plan(g, 4)[0] if body == "halo" else plan_global(g, 8))
+
+
+@pytest.mark.cuda
+def test_viterbi_checkpointed_launches_the_kernel(cuda):
+    """The checkpointed route on the card: two launches a segment (forward,
+    then the recompute), bit-equal to the dense decode."""
+    dense = random_decode_graph(np.random.RandomState(24), 40000, num_pdfs=500)
+    g = DecodeGraph.from_dense(dense, cuda)
+    rng = np.random.RandomState(25)
+    lp = torch.as_tensor(rng.randn(3, 37, 500).astype(np.float32), device=cuda)
+    lens = torch.as_tensor([37, 20, 0], dtype=torch.int32, device=cuda)
+    want = [x.cpu().numpy() for x in viterbi_decode(g, lp, 0.8, lens)]
+    before = viterbi_decode.launches
+    got = viterbi_decode_checkpointed(g, lp, 0.8, segment=16, lengths=lens)
+    assert viterbi_decode.launches == before + 2 * 3
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 def assert_relax_bit_exact(tables, T, B, s_pad, device, alpha0=None, cluster=None):

@@ -347,22 +347,33 @@ def test_copied_select_decoder_equals_original():
 
 
 def test_select_decoder_names_the_scan_past_the_kernels_reach():
-    """With ``kernel_states`` given, a dense 1-best decode of a larger graph
-    is the "scan" mode with the same sub-batch; every other answer stays."""
+    """A graph past the replicated body's reach (40,000 states) plans
+    "dense" like any other graph, and every answer is the JAX package's;
+    the global body's scratch (``kernel_scratch``) counts toward both
+    1-best budgets."""
+    from rhasspy_speech_tpu.pipeline.transcribe import select_decoder as jax_select
     from rhasspy_speech_torch.pipeline.transcribe import select_decoder
 
     kw = dict(budget=3 << 30, num_arcs=90000, out_degree=7)
-    dense = select_decoder(40000, 32, 112, 1, 7000, **kw)
-    assert dense[0] == "dense"
-    assert select_decoder(40000, 32, 112, 1, 7000, kernel_states=29000, **kw) == ("scan", dense[1])
-    assert select_decoder(29000, 32, 112, 1, 7000, kernel_states=29000, **kw) == dense
-    assert select_decoder(40000, 32, 112, 3, 7000, kernel_states=29000, **kw) == select_decoder(
-        40000, 32, 112, 3, 7000, **kw)
+    assert select_decoder(40000, 32, 112, 1, 7000, **kw)[0] == "dense"
+    for k in (1, 3):
+        assert select_decoder(40000, 32, 112, k, 7000, **kw) == jax_select(
+            40000, 32, 112, k, 7000, **kw)
     for budget in (1 << 24, 1 << 20):  # checkpointed, frontier
         small = dict(kw, budget=budget)
-        assert select_decoder(40000, 32, 112, 1, 7000, kernel_states=29000, **small) == (
-            select_decoder(40000, 32, 112, 1, 7000, **small))
-        assert select_decoder(40000, 32, 112, 1, 7000, **small)[0] != "dense"
+        got = select_decoder(40000, 32, 112, 1, 7000, **small)
+        assert got == jax_select(40000, 32, 112, 1, 7000, **small) and got[0] != "dense"
+    dense_stream, scratch = 112 * 40000 * 4, 8 * 40000
+    at = dict(kw, budget=4 * dense_stream)
+    assert select_decoder(40000, 32, 112, 1, 7000, **at) == ("dense", 4)
+    assert select_decoder(40000, 32, 112, 1, 7000, kernel_scratch=scratch, **at) == ("dense", 3)
+    ckpt_stream = (4 + 32) * 40000 * 4
+    at = dict(kw, budget=2 * ckpt_stream)
+    assert select_decoder(40000, 32, 112, 1, 7000, **at) == ("checkpointed", 2)
+    assert select_decoder(40000, 32, 112, 1, 7000, kernel_scratch=scratch, **at) == (
+        "checkpointed", 1)
+    assert select_decoder(40000, 32, 112, 3, 7000, kernel_scratch=scratch, **kw) == (
+        select_decoder(40000, 32, 112, 3, 7000, **kw))
 
 
 def test_alpha_states_match_alpha_fits():
@@ -373,22 +384,28 @@ def test_alpha_states_match_alpha_fits():
         assert (n == 0 or alpha_fits(n, smem)) and not alpha_fits(n + 1, smem)
 
 
-def test_scan_mode_decodes_like_dense(trained):
-    """A transcriber whose graph is past its kernel's reach plans "scan"
-    (the silence first pass too) and transcribes like the dense mode."""
+def test_scan_mode_decodes_like_dense(trained, tmp_path):
+    """A transcriber on a graph past the replicated body's reach (the
+    trained graph padded with unreachable states to 29,100 states) plans
+    "dense" for the silence first pass and for the decode, names the large
+    bodies' library among its kernels, and transcribes like the JAX package
+    on the same graph."""
+    from rhasspy_speech_torch.ops.viterbi_cuda import H100_MAX_SMEM, alpha_fits
+    from rhasspy_speech_torch.testing.decode_graphs import padded_graph_dir
+
     model_dir, graph_dir, pcms = trained
-    whole = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", silence_weight=0.5)
-    assert whole._kernel_states is None
-    want = whole.transcribe_pcm_batch(pcms)
-    assert whole.last_decode_plan[0] == "dense"
-    scan = Nnet3WavTranscriber(model_dir, graph_dir, device="cpu", silence_weight=0.5)
-    scan._kernel_states = scan.artifacts.graph.num_states - 1
+    big_dir = padded_graph_dir(graph_dir, tmp_path / "padded", 29100)
+    t = Nnet3WavTranscriber(model_dir, big_dir, device="cpu", silence_weight=0.5)
+    assert t.artifacts.graph.num_states == 29100 and not alpha_fits(29100, H100_MAX_SMEM)
+    assert "viterbi_large" in t._kernels() and "viterbi" not in t._kernels()
     seen = []
-    real = scan._decode_traces
-    scan._decode_traces = lambda lp, lens, plan=None: seen.append(plan) or real(lp, lens, plan)
-    assert scan.transcribe_pcm_batch(pcms) == want
-    assert scan.last_decode_plan == ("scan", len(pcms))
-    assert [p[0] for p in seen] == ["scan", "scan"]  # first pass, then the decode
+    real = t._decode_traces
+    t._decode_traces = lambda lp, lens, plan=None: seen.append(plan) or real(lp, lens, plan)
+    got = t.transcribe_pcm_batch(pcms)
+    assert t.last_decode_plan == ("dense", len(pcms))
+    assert [p[0] for p in seen] == ["dense", "dense"]  # first pass, then the decode
+    jt = JaxTranscriber(model_dir, big_dir, silence_weight=0.5)
+    assert got == jt.transcribe_pcm_batch(pcms) == [[s] for s in SPOKEN]
 
 
 def test_copied_read_wav_equals_original(trained, tmp_path):

@@ -177,11 +177,12 @@ def test_tick_state_equals_jax(lockstep):
 
 
 def test_one_device_step_a_tick(trained):
-    """A tick makes at most one MFCC call and one device step; the plain
-    decoder on the CPU names itself "dense", as the kernel does on a card."""
+    """A tick makes at most one MFCC call and one device step; the decode
+    of that step is the Viterbi kernel's wrapper, which runs the plain
+    decoder on the CPU and the kernel on a card."""
     _root, _profile, _graph_dir, pcms = trained
     s = _port(trained, max_streams=SLOTS)
-    assert s.chunk_decoder == "dense"
+    assert s._kernels()[:2] == ["mfcc", "viterbi"]
     sid = s.open_stream()
     per_tick = []
     for off in range(0, pcms[0].shape[0], PUSH):
@@ -315,14 +316,19 @@ def test_burst_feed_drains_over_several_ticks(trained):
     assert s.poll(sid) == [TEXTS[4]]
 
 
-def test_decoder_choice_past_the_kernels_reach(trained, monkeypatch):
-    """Past the Viterbi kernel's reach the scheduler names the plain scan,
-    which decodes the same."""
-    _root, _profile, graph_dir, pcms = trained
-    states = _port(trained, max_streams=2).graph.num_states
-    monkeypatch.setattr(sched_mod, "kernel_states", lambda device: states - 1)
-    s = _port(trained, max_streams=2)
-    assert s.chunk_decoder == "scan"
+def test_decoder_choice_past_the_kernels_reach(trained, tmp_path):
+    """On a graph past the replicated body's reach (the trained graph padded
+    with unreachable states to 29,100 states, within the device route's
+    ring limits) the scheduler's tick decode is the same ``viterbi_decode``
+    call, its kernels name the large bodies' library, and it transcribes
+    the same."""
+    from rhasspy_speech_torch.testing.decode_graphs import padded_graph_dir
+
+    _root, profile, graph_dir, pcms = trained
+    s = StreamScheduler(profile.model_dir, padded_graph_dir(graph_dir, tmp_path / "g", 29100),
+                        max_streams=2, device="cpu")
+    assert s.graph.num_states == 29100 and s._device_bp
+    assert "viterbi_large" in s._kernels() and "viterbi" not in s._kernels()
     assert _decode_one(s, s.open_stream(), pcms[3]) == [TEXTS[3]]
 
 

@@ -257,18 +257,35 @@ def test_time_stages_are_recorded_when_asked(trained, monkeypatch):
     assert calls == {name: len(state.bps) for name in stages}
 
 
-def test_scan_chunk_decoder_equals_dense(trained):
-    """``chunk_decoder`` is "dense" unless the graph is past the kernel's
-    reach on a card; the "scan" decoder gives the same stream."""
+def test_scan_chunk_decoder_equals_dense(trained, tmp_path, monkeypatch):
+    """On a graph past the replicated body's reach (the trained graph padded
+    with unreachable states to 29,100 states) every chunk is still one
+    ``viterbi_decode`` call, whose alpha and backpointers on the trained
+    graph's states equal the unpadded stream's, and the stream transcribes
+    the same."""
+    from rhasspy_speech_torch.testing.decode_graphs import padded_graph_dir
+
     model_dir, dirs, pcms = trained
-    ts = Nnet3StreamTranscriber(model_dir, dirs[LangSuffix.GRAMMAR], device="cpu")
-    assert ts.chunk_decoder == "dense"
-    dense = _stream(ts, pcms[1])
-    ts.chunk_decoder = "scan"
-    scan = _stream(ts, pcms[1])
-    assert torch.equal(scan.alpha, dense.alpha)
-    assert all(np.array_equal(a, b) for a, b in zip(scan.bps, dense.bps))
-    assert ts.finish_stream(scan) == ts.finish_stream(dense) == [SPOKEN[1]]
+    graph_dir = dirs[LangSuffix.GRAMMAR]
+    small = Nnet3StreamTranscriber(model_dir, graph_dir, device="cpu")
+    big = Nnet3StreamTranscriber(model_dir, padded_graph_dir(graph_dir, tmp_path / "g", 29100),
+                                 device="cpu")
+    S = small.device_graph.num_states
+    assert big.device_graph.num_states == 29100
+    calls = []
+    real = stream_mod.viterbi_decode
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].num_states)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(stream_mod, "viterbi_decode", counted)
+    want, got = _stream(small, pcms[1]), _stream(big, pcms[1])
+    assert calls.count(29100) == len(got.bps) == len(want.bps) == calls.count(S)
+    assert torch.equal(got.alpha[:S], want.alpha)
+    assert (got.alpha[S:] >= 1e30).all()
+    assert all(np.array_equal(a[:, :S], b) for a, b in zip(got.bps, want.bps))
+    assert big.finish_stream(got) == small.finish_stream(want) == [SPOKEN[1]]
 
 
 def test_package_surface_and_aliases():
