@@ -250,7 +250,24 @@ bodies) against their plain PyTorch twins:
 24. the stream mesh over the card (``make_stream_mesh()``):
    ``ShardedWavTranscriber`` equals the single transcriber, and the
    scheduler with ``mesh=`` equals the mesh-free scheduler of 21, each
-   block's replays bit-equal to its eager body.
+   block's replays bit-equal to its eager body;
+25. the port's example scripts (``rhasspy_speech_torch/examples/``) on the
+   card, each through its ``main(argv)``, its results checked and its
+   kernel launches counted (the wrappers' counts zeroed before each, or
+   the scheduler's own count of captured launches times replays):
+   ``serve_streams`` at 8 streams on the i16 and ADPCM wires (K1, K2, K4,
+   and K6 on ADPCM; every stream's transcript the spoken sentence on i16,
+   at least 7 of 8 on ADPCM); ``serve_multichip`` over a mesh of the one
+   card (K1, K2; sharded transcripts equal the single device's);
+   ``inspect_utterance`` (K1, K2; the spoken transcript, its n-best and
+   lattice) and ``rescore_oov`` (K1: its n-best first pass and its lattice
+   are plain PyTorch; the recovered transcript); ``frontier_curve`` at
+   order 3 and two K (K2; the frontier never cheaper than the exact
+   decode); ``tick_device_profile``
+   at full width and 32 lanes on the 13,789-state grammar and the seeded
+   30,000-state graph (K1, K2, K4 in each replay; device, upload and host
+   split) and ``decode_roofline`` at B=32 (K1, K2; each stage's share of
+   the roofline), their JSON lines printed before the last line.
 
 ``python3 chip_smoke.py --mesh`` runs only phase 24, over every card the
 machine has (e.g. four), after the flagship build and a mesh-free scheduler
@@ -276,7 +293,6 @@ import dataclasses
 import functools
 import io
 import json
-import math
 import os
 import shutil
 import subprocess
@@ -362,7 +378,7 @@ from rhasspy_speech_torch.testing.big_grammar import (  # noqa: E402
     write_big_grammar_model_dir,
 )
 from rhasspy_speech_torch.testing.adpcm_wires import saturating_wire  # noqa: E402
-from rhasspy_speech_torch.testing.decode_graphs import random_decode_graph  # noqa: E402
+from rhasspy_speech_torch.testing.decode_graphs import device_route_graph, random_decode_graph  # noqa: E402
 from rhasspy_speech_torch.testing.flagship import (  # noqa: E402
     build_flagship_graph,
     write_flagship_model_dir,
@@ -371,7 +387,16 @@ from rhasspy_speech_torch.ops import _build  # noqa: E402
 from rhasspy_speech_torch.ops import decoder as twin_decoder  # noqa: E402
 from rhasspy_speech_torch.ops import frontier  # noqa: E402
 from rhasspy_speech_torch.ops import windowed_relax_cuda as k3  # noqa: E402
-from rhasspy_speech_torch.examples import windowed_cost  # noqa: E402
+from rhasspy_speech_torch.examples import (  # noqa: E402
+    decode_roofline,
+    frontier_curve,
+    inspect_utterance,
+    rescore_oov,
+    serve_multichip,
+    serve_streams,
+    tick_device_profile,
+    windowed_cost,
+)
 from rhasspy_speech_torch.ops.frontend import mfcc_batch_torch  # noqa: E402
 from rhasspy_speech_torch.testing.feature_tolerance import (  # noqa: E402
     frames_of,
@@ -380,7 +405,16 @@ from rhasspy_speech_torch.testing.feature_tolerance import (  # noqa: E402
 )
 from rhasspy_speech_torch.ops.ivector import extract_ivectors  # noqa: E402
 from rhasspy_speech_torch.ops.lattice import forward_backward  # noqa: E402
-from rhasspy_speech_torch.ops.mfcc_cuda import mel_bands, mfcc_batch  # noqa: E402
+from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch  # noqa: E402
+from rhasspy_speech_torch.utils.timing import cuda_ms, device_ms, p50_p90  # noqa: E402
+from rhasspy_speech_torch.utils.roofline import (  # noqa: E402
+    HBM_BYTES_PER_S,
+    bound,
+    mfcc_work,
+    pitch_work,
+    viterbi_work,
+    windowed_relax_work,
+)
 from rhasspy_speech_torch.ops.path_walk_cuda import path_walk, path_walk_torch, walk_start  # noqa: E402
 from rhasspy_speech_torch.ops.viterbi_cuda import (  # noqa: E402
     CLUSTER_SIZES,
@@ -465,7 +499,6 @@ KERNELS = ("mfcc", "viterbi", "viterbi_large", "windowed_relax", "path_walk", "p
 # frames and 2,384 rows (PERF.md); the tone and sweep fixtures allow none
 PITCH_ATOL = 1e-3
 PITCH_LAG_SHARE = 0.02
-HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM, 700 W
 # TDNN-LSTM log-probs, card vs CPU tensors, both f32: the H100 measured max
 # |d| 2.2e-6 after 112 recurrent steps (PERF.md), and a bf16 forward in the
 # f32 one's place differs by ~5.7e-3 (phase 18 holds it outside this bound),
@@ -494,40 +527,6 @@ def phase(name):
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
-
-
-def cuda_ms(fn, iters=10):
-    """Mean milliseconds per call on the card (CUDA events, after a warm-up)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def device_ms(fn, iters=20):
-    """Mean milliseconds of device time per call for a call so short that
-    the host cannot launch it as fast as the card runs it: the calls are
-    queued behind a long matrix product, so the events around them time the
-    card alone."""
-    fn()
-    blocker = torch.empty((8192, 8192), device="cuda")
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    for _ in range(2):  # tens of milliseconds of f32 matmul
-        torch.mm(blocker, blocker)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
 
 
 def tone_bursts(seed=SEED):
@@ -567,72 +566,6 @@ def k1_against_float64(params, inputs):
               f"{rk:.4f} to the allowance")
         out[name] = (rk, rp, err)
     return out
-
-
-def bound(nbytes, nops):
-    """(bound_ms, bound_by): the larger of the bytes' time at the card's
-    memory rate and the f32 operations' time at its peak rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def mfcc_work(params, B, S, T):
-    """(bytes, f32 operations) of the MFCC kernel's function at a
-    power-of-two or odd window: PCM in, cepstra out; per frame the DC
-    removal, pre-emphasis and window (and energy), the power spectrum, the
-    mel bands, log, DCT and lifter. At a power of two the spectrum is the
-    real FFT as an N/2-point complex FFT (10 operations a radix-2
-    butterfly) and its split. At an odd N the kernel runs Bluestein's
-    algorithm over radix-2 FFTs of 2N - 1 points and more; the bound counts
-    less than that or Rader's algorithm (about twice as much at N = 401):
-    the nominal 5 N log2 N operations of an N-point complex FFT of the two
-    frames packed as one sequence, then the split into the two frames'
-    H + 1 bins (4 operations a bin) and the power (3 a bin)."""
-    cfg = params.cfg
-    N, L, M, C = cfg.padded_window_size, cfg.frame_length, cfg.num_mel_bins, cfg.num_ceps
-    H = N // 2
-    if N % 2:
-        spectrum = round(5 * N * math.log2(N) / 2) + 7 * (H + 1)
-    else:
-        check(H & (H - 1) == 0, f"mfcc_work counts a power-of-two or odd window, got N={N}")
-        spectrum = 10 * (H // 2) * (H.bit_length() - 1) + 14 * (H + 1)
-    mel_terms = int(mel_bands(params.mel_weights.cpu().numpy())[0][-1])
-    per_frame = (
-        5 * L + (2 * L if cfg.use_energy else 0) + spectrum
-        + 2 * mel_terms + M + 2 * M * C + C
-    )
-    return 4 * B * S + 4 * B * T * C, B * T * per_frame
-
-
-def viterbi_work(graph, B, T, P, lengths):
-    """(bytes, f32 operations) of one decode. In: the lengths, the graph's
-    tables (packed source, arc id and weight per arc, row pointers, initial
-    and final weights, and the per-state pdf when folded or the per-arc pdf
-    when not), and of each stream's active frames only the log-probs at the
-    pdfs the graph reads, counted as the 32-byte sectors that hold them
-    (the card reads no less). Out: backpointers for every frame (STAY past
-    a stream's end), final alpha, traces, final state and cost. Operations:
-    per active frame an add, a min and a compare per arc and the fold per
-    state."""
-    S, A = graph.num_states, graph.num_arcs
-    pdfs = (graph.src_pdf if graph.folded else graph.in_pdf).long()
-    # sectors a row touches, by the row's start offset in floats mod 8
-    # (torch allocations start on a sector)
-    sectors = [int(torch.unique((pdfs + o) // 8).numel()) for o in range(8)]
-    lens = lengths.clamp(max=T).tolist()
-    lp_bytes = 32 * sum(sectors[((b * T + t) * P) % 8] for b in range(B) for t in range(lens[b]))
-    bp_bytes = 2 if A <= twin_decoder._COMPACT_BP_MAX_ARC else 4
-    tables = 8 * A + 4 * (S + 1) + 8 * S + (2 * S if graph.folded else 4 * A)
-    nbytes = (4 * B + tables + lp_bytes + bp_bytes * T * B * S + 4 * B * S + 4 * B * T
-              + 8 * B)
-    return nbytes, sum(lens) * (3 * A + 2 * S)
-
-
-def windowed_relax_work(T, B, S, nstep):
-    """(bytes, f32 operations) of the windowed relaxation: step tables in,
-    uint16 backpointers and alpha out; 3 operations a lane a step."""
-    nbytes = 8 * nstep + 12 * nstep * 128 + 2 * T * B * S + 4 * B * S
-    return nbytes, 3 * T * B * nstep * 128
 
 
 def decode_outputs_equal(a, b):
@@ -1310,9 +1243,7 @@ def large_graph_phase(root, dev, pcms, model_dir, graph_dir):
     del t, st, sched
 
     # -- the captured device route past the reach, K4 beside it --------------
-    dense30 = random_decode_graph(np.random.RandomState(SEED + 7), DEVICE_ROUTE_STATES,
-                                  DEVICE_ROUTE_EXTRA_ARCS, NUM_PDFS)
-    dense30.final_weight[:] = 0.0  # every state final: each stream ends on a path
+    dense30 = device_route_graph(SEED + 7, DEVICE_ROUTE_STATES, DEVICE_ROUTE_EXTRA_ARCS, NUM_PDFS)
     dir30 = os.path.join(root, "graph_device_route")
     LangArtifacts(words=words, graph=dense30).save(dir30)
     sched = StreamScheduler(model_dir, dir30, max_streams=BATCH, device=dev, **fuzzy)
@@ -1341,7 +1272,8 @@ def large_graph_phase(root, dev, pcms, model_dir, graph_dir):
           f"{DEVICE_ROUTE_STATES}-state device route: a replay differs from the eager tick body")
     print(f"scheduler on a seeded {DEVICE_ROUTE_STATES}-state graph ({dense30.num_arcs} arcs), device "
           f"route, captured, {BATCH} slots: launches {counts} over {len(ticks)} ticks; {len(checks)} "
-          f"replays bit-equal to the eager tick body; tick ms p50 / p90 {tick_ms(ticks)}")
+          f"replays bit-equal to the eager tick body; tick ms p50 / p90, each tick checked (an "
+          f"eager run on copies of the state first), {tick_ms(ticks)}")
     k4_30 = path_walk_numbers(f"{DEVICE_ROUTE_STATES}", sched, dev)
     k4_30["launches"] = counts["path_walk"]
     del sched
@@ -1642,8 +1574,7 @@ def host_route_scheduler(*args, **kwargs):
 
 
 def tick_ms(ticks):
-    work = np.asarray([t[0] for t in ticks if t[1] > 0])
-    return np.percentile(work, 50), np.percentile(work, 90)
+    return p50_p90([t[0] for t in ticks if t[1] > 0])
 
 
 def path_walk_numbers(name, sched, dev):
@@ -2318,13 +2249,6 @@ def coqui_phase(root, dev, pcms):
         {"name": "mfcc_deepspeech_stream_push", "launches": stream_counts["mfcc"], **entry,
          **k1_push},
     ]
-
-
-def pitch_work(B, T, NL):
-    """(bytes, f32 operations) of the pitch-lag Viterbi: local costs and
-    the distance table in, states out; an add and a compare a candidate j
-    for each output i of each step."""
-    return 4 * B * T * NL + 4 * NL + 4 * B * T, 2 * B * (T - 1) * NL * NL
 
 
 def plain_pitch(fn, *args):
@@ -3512,6 +3436,77 @@ def mesh_phase(model_dir, graph_dir, dev, pcms, fuzzy, sched_texts):
           f"(captured) {sched_s}")
 
 
+EXAMPLE_STREAMS = 8
+FRONTIER_ARGS = ["3", "50", "4", "--k", "64,512"]  # order 3, T=50, B=4, two K
+
+
+def counted(fn, *args):
+    """``fn(*args)`` with the wrappers' launch counts zeroed just before and
+    read just after: (its result, the counts)."""
+    zero_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, read_counts()
+
+
+def launched(what, counts, kernels):
+    check(all(counts[k] > 0 for k in kernels), f"{what}: no launch of {kernels}: {counts}")
+
+
+def examples_phase(big_dirs):
+    """Phase 25: every example of rhasspy_speech_torch/examples/ the JAX
+    package's examples/ has, driven on the card through its main(argv)."""
+    big_model, big_graph = (str(d) for d in big_dirs)
+    for wire in ("i16", "adpcm"):
+        r = serve_streams.main([str(EXAMPLE_STREAMS), "--wire", wire])
+        launched(f"serve_streams on {wire}", r["kernel_launches"], list(r["kernel_launches"]))
+        check(r["device_route"] and len(r["kernel_launches"]) == (4 if wire == "adpcm" else 3),
+              f"serve_streams on {wire}: route or kernels {r['kernel_launches']}")
+        need = EXAMPLE_STREAMS if wire == "i16" else WIRE_MIN_SPOKEN["adpcm"]
+        check(r["exact"] >= need, f"serve_streams on {wire}: {r['exact']} of {EXAMPLE_STREAMS} exact")
+        print(f"example serve_streams, {EXAMPLE_STREAMS} streams on {wire}: {r['exact']} exact, tick "
+              f"p50 / p90 {r['tick_p50_ms']:.3f} / {r['tick_p90_ms']:.3f} ms, fleet RTF "
+              f"{r['fleet_rtf']:.5f}, launches {r['kernel_launches']}")
+    card = str(torch.device("cuda", torch.cuda.current_device()))
+    r, counts = counted(serve_multichip.main, [str(EXAMPLE_STREAMS), "--devices", card])
+    launched("serve_multichip", counts, ("mfcc", "viterbi"))
+    check(r["transcripts"] == r["single"] and r["exact"] == EXAMPLE_STREAMS and r["mesh"] == [card],
+          f"serve_multichip: {r['exact']} exact over mesh {r['mesh']}")
+    print(f"example serve_multichip over {r['mesh']}: {r['exact']} exact, equal to one device's; "
+          f"launches {counts}")
+    r, counts = counted(inspect_utterance.main, [])
+    launched("inspect_utterance", counts, ("mfcc", "viterbi"))
+    check(r["transcript"] == [inspect_utterance.TEXT] and 0.0 <= r["confidence"] <= 1.0
+          and r["nbest"][0][0] == inspect_utterance.TEXT.split(),
+          f"inspect_utterance: {r['transcript']}, confidence {r['confidence']}, n-best {r['nbest']}")
+    print(f"example inspect_utterance: {r['transcript']}, confidence {r['confidence']:.4f}, "
+          f"{len(r['nbest'])} rivals, lattice {r['lattice_states']} states; launches {counts}")
+    # its decodes are the k-best decode and the lattice's: plain PyTorch, no K2
+    r, counts = counted(rescore_oov.main, [])
+    launched("rescore_oov", counts, ("mfcc",))
+    check(r["rescored"][0] == rescore_oov.RECOVERED, f"rescore_oov: {r['rescored']}")
+    print(f"example rescore_oov: first pass {r['first_pass']}, rescored {r['rescored']}; "
+          f"launches {counts}")
+    r, counts = counted(frontier_curve.main, FRONTIER_ARGS)
+    launched("frontier_curve", counts, ("viterbi",))
+    check(np.isfinite(r["exact_cost"]).all() and all(
+        (c["cost"] >= r["exact_cost"] - frontier_curve.AGREE_TOL).all() for c in r["curve"]),
+        "frontier_curve: a frontier cost below the exact decode's")
+    print(f"example frontier_curve on {r['states']} states: agreement "
+          f"{[(c['k'], c['agreement']) for c in r['curve']]}; launches {counts}")
+    for graph, dirs in (("big", ["--graph-dir", big_graph]), ("seeded30000", [])):
+        r = tick_device_profile.main(["--graph", graph, "--no-endpoint", "--model-dir", big_model]
+                                     + dirs)
+        launched(f"tick_device_profile on {graph}", r["launches_per_replay"],
+                 ("mfcc", "viterbi", "path_walk"))
+        check(r["device_exec_ms"] > 0 and r["h2d_ms"] > 0 and r["run_ms"] > 0,
+              f"tick_device_profile on {graph}: device split {r}")
+    r, counts = counted(decode_roofline.main, ["32", "--bf16", "--graph-dir", big_graph])
+    launched("decode_roofline", counts, ("mfcc", "viterbi"))
+    check(all(0.0 < s["share"] <= 1.0 for s in r["stages"].values()),
+          f"decode_roofline: a share outside (0, 1]: {r['stages']}")
+
+
 def mesh_main():
     """``python3 chip_smoke.py --mesh``: only phase 24, over every card
     the machine has, against the mesh-free scheduler run here on the
@@ -3693,9 +3688,13 @@ def main():
         with phase("mesh"):
             mesh_phase(model_dir, graph_dir, dev, pcms, fuzzy, i16_texts)
 
-    # -- K3: the windowed relaxation's entry point ----------------------------
-    with phase("windowed relaxation"):
-        k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = windowed_relax_phase(dev)
+        # -- K3: the windowed relaxation's entry point ------------------------
+        with phase("windowed relaxation"):
+            k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = windowed_relax_phase(dev)
+
+        # -- the example scripts ----------------------------------------------
+        with phase("examples"):
+            examples_phase(big_dirs)
 
     # no single PyTorch call computes Kaldi's MFCC, a Viterbi pass, the
     # windowed relaxation, a backpointer walk or a pitch-lag Viterbi:

@@ -48,41 +48,11 @@ from ..ops.pitch_viterbi_cuda import (
     select_plan,
     transition_costs,
 )
+from ..utils.timing import cuda_ms, device_ms
 
 SHAPES = (("batch", 32, 296), ("tick", 32, 196), ("push", 1, 196))
 SEED = 0
 ITERS = 20
-
-
-def events_ms(fn: Callable[[], object], iters: int = ITERS) -> float:
-    """Mean milliseconds a call on the card (CUDA events, after a warm-up)."""
-    fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def queued_ms(fn: Callable[[], object], iters: int = ITERS) -> float:
-    """Mean milliseconds of device time a call for a call so short that the
-    host cannot launch it at the card's pace: the calls queue behind a long
-    matrix product, so the events time the card alone."""
-    fn()
-    blocker = torch.empty((8192, 8192), device="cuda")
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for _ in range(2):
-        torch.mm(blocker, blocker)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
 
 
 def costs(B: int, T: int, NL: int, dev: torch.device, seed: int, levels: int = 0) -> torch.Tensor:
@@ -123,7 +93,7 @@ def k5_sweep(dev: torch.device, variants: Sequence[int] = (),
                     plans.append(p)
             for plan in plans:
                 equal = torch.equal(pitch_viterbi(tied, dist, plan=plan), want)
-                ms = events_ms(lambda: pitch_viterbi(local, dist, plan=plan))
+                ms = cuda_ms(lambda: pitch_viterbi(local, dist, plan=plan), ITERS)
                 clocks = torch.zeros((B, C, 4), dtype=torch.int64, device=dev)
                 pitch_viterbi(local, dist, plan=plan, clocks=clocks)
                 torch.cuda.synchronize()
@@ -225,7 +195,7 @@ def seeded_ring(dev: torch.device, S: int, A: int, N: int = 32, frames: int = 10
 
 
 def ab(name: str, new: Callable[[], torch.Tensor], old: Callable[[], torch.Tensor],
-       check: Callable[[torch.Tensor], bool], device_ms: Callable) -> Dict[str, object]:
+       check: Callable[[torch.Tensor], bool]) -> Dict[str, object]:
     """Both versions held to the check, then timed in turns: old, new, new,
     old."""
     ok_new, ok_old = check(new()), check(old())
@@ -237,7 +207,7 @@ def ab(name: str, new: Callable[[], torch.Tensor], old: Callable[[], torch.Tenso
     return row
 
 
-def parent_compare(parent: Path, dev: torch.device, device_ms: Callable = queued_ms):
+def parent_compare(parent: Path, dev: torch.device):
     """K5 at the three shapes and K4 on two seeded rings, parent against
     this checkout."""
     cfg = PitchConfig()
@@ -249,14 +219,14 @@ def parent_compare(parent: Path, dev: torch.device, device_ms: Callable = queued
         local = costs(B, T, NL, dev, SEED)
         want = pitch_viterbi_torch(local, dist)
         rows.append(ab(f"K5 {label} [{B}, {T}, {NL}]", lambda: pitch_viterbi(local, dist),
-                       lambda: k5_old(local, dist), lambda s: torch.equal(s, want), device_ms))
+                       lambda: k5_old(local, dist), lambda s: torch.equal(s, want)))
     k4_old = parent_k4(parent, dev)
     for S, A in ((803, 1964), (13789, 31288)):
         args = seeded_ring(dev, S, A)
         want = path_walk_torch(*args, 400, True)
         rows.append(ab(f"K4 seeded ring [32, 400, {S}], {A} arcs, 100 frames a slot",
                        lambda: path_walk(*args, 400, True), lambda: k4_old(*args, 400, True),
-                       lambda o: torch.equal(o, want), device_ms))
+                       lambda o: torch.equal(o, want)))
     return rows
 
 

@@ -3,11 +3,14 @@
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
+import os
+import platform
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -15,33 +18,88 @@ _LOGGER = logging.getLogger(__name__)
 
 _REPO_ROOT = Path(__file__).resolve().parents[2]
 _NATIVE_DIR = _REPO_ROOT / "native"
-_LIB_PATH = _NATIVE_DIR / "build" / "librss_runtime.so"
+# the port's own build of the shared source: the JAX package builds and
+# loads native/build/librss_runtime.so
+_LIB_PATH = Path(__file__).resolve().parent / "build" / "librss_runtime.so"
+# "<-march target> <host key>" of the build ("generic" without -march)
+_STAMP_PATH = _LIB_PATH.with_suffix(".march")
+
+
+def _host_key() -> str:
+    """The machine type and a digest of the instruction-set flags the CPU
+    reports in /proc/cpuinfo (what ``-march=native`` resolves from), read
+    without starting a compiler."""
+    flags = ""
+    try:
+        with open("/proc/cpuinfo", encoding="utf-8") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    flags = line.split(":", 1)[-1]
+                    break
+    except OSError:
+        pass
+    digest = hashlib.sha256(" ".join(sorted(flags.split())).encode()).hexdigest()[:16]
+    return f"{platform.machine()}-{digest}"
+
+
+def _march_target() -> str:
+    """What ``-march=native`` resolves to on this host, as g++ reports it,
+    or ``generic`` when g++ cannot say."""
+    try:
+        out = subprocess.run(
+            ["g++", "-march=native", "-Q", "--help=target"],
+            check=True, capture_output=True, text=True,
+        ).stdout
+    except (subprocess.CalledProcessError, FileNotFoundError):
+        return "generic"
+    for line in out.splitlines():
+        parts = line.split()
+        if len(parts) == 2 and parts[0] == "-march=":
+            return parts[1]
+    return "generic"
 
 
 def _build_library() -> Optional[Path]:
-    """Compile the shared library with g++ (no cmake round-trip needed)."""
+    """Compile the shared library with g++ (no cmake round-trip needed)
+    for this host's ``-march=native`` target, or without ``-march`` when
+    that fails or g++ names no target; stamp the target and the host key
+    beside it."""
     src = _NATIVE_DIR / "rss_runtime.cpp"
     if not src.exists():
         return None
     _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    # -march=native is safe here: the library is always (re)built on the
-    # host that runs it (mtime-stale sources trigger a local rebuild),
-    # and the ADPCM wire encoder leans on AVX-512 when the host has it
-    cmd = [
-        "g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-march=native",
-        str(src), "-o", str(_LIB_PATH),
-    ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True)
+    # concurrent builders each write their own file and rename it over the
+    # library, so no process loads a half-written one
+    tmp = _LIB_PATH.with_name(f".{os.getpid()}.{_LIB_PATH.name}")
+    # the ADPCM wire encoder leans on AVX-512 when the host has it; the
+    # stamp makes a host of other instructions rebuild
+    err = None
+    for want in dict.fromkeys([_march_target(), "generic"]):  # generic: cross/odd toolchains
+        march = [] if want == "generic" else ["-march=native"]
+        cmd = [
+            "g++", "-O3", "-fPIC", "-shared", "-std=c++17", *march,
+            str(src), "-o", str(tmp),
+        ]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True)
+        except (subprocess.CalledProcessError, FileNotFoundError) as exc:
+            err = exc
+            continue
+        os.replace(tmp, _LIB_PATH)
+        _STAMP_PATH.write_text(f"{want} {_host_key()}\n", encoding="utf-8")
         return _LIB_PATH
-    except (subprocess.CalledProcessError, FileNotFoundError):
-        cmd.remove("-march=native")  # cross/odd toolchains
+    _LOGGER.warning("native build failed (%s); using NumPy fallbacks", err)
+    return None
+
+
+def _stamp() -> Tuple[Optional[str], Optional[str]]:
+    """(target, host key) stamped beside the library; (None, None) without
+    a stamp of both."""
     try:
-        subprocess.run(cmd, check=True, capture_output=True)
-        return _LIB_PATH
-    except (subprocess.CalledProcessError, FileNotFoundError) as err:
-        _LOGGER.warning("native build failed (%s); using NumPy fallbacks", err)
-        return None
+        fields = _STAMP_PATH.read_text(encoding="utf-8").split()
+    except FileNotFoundError:
+        return None, None
+    return (fields[0], fields[1]) if len(fields) == 2 else (None, None)
 
 
 class NativeRuntime:
@@ -63,15 +121,18 @@ class NativeRuntime:
                     and src.exists()
                     and src.stat().st_mtime > _LIB_PATH.stat().st_mtime
                 )
+                built_for, built_on = _stamp()
+                here = built_on == _host_key()
                 path = (
                     _LIB_PATH
-                    if _LIB_PATH.exists() and not stale
+                    if _LIB_PATH.exists() and not stale and here
                     else _build_library()
                 )
-                if path is None and _LIB_PATH.exists():
+                if path is None and _LIB_PATH.exists() and (here or built_for == "generic"):
                     # rebuild of a stale library failed (no compiler?):
                     # the older build still works — newer entry points
-                    # are hasattr-guarded by callers
+                    # are hasattr-guarded by callers — unless it was built
+                    # for another host's instructions
                     path = _LIB_PATH
                 if path is not None:
                     try:
@@ -183,11 +244,16 @@ def adpcm_encode_into(
     PLACE over ``samples`` (the scheduler carries frame-overlap tails
     from them). Native encoder when available, byte-identical
     ops.adpcm reference otherwise."""
+    if samples.dtype != np.float32 or out.dtype != np.uint8:
+        raise TypeError(
+            f"adpcm_encode_into takes float32 samples and uint8 out, got "
+            f"{samples.dtype} and {out.dtype}"
+        )
+    if not samples.flags.c_contiguous:
+        raise ValueError("adpcm_encode_into: samples must be C-contiguous")
     lens = np.ascontiguousarray(lens, dtype=np.int64)
     lib = get_runtime().lib
     if lib is not None and hasattr(lib, "rss_adpcm_encode_blocks"):
-        assert samples.dtype == np.float32 and samples.flags.c_contiguous
-        assert out.dtype == np.uint8
         rc = lib.rss_adpcm_encode_blocks(
             _f32p(samples),
             samples.shape[0],

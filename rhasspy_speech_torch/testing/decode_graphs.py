@@ -46,6 +46,18 @@ def random_decode_graph(
     )
 
 
+def device_route_graph(
+    seed: int, num_states: int = 30000, extra_arcs: int = 2000, num_pdfs: int = 3072
+) -> DenseGraph:
+    """``random_decode_graph`` drawn from ``seed`` with every state final, so
+    each stream ends on a path: at the defaults 30,000 states and 62,400
+    arcs, past K2's replicated body and within the scheduler's 65,532-arc
+    backpointer ring (its captured device route on K2's halo body)."""
+    g = random_decode_graph(np.random.RandomState(seed), num_states, extra_arcs, num_pdfs)
+    g.final_weight[:] = 0.0
+    return g
+
+
 def padded_graph_dir(
     graph_dir: Union[str, Path], out_dir: Union[str, Path], num_states: int
 ) -> Path:

@@ -1,17 +1,10 @@
-"""Pitch on the port's streaming routes: the featurizer, the single stream
-and both routes of the stream scheduler, on the CPU.
+"""Pitch on the port's streaming routes: both routes of the stream
+scheduler, on the CPU. The single stream's check is in
+tests/test_torch_pitch_stream_single.py, the featurizer's in
+tests/test_torch_pitch_stream_featurizer.py and
+tests/test_torch_pitch_stream_batched.py: with the suite on several workers
+each part takes minutes, so each has a file.
 
-- The featurizer's rows (40 MFCC + 3 pitch columns) equal the JAX
-  featurizer's push by push, over several chunkings of 2.5 s of a voiced
-  signal (the sliding 2 s pitch window moves): the same row counts, the
-  MFCC columns within ``testing/feature_tolerance.py``'s allowance for two
-  f32 front ends (rtol 1e-4 / atol 2e-3, widened only on ill-conditioned
-  frames), the pitch columns within atol 1e-3 (tests/test_torch_pitch.py's
-  tolerance). The scheduler's batched path through the featurizer gives
-  ``push``'s rows bit for bit.
-- The single stream's transcript equals the JAX stream transcriber's and
-  the spoken sentence on an nnet3 pitch profile, its rows within the same
-  tolerances.
 - The scheduler's host route (forced) against its device route
   (``_pitch_device``, the pitch lane of the fused tick): at one push a tick
   the two routes see the same pitch windows, so the device feature ring's
@@ -27,26 +20,16 @@ and both routes of the stream scheduler, on the CPU.
   evicts their entry.
 """
 
-import types
-
 import numpy as np
 import pytest
-
-from rhasspy_speech_tpu.ops import frontend as jfe
-from rhasspy_speech_tpu.ops import pitch as jp
-from rhasspy_speech_tpu.pipeline import streaming_features as jsf
-from rhasspy_speech_tpu.pipeline.stream import Nnet3StreamTranscriber as JaxStreamTranscriber
 
 import torch
 
 from rhasspy_speech_torch.const import LangSuffix
-from rhasspy_speech_torch.ops import frontend as tfe
 from rhasspy_speech_torch.ops import pitch as tp
-from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch
-from rhasspy_speech_torch.pipeline import Nnet3StreamTranscriber, Nnet3WavTranscriber
+from rhasspy_speech_torch.pipeline import Nnet3WavTranscriber
 from rhasspy_speech_torch.pipeline import lang_dir_name
 from rhasspy_speech_torch.pipeline import scheduler as sched_mod
-from rhasspy_speech_torch.pipeline import streaming_features as tsf
 from rhasspy_speech_torch.pipeline.endpoint import EndpointConfig
 from rhasspy_speech_torch.pipeline.scheduler import StreamScheduler
 from rhasspy_speech_torch.pipeline.train import train_model_sync
@@ -65,22 +48,19 @@ ROUTE_ATOL = 1e-4
 TEXTS = ["turn on the light", "never mind"]
 SENTENCES = ["turn (on|off) [the] (light|fan) [never mind]", "never mind"]
 PUSH = 2048
-CHUNKINGS = {
-    "4000": [4000] * 10,
-    "uneven": [160, 3360, 7, 4000, 1, 20000, 9000],
-    "one_push": [40000],
-}
 
 
-def _voiced(n, seed=9):
-    """A voiced signal whose f0 glides 110 -> 180 Hz, with harmonics and
-    noise."""
-    rng = np.random.RandomState(seed)
-    t = np.arange(n) / 16000.0
-    f0 = 110.0 + 70.0 * t / t[-1]
-    phase = 2 * np.pi * np.cumsum(f0) / 16000.0
-    sig = 3000 * np.sin(phase) + 1500 * np.sin(2 * phase) + 800 * np.sin(3 * phase)
-    return (sig + 200 * rng.randn(n)).astype(np.float32)
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while these tests run. They issue many small
+    tensor ops (the pitch Viterbi's plain twin steps frame by frame); with
+    the suite's workers each holding a thread a core, idle OpenMP threads
+    spin against the busy ones and stretch each test tens of times over.
+    The tests check the same values either way."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _allowance(cfg, pcm):
@@ -93,63 +73,6 @@ def _check_rows(got, want, C, allow):
     assert got.shape == want.shape
     assert_mfcc_close(got[:, :C], want[:, :C], allow)
     np.testing.assert_allclose(got[:, C:], want[:, C:], atol=PITCH_ATOL)
-
-
-def _featurizers():
-    cfg_j, cfg_t = jfe.FrontendConfig(), tfe.FrontendConfig()
-    jam = types.SimpleNamespace(frontend_config=cfg_j, frontend_params=jfe.make_frontend_params(cfg_j),
-                                pitch_config=jp.PitchConfig())
-    tam = types.SimpleNamespace(frontend_config=cfg_t, device=torch.device("cpu"),
-                                frontend_params=tfe.make_frontend_params(cfg_t, "cpu"),
-                                pitch_config=tp.PitchConfig())
-    return tsf.StreamFeaturizer(tam), jsf.StreamFeaturizer(jam)
-
-
-@pytest.mark.parametrize("chunking", sorted(CHUNKINGS))
-def test_featurizer_pitch_rows_equal_jax(chunking):
-    pcm = _voiced(40000)
-    tfz, jfz = _featurizers()
-    assert tfz.has_pitch and tfz.feat_dim == 43 and tfz.pitch_window == jfz.pitch_window
-    ts, js = tfz.new_state(), jfz.new_state()
-    allow = _allowance(tfz.am.frontend_config, pcm)
-    off, total = 0, 0
-    for n in CHUNKINGS[chunking] + [None]:  # None: the flush
-        chunk = pcm[off : off + n] if n is not None else np.zeros(0, np.float32)
-        flush = n is None
-        got, want = tfz.push(ts, chunk, flush=flush), jfz.push(js, chunk, flush=flush)
-        _check_rows(got, want, 40, allow.rows(slice(total, total + got.shape[0])))
-        assert ts.pitch_done == js.pitch_done and ts.total_samples == js.total_samples
-        off += 0 if n is None else n
-        total += got.shape[0]
-    assert total == tfe.num_frames(tfz.am.frontend_config, off)
-
-
-def test_batched_path_equals_push():
-    """The scheduler's batched path (``prepare_mfcc_buf`` / ``commit_mfcc``
-    and ``push_with_base`` for the MFCC rows, then ``pitch_window_array``,
-    one pitch call, ``consume_pitch_rows`` and ``merge_pitch``, as
-    ``_drain_pitch_all`` runs them) gives ``push``'s rows."""
-    pcm = _voiced(24000, seed=3)
-    tfz, _ = _featurizers()
-    a, b = tfz.new_state(), tfz.new_state()
-    got, want = [], []
-    for off in range(0, pcm.shape[0], 3000):
-        chunk = pcm[off : off + 3000]
-        want.append(tfz.push(a, chunk))
-        r = tfz.prepare_mfcc_buf(b, chunk)
-        base = np.zeros((0, 40), np.float32)
-        if r is not None:
-            buf, k = r
-            base = mfcc_batch(tfz.stream_params, torch.as_tensor(buf[None]))[0][:k].numpy()
-            tfz.commit_mfcc(b, buf, k)
-        got.append(tfz.push_with_base(b, chunk, base))
-        window = tfz.pitch_window_array(b) if b.mfcc_pending.shape[0] else None
-        if window is not None:
-            rows = tp.pitch_batch(tfz.am.pitch_config, torch.as_tensor(window[None]))[0].numpy()
-            got.append(tfz.merge_pitch(b, tfz.consume_pitch_rows(b, rows)))
-    got.append(tfz.push(b, np.zeros(0, np.float32), flush=True))
-    want.append(tfz.push(a, np.zeros(0, np.float32), flush=True))
-    np.testing.assert_array_equal(np.concatenate(got), np.concatenate(want))
 
 
 def _train(root, profile):
@@ -178,22 +101,6 @@ def gmm_pitch(tmp_path_factory):
     graph_dir = _train(root, profile)
     pcms = [synthesize_sentence(profile, t, seed=70 + i) for i, t in enumerate(TEXTS)]
     return profile, graph_dir, pcms
-
-
-def test_single_stream_equals_jax(nnet3_pitch):
-    profile, graph_dir, pcms = nnet3_pitch
-    st = Nnet3StreamTranscriber(profile.model_dir, graph_dir, device="cpu")
-    jst = JaxStreamTranscriber(profile.model_dir, graph_dir)
-    state, jstate = st.start_stream(), jst.start_stream()
-    for off in range(0, pcms[0].shape[0], 1024):
-        st.process_chunk(state, pcms[0][off : off + 1024])
-        jst.process_chunk(jstate, pcms[0][off : off + 1024])
-    got, want = st.finish_stream(state), jst.finish_stream(jstate)
-    assert got == want == [TEXTS[0]]
-    C = st.am.frontend_config.num_ceps
-    assert state.feats.shape[1] == C + 3
-    allow = _allowance(st.am.frontend_config, pcms[0]).rows(slice(0, state.feats.shape[0]))
-    _check_rows(state.feats, np.asarray(jstate.feats), C, allow)
 
 
 def _run_scheduler(sched, pcms, finish=True, ticks=300):
