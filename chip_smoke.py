@@ -15,8 +15,11 @@ the stream mesh, and checks the six hand-written kernels (K2 in three
 bodies) against their plain PyTorch twins:
 
 1. builds ``csrc/mfcc.cu``, ``csrc/viterbi.cu``, ``csrc/viterbi_large.cu``,
-   ``csrc/windowed_relax.cu``, ``csrc/path_walk.cu``, ``csrc/pitch_viterbi.cu``
-   and ``csrc/adpcm_decode.cu`` with nvcc for sm_90a, in parallel;
+   ``csrc/windowed_relax.cu``, ``csrc/path_walk.cu``, ``csrc/pitch_viterbi.cu``,
+   ``csrc/adpcm_decode.cu`` and ``csrc/tick_stamp.cu`` with nvcc for sm_90a,
+   in parallel, and maps the card's clock onto the host's
+   (``ops/tick_stamp_cuda.py:calibrate``), again at the run's end: the
+   drift between the two clocks over the run is printed;
 2. transcribes 32 seeded 3 s utterances (1-best) with the launch counters
    zeroed just before and read just after, and requires the MFCC and
    Viterbi kernels to have run;
@@ -114,6 +117,7 @@ bodies) against their plain PyTorch twins:
    round), on the flagship graph and on the 13,789-state generated grammar.
    By the scheduler's own count (captured launches times replays) every
    tick makes at most one MFCC, one Viterbi and one path-walk launch, one
+   stamp launch a stamp its bodies take (``device_tick.STAMPS_TAKEN``), one
    upload and one download, and all three kernels run; every replay of the
    counted run is bit-equal to the tick body run eagerly on copies of its
    state and inputs; K2 at the tick's shapes (the first tick with an idle
@@ -121,7 +125,11 @@ bodies) against their plain PyTorch twins:
    decoder; at least 30 of 32 transcripts equal the single stream's and the
    host route's (forced, as the CPU tests force it); the path walk (K4) on
    each graph's ring at the run's end is bit-equal to its twin and timed
-   beside its bound; tick ms p50 / p90 (host clock) captured, eager and on
+   beside its bound; one replay of the flagship's captured fused tick,
+   timed by CUDA events, takes six stamp launches and stamps s0 .. s5 in
+   order, spanning no more than the events' time and lying, on the host
+   clock, between the replay's issue and its synchronize (within the
+   calibration's error); tick ms p50 / p90 (host clock) captured, eager and on
    the host route, bytes down a tick, graphs captured, the fleet's
    real-time factor, and the host-side stages in a synchronized pass. Then
    the port's synthetic speech profile (``testing/synthetic.py``, with an
@@ -406,6 +414,9 @@ from rhasspy_speech_torch.testing.feature_tolerance import (  # noqa: E402
 from rhasspy_speech_torch.ops.ivector import extract_ivectors  # noqa: E402
 from rhasspy_speech_torch.ops.lattice import forward_backward  # noqa: E402
 from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch  # noqa: E402
+from rhasspy_speech_torch.ops.tick_stamp_cuda import calibrate  # noqa: E402
+from rhasspy_speech_torch.pipeline.device_tick import STAMPS, STAMPS_TAKEN  # noqa: E402
+from rhasspy_speech_torch.utils.metrics import TICK_STAGES  # noqa: E402
 from rhasspy_speech_torch.utils.timing import cuda_ms, device_ms, p50_p90  # noqa: E402
 from rhasspy_speech_torch.utils.roofline import (  # noqa: E402
     HBM_BYTES_PER_S,
@@ -489,7 +500,7 @@ COQUI_SENTENCES = ["turn (on|off) light", "stop"]
 COQUI_TEXTS = ["turn on light", "stop", "turn off light"]
 COQUI_PRUNE = 30.0  # synthetic char boundaries are harsher than speech (tests/test_coqui.py)
 KERNELS = ("mfcc", "viterbi", "viterbi_large", "windowed_relax", "path_walk", "pitch_viterbi",
-           "adpcm_decode")
+           "adpcm_decode", "tick_stamp")
 # Pitch, card vs CPU tensors: the POV feature and the delta of frames whose
 # lags agree within 1e-3 (tests/test_torch_pitch.py's tolerance against the
 # JAX package; f32 sums in another order, the POV's 0.15 power amplifying
@@ -1534,7 +1545,12 @@ def sched_run(sched, pcms, on_tick=None):
         ms = (time.perf_counter() - t0) * 1000.0
         k1 = sched.kernel_launches
         io1 = (runner.uploads, runner.downloads) if runner else (0, 0)
-        ticks.append((ms, lanes, {k: k1[k] - k0[k] for k in k1}, io1[0] - io0[0], io1[1] - io0[1]))
+        launched = {k: k1[k] - k0[k] for k in k1}
+        if runner:
+            taken = sum(len(STAMPS_TAKEN[r.key]) for r in sched._step_ticks)
+            check(launched["tick_stamp"] == taken, f"a tick made {launched['tick_stamp']} stamp "
+                  f"launches for {taken} stamps taken by its bodies")
+        ticks.append((ms, lanes, launched, io1[0] - io0[0], io1[1] - io0[1]))
         if on_tick is not None:
             on_tick()
 
@@ -1653,7 +1669,7 @@ def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy, min_equal=SCH
     if host_feats:
         counts["mfcc"] = read_counts()["mfcc"]  # the host featurizer's, outside the graphs
     checks = runner.checks[n_checks:]
-    check(all(max(t[2].values()) <= 1 for t in ticks),
+    check(all(max(v for k, v in t[2].items() if k != "tick_stamp") <= 1 for t in ticks),
           f"{name}: a tick launched more than one MFCC, Viterbi, path-walk or pitch-Viterbi kernel")
     max_up = 4 if host_feats else 1
     check(all(t[3] <= max_up and t[4] <= 1 for t in ticks),
@@ -1734,6 +1750,50 @@ def sched_graph_part(name, model_dir, graph_dir, dev, pcms, fuzzy, min_equal=SCH
     print(f"scheduler {name} stages (ms a call x calls, host clock, each synchronized): {stages}")
     SUMMARY[name] = {"tick_p50": c50, "tick_p90": c90}
     return counts, probes, sched
+
+
+def tick_stamp_numbers(sched):
+    """One replay of the captured fused tick on the card: the runner's count
+    of its stamp launches (one a stamp), once more bracketed by CUDA events
+    and host clock reads, its stamps in order, their span within the
+    events' time and, mapped by the scheduler's clock, within the host
+    bracket. The slots' state is put back after."""
+    runner, st = sched._runner, sched._st
+    key = next(k for k in runner.graphs if k[0] == "fused")
+    graph, static, recorded = runner.graphs[key]
+    check(recorded["tick_stamp"] == len(STAMPS_TAKEN["fused"]) == STAMPS,
+          f"the fused tick's graph holds {recorded['tick_stamp']} stamp launches")
+    saved = st.clone()
+    before = runner.launches["tick_stamp"]
+    runner.run(key, sched._tick.body_fused, st, [x.clone() for x in static])
+    check(runner.launches["tick_stamp"] - before == STAMPS,
+          f"a fused replay counted {runner.launches['tick_stamp'] - before} stamp launches")
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    h1 = time.perf_counter()
+    for name, t in st.tensors().items():
+        t.copy_(saved.tensors()[name])
+    ns = sched._tick.stamps.cpu().tolist()
+    event_ms = e0.elapsed_time(e1)
+    span_ms = (ns[-1] - ns[0]) * 1e-6
+    check(ns == sorted(ns) and ns[-1] > ns[0], f"the fused tick's stamps out of order: {ns}")
+    # 2 us for the two clocks' resolution
+    check(span_ms <= event_ms + 2e-3, f"the stamps span {span_ms:.4f} ms of a {event_ms:.4f} ms replay")
+    clock = sched._clock
+    host = [clock.host(x) for x in ns]
+    check(h0 - clock.error_s <= host[0] and host[-1] <= h1 + clock.error_s,
+          f"the stamps on the host clock {host[0]:.6f} .. {host[-1]:.6f} leave the replay's "
+          f"{h0:.6f} .. {h1:.6f} (error {clock.error_s:.2e} s)")
+    stages = {n: round((ns[i + 1] - ns[i]) * 1e-6, 4) for i, n in enumerate(TICK_STAGES)}
+    print(f"fused tick stamps: {STAMPS} launches a replay by the runner's count; one replay "
+          f"{event_ms:.4f} ms by CUDA events, stamps s0 -> s5 {span_ms:.4f} ms "
+          f"({100 * span_ms / event_ms:.1f}%), stages ms {stages}; on the host clock inside the "
+          f"replay's {1e3 * (h1 - h0):.4f} ms bracket (calibration error {1e6 * clock.error_s:.1f} us)")
 
 
 def sched_kernel_numbers(sched, probes, dev):
@@ -1869,6 +1929,7 @@ def scheduler_phase(model_dir, graph_dir, big_dirs, root, dev, pcms, fuzzy):
     counts, probes, sched = sched_graph_part("flagship", model_dir, graph_dir, dev, pcms, fuzzy)
     k1, k2 = sched_kernel_numbers(sched, probes, dev)
     k4 = path_walk_numbers("flagship", sched, dev)
+    tick_stamp_numbers(sched)
     del sched, probes
     big_counts, big_probes, big = sched_graph_part("13789", *big_dirs, dev, pcms, {})
     lp, lens, alpha0 = big_probes["idle"]
@@ -3196,7 +3257,8 @@ def wire_part(wire, model_dir, graph_dir, dev, pcms, fuzzy):
     counts = sched.kernel_launches
     checks = runner.checks[n_checks:]
     check(all(v > 0 for v in counts.values()), f"wire {wire}: kernels not launched: {counts}")
-    check(all(max(t[2].values()) <= 1 for t in ticks), f"wire {wire}: a kernel twice in a tick")
+    check(all(max(v for k, v in t[2].items() if k != "tick_stamp") <= 1 for t in ticks),
+          f"wire {wire}: a kernel twice in a tick")
     check(all(t[3] <= 1 and t[4] <= 1 for t in ticks), f"wire {wire}: more than one upload or download")
     check(len(checks) > 0 and all(all(eq.values()) for _k, eq in checks),
           f"wire {wire}: a replay differs from the eager tick body")
@@ -3460,7 +3522,7 @@ def examples_phase(big_dirs):
     for wire in ("i16", "adpcm"):
         r = serve_streams.main([str(EXAMPLE_STREAMS), "--wire", wire])
         launched(f"serve_streams on {wire}", r["kernel_launches"], list(r["kernel_launches"]))
-        check(r["device_route"] and len(r["kernel_launches"]) == (4 if wire == "adpcm" else 3),
+        check(r["device_route"] and len(r["kernel_launches"]) == (5 if wire == "adpcm" else 4),
               f"serve_streams on {wire}: route or kernels {r['kernel_launches']}")
         need = EXAMPLE_STREAMS if wire == "i16" else WIRE_MIN_SPOKEN["adpcm"]
         check(r["exact"] >= need, f"serve_streams on {wire}: {r['exact']} of {EXAMPLE_STREAMS} exact")
@@ -3545,6 +3607,7 @@ def main():
         for path in pool.map(_build.build, KERNELS):
             print(f"built {path.name}")
     print(f"kernel build {time.time() - t0:.1f} s")
+    clock0 = calibrate(dev)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         t0 = time.time()
@@ -3762,6 +3825,12 @@ def main():
         k6_entry,
         odd_entry,
     ]
+    clock1 = calibrate(dev)
+    apart = clock1.base_s - clock0.base_s
+    drift = clock1.base_s - clock0.host(clock1.base_ns)
+    print(f"card clock against the host's over the run ({apart:.1f} s apart): drift "
+          f"{1e6 * drift:.1f} us ({1e6 * drift / apart:.3f} ppm), calibration errors "
+          f"{1e6 * clock0.error_s:.1f} / {1e6 * clock1.error_s:.1f} us")
     loaded = sorted(m for m in sys.modules if m.partition(".")[0] in ("jax", "jaxlib", "rhasspy_speech_tpu"))
     check(not loaded, f"the port imported JAX or the JAX package: {loaded[:5]}")
     print("no module of jax or rhasspy_speech_tpu was imported")

@@ -1,7 +1,10 @@
 """Command-line interface: train and transcribe without writing code.
 
 Counterpart of ``rhasspy_speech_tpu/cli.py``, with the same subcommands and
-flags; ``transcribe`` and ``warmup`` also take ``--device`` (default
+flags but ``metrics`` (the registry of a fresh process is empty; a serving
+process reads its own, ``utils/metrics.py``, as
+``examples/serve_streams.py`` prints it); ``transcribe`` and ``warmup``
+also take ``--device`` (default
 ``cuda``, which raises without a card; ``--device cpu`` runs the kernels'
 plain twins). ``warmup`` writes the warm-start manifest
 (``utils/warmup.py``) in place of the JAX package's AOT programs.
@@ -102,13 +105,6 @@ def _cmd_warmup(args) -> int:
     return 0
 
 
-def _cmd_metrics(args) -> int:
-    from .utils.metrics import get_metrics
-
-    print(json.dumps(get_metrics().summary()))
-    return 0
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="rhasspy_speech_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -174,9 +170,6 @@ def main(argv=None) -> int:
     p_w.add_argument("--device", default="cuda",
                      help="cuda (the default; raises without a card) or cpu")
     p_w.set_defaults(func=_cmd_warmup)
-
-    p_m = sub.add_parser("metrics", help="dump process decode metrics")
-    p_m.set_defaults(func=_cmd_metrics)
 
     args = parser.parse_args(argv)
     return args.func(args)

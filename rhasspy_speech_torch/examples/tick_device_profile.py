@@ -19,10 +19,14 @@ CUDA graph by ``pipeline/device_tick.py:TickRunner``):
 - **C. The host side of ``step()``**, on the host clock, from the
   scheduler's own stage timers (``utils/metrics.py``) over a serving run:
   ``prep`` (the drain into the upload batch, the ready loop, the endpoint
-  rules), ``launch`` (the run call: upload copy and replay enqueued, the
-  packed download enqueued, the slot bookkeeping), ``pace`` (waiting on
-  the tick in flight) and ``harvest`` (finalized streams' words), each
-  tick's p50; and the wait for the card after ``step()`` returns.
+  rules, with any wait for their row), ``launch`` (the run call: upload
+  copy and replay enqueued, the packed download enqueued, the slot
+  bookkeeping), ``pace`` (waiting on the tick in flight) and ``harvest``
+  (finalized streams' words, with any wait for their rows, and the
+  finalize), each tick's p50; and the wait for the card after ``step()``
+  returns. Beside it, the scheduler's tick records
+  (``utils/metrics.py:tick_means``): the fused tick's device stages between
+  its stamps (feed, i-vector, AM, K2, walk), their mean ms over the run.
 
 It also prints the captured tick's p50 / p90 (host clock, each ``step()``
 ended by a synchronize, over ticks that decoded a chunk) beside the eager
@@ -72,7 +76,7 @@ from ..pipeline.scheduler import StreamScheduler
 from ..testing.big_grammar import train_big_grammar, write_big_grammar_model_dir
 from ..testing.decode_graphs import device_route_graph
 from ..testing.flagship import build_flagship_graph, write_flagship_model_dir
-from ..utils.metrics import get_metrics, reset_metrics
+from ..utils.metrics import get_metrics, reset_metrics, tick_means
 from ..utils.timing import cuda_ms, p50_p90
 from ._common import device_info, parser, sync
 
@@ -84,10 +88,10 @@ STAGGER = 4  # stream i starts feeding at round i % 4
 WARM_TICKS = 4
 # the host side of step() by the scheduler's stage timers
 HOST_STAGES = {
-    "prep": ("stream_features", "stream_ready", "stream_ep_apply"),
-    "launch": ("stream_chunk", "stream_download", "stream_book"),
-    "pace": ("stream_pace",),
-    "harvest": ("stream_finalize",),
+    "prep": ("stream_features", "stream_ready", "stream_ep_apply", "stream_wait_ep"),
+    "launch": ("stream_issue_fused", "stream_issue_feed", "stream_download", "stream_book"),
+    "pace": ("stream_wait_pace",),
+    "harvest": ("stream_harvest", "stream_wait_fin", "stream_finalize"),
 }
 
 
@@ -272,6 +276,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         serve(sched, pcms, dev)  # warm-up: each body's first call and capture
         reset_metrics()
         ticks = serve(sched, pcms, dev)
+        stages = tick_means(get_metrics().ticks)
         captured = tick_percentiles(ticks)
         sched._runner.capture = False
         eager = tick_percentiles(serve(sched, pcms, dev))
@@ -289,7 +294,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         "upload_bytes": split["upload_bytes"], "launches_per_replay": split["launches_per_replay"],
         "captured_p50_ms": captured[0], "captured_p90_ms": captured[1],
         "eager_p50_ms": eager[0], "eager_p90_ms": eager[1],
-        "host_p50_ms": host, "ticks": len(chunk_ticks), **device_info(dev),
+        "host_p50_ms": host, "tick_stages_ms": stages, "ticks": len(chunk_ticks),
+        **device_info(dev),
     }
     print(f"{args.graph}: {g.num_states} states, {g.num_arcs} arcs, K2 body {out['k2_body']}; "
           f"{args.lanes} lanes, wire {args.wire}, endpointing {out['endpoint']}; on {out['card']}")
@@ -297,7 +303,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
           f"(TickRunner.run) {_ms(split['run_ms'])} ms; launches a replay "
           f"{split['launches_per_replay']}")
     print(f"B. upload ({split['upload_bytes']} B pinned, H2D): {_ms(split['h2d_ms'])} ms")
-    print(f"C. host side of step(), p50 a tick with a chunk (ms): {host}")
+    print(f"C. host side of step(), p50 a tick with a chunk (ms): {host}; the tick's stages "
+          f"by its stamps, mean ms: {stages}")
     print(f"tick p50 / p90: captured {captured[0]:.3f} / {captured[1]:.3f} ms, eager "
           f"{eager[0]:.3f} / {eager[1]:.3f} ms over {len(chunk_ticks)} ticks")
     print(json.dumps(out))

@@ -29,6 +29,20 @@ tick's bodies update it in place:
 - ``body_finalize``: the path walk alone, for a tick that flushes a stream
   and decodes nothing.
 
+**Stamps.** Each body writes the time into ``DeviceTick.stamps`` (int64
+ns, ``ops/tick_stamp_cuda.py``) at fixed points, captured into its graph so
+that every replay stamps: s0 body start; s1 after ``feed_feats`` (unpack,
+K1, feature-ring write); s2 after the AM windows, the slot reset and the
+i-vector fold; s3 after the chunk AM; s4 after K2; s5 after the silence
+weights, the ring re-encode and write and K4's walk (body end).
+``body_fused`` takes all six, ``body_chunk`` all but s1, ``body_finalize``
+s5 alone and ``body_feed`` none (``STAMPS_TAKEN``): what the scheduler's
+records read (``pipeline/scheduler.py``). The buffer is no part of
+``TickState``, so a replay checked against an eager run compares the state
+alone; ``TickRunner.download`` copies the stamps behind the tick with its
+packed rows, and ``PackedFetch`` hands them out when the row lands.
+``tick_stamp`` launches are counted with the other kernels'.
+
 ``TickRunner.run`` executes a body. On the CPU it runs eagerly. On the card
 the first call of each key (body and input shapes) runs eagerly on a side
 stream -- that call IS the tick -- and then captures the body into a
@@ -56,6 +70,7 @@ from ..ops.mulaw import decode_u8_torch
 from ..ops.path_walk_cuda import path_walk, walk_start, walk_tables
 from ..ops.pitch import PitchConfig, num_pitch_frames, pitch_batch, pitch_tables
 from ..ops.pitch_viterbi_cuda import pitch_viterbi
+from ..ops.tick_stamp_cuda import tick_stamp
 from ..ops.viterbi_cuda import viterbi_decode
 
 # trailing int16 / f32 columns of the pcm_meta upload: 12 int32 slots as
@@ -64,14 +79,18 @@ from ..ops.viterbi_cuda import viterbi_decode
 # lane the window's start sample, the pitch frames already final and the
 # flush flag; zero without a pitch lane)
 META_COLS = 24
-KERNELS = ("mfcc", "viterbi", "path_walk", "pitch_viterbi", "adpcm_decode")
+KERNELS = ("mfcc", "viterbi", "path_walk", "pitch_viterbi", "adpcm_decode", "tick_stamp")
 WIRES = ("i16", "mulaw", "adpcm")
+# the stamps a body writes (module docstring), by the body's key
+STAMPS = 6
+STAMPS_TAKEN = {"fused": (0, 1, 2, 3, 4, 5), "chunk": (0, 2, 3, 4, 5), "feed": (),
+                "finalize": (5,)}
 
 
 def kernel_counts() -> Dict[str, int]:
     return {"mfcc": mfcc_batch.launches, "viterbi": viterbi_decode.launches,
             "path_walk": path_walk.launches, "pitch_viterbi": pitch_viterbi.launches,
-            "adpcm_decode": adpcm_decode.launches}
+            "adpcm_decode": adpcm_decode.launches, "tick_stamp": tick_stamp.launches}
 
 
 def meta_cols(wire: str) -> int:
@@ -167,6 +186,12 @@ class DeviceTick:
         # filled by an eager run while set: each kernel's inputs at the
         # tick's shapes (chip_smoke.py times the kernels on them)
         self.probe: Optional[dict] = None
+        # the last body's stamps (module docstring): outside the state, at
+        # one address for every captured graph
+        self.stamps = torch.zeros(STAMPS, dtype=torch.int64, device=dev)
+
+    def _stamp(self, i: int) -> None:
+        tick_stamp(self.stamps, i)
 
     # -- pieces ---------------------------------------------------------------
 
@@ -377,6 +402,7 @@ class DeviceTick:
                 elif cfg.carry_device:
                     off = -ivp.splice_left - cfg.win_lo
                     st.iv_carry.copy_(windows[:, off : off + st.iv_carry.shape[1], : cfg.num_ceps])
+        self._stamp(2)
         if st.rec:
             # a recurrent AM continues from each slot's rows; an idle slot
             # (n_valid 0) keeps them
@@ -386,10 +412,12 @@ class DeviceTick:
                 st.rec[k].copy_(torch.where(active, v, st.rec[k]))
         else:
             log_probs = self.chunk_model(windows, ivec)
+        self._stamp(3)
         if self.probe is not None:
             self.probe["viterbi"] = (log_probs.clone(), n_valid.clone(), st.alpha.clone())
         out = viterbi_decode(self.graph, log_probs, cfg.acoustic_scale, n_valid,
                              return_forward=True, alpha0=st.alpha)
+        self._stamp(4)
         alpha, bps = out[3], out[4]
         b = bps.to(torch.int32)  # [k, N, S] arc + 2: 0 no frame, 1 dead
         if cfg.sw_device:
@@ -404,13 +432,16 @@ class DeviceTick:
         st.offs.copy_(st.offs + n_valid)
         st.alpha.copy_(alpha)
         st.packed.copy_(self._walk(st, st.alpha, st.offs))
+        self._stamp(5)
 
     # -- the bodies -------------------------------------------------------------
 
     def body_fused(self, st: TickState, pcm_meta: torch.Tensor) -> None:
+        self._stamp(0)
         pcm, meta = self.unpack(pcm_meta)
         n_valid, reset, t0s, haves = meta[:, 0], meta[:, 1] != 0, meta[:, 2], meta[:, 3]
         self.feed_feats(st, pcm, meta)
+        self._stamp(1)
         iv_ws = (torch.arange(self.cfg.chunk_in, device=meta.device)[None, :]
                  < meta[:, 6:7]).to(torch.float32)
         windows = self.gather_windows(st, t0s, haves)
@@ -423,11 +454,13 @@ class DeviceTick:
     def body_chunk(self, st: TickState, windows: torch.Tensor, meta: torch.Tensor,
                    iv_ws: torch.Tensor, iv_wins: Optional[torch.Tensor] = None) -> None:
         """meta [N, 4] int32: n_valid, reset, t0, have."""
+        self._stamp(0)
         self.chunk(st, windows, meta[:, 0].contiguous(), meta[:, 1] != 0, meta[:, 2],
                    meta[:, 3], iv_wins, iv_ws)
 
     def body_finalize(self, st: TickState) -> None:
         st.packed.copy_(self._walk(st, st.alpha, st.offs))
+        self._stamp(5)
 
 
 class TickRunner:
@@ -524,29 +557,36 @@ class TickRunner:
             owner.probe = probe
         self.graphs[key] = (graph, static, self._count(before))
 
-    def download(self, packed: torch.Tensor) -> "PackedFetch":
-        """The tick's packed rows to the host: a pinned non-blocking copy
-        and an event the host polls (everything lands at once on the
-        CPU)."""
+    def download(self, packed: torch.Tensor, stamps: torch.Tensor) -> "PackedFetch":
+        """The tick's packed rows and its stamps to the host: pinned
+        non-blocking copies and one event the host polls (everything lands
+        at once on the CPU). ``downloads`` and ``download_bytes`` count the
+        packed rows alone."""
         self.downloads += 1
         self.download_bytes += packed.numel() * packed.element_size()
         if packed.device.type != "cuda":
-            return PackedFetch(packed.numpy().view(np.uint16).copy(), None, None)
+            return PackedFetch(packed.numpy().view(np.uint16).copy(), None, None,
+                               stamps.numpy().copy())
         with on_device(self.device):
             host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
             host.copy_(packed, non_blocking=True)
+            host_stamps = torch.empty(stamps.shape, dtype=stamps.dtype, pin_memory=True)
+            host_stamps.copy_(stamps, non_blocking=True)
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        return PackedFetch(None, host, event)
+        return PackedFetch(None, host, event, host_stamps)
 
 
 class PackedFetch:
-    """A tick's packed rows on their way to the host."""
+    """A tick's packed rows and stamps on their way to the host. ``on_land``,
+    when set, is called once with the stamps (int64 ns) as the fetch is
+    first seen landed by ``get``."""
 
-    __slots__ = ("_arr", "_host", "_event")
+    __slots__ = ("_arr", "_host", "_event", "_stamps", "on_land")
 
-    def __init__(self, arr: Optional[np.ndarray], host: Optional[torch.Tensor], event):
-        self._arr, self._host, self._event = arr, host, event
+    def __init__(self, arr: Optional[np.ndarray], host: Optional[torch.Tensor], event, stamps):
+        self._arr, self._host, self._event, self._stamps = arr, host, event, stamps
+        self.on_land: Optional[Callable[[np.ndarray], None]] = None
 
     def ready(self) -> bool:
         return self._arr is not None or self._event.query()
@@ -558,5 +598,9 @@ class PackedFetch:
                 return None
             self._event.synchronize()
             self._arr = self._host.numpy().view(np.uint16)
+            self._stamps = self._stamps.numpy()
             self._host = self._event = None
+        if self.on_land is not None:
+            land, self.on_land = self.on_land, None
+            land(self._stamps)
         return self._arr

@@ -97,6 +97,28 @@ pool directly and ignore the wire.
 scheduler, its own device tick and captures) per mesh device, admission
 filling the blocks evenly.
 
+**Tracing.** The device route keeps records in the process's registry
+(``utils/metrics.py``), tagged with the scheduler's serial number: one
+``TickRecord`` a tick body issued (its host stamps, ``step()``'s wait on
+the card, and the body's device stamps, ``device_tick.STAMPS_TAKEN``,
+placed on the host clock when its row lands, polled without waiting at
+each ``step()``; a feed-only body takes none and downloads nothing), and
+one ``StreamRecord`` a finalized stream (``finish()`` -> the flushing tick
+issued -> that tick's body end -> the transcript set). The device clock is
+mapped onto the host's (``ops/tick_stamp_cuda.py:calibrate``: five stamps
+on a side stream, each waited for, the tick in flight not) at the top of
+the first ``step()`` and again each ``CLOCK_PERIOD_S``; a row's stamps are
+mapped when it lands.
+``StageTimer`` names: on the
+device route ``stream_harvest`` (assembling landed rows; the wait for them
+is ``stream_wait_fin``), ``stream_features``, ``stream_ep_apply`` (its wait
+``stream_wait_ep``), ``stream_ready``, ``stream_wait_pace``,
+``stream_issue_fused`` / ``stream_issue_feed`` / ``stream_issue_chunk``
+(the body's run call: upload copy and replay enqueued), ``stream_download``,
+``stream_book`` and ``stream_finalize``; on the host route
+``stream_features``, ``stream_ready``, ``stream_host_step`` (the device
+step and its download) and ``stream_finalize``.
+
 **Warm start.** ``warmup(seconds)`` builds and loads the kernels and
 drives silence through every slot, which runs (captures, on a card) each
 tick body the feeds give; ``save_aot(seconds)`` also records the shape in
@@ -109,8 +131,10 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import inspect
 import logging
+import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional, Set, Tuple, Union
@@ -130,12 +154,14 @@ from ..ops.adpcm import block_bytes
 from ..ops.mfcc_cuda import mfcc_batch
 from ..ops.path_walk_cuda import PACKED_STAT_COLS
 from ..ops.pitch import num_pitch_frames, pitch_batch
+from ..ops.tick_stamp_cuda import calibrate
 from ..ops.viterbi_cuda import libraries as viterbi_libraries, viterbi_decode
-from ..utils.metrics import StageTimer, get_metrics
+from ..utils.metrics import StageTimer, StreamRecord, TickRecord, get_metrics, new_source
 from .artifacts import LangArtifacts
 from .device_tick import (
     KERNELS,
     META_COLS,
+    STAMPS_TAKEN,
     WIRES,
     DeviceTick,
     PackedFetch,
@@ -171,6 +197,9 @@ _BP_RING_MAX_STATE = 65535
 
 # Ticks in flight on the device route before a tick waits for the oldest.
 PIPELINE_DEPTH = 2
+# Seconds the device clock's mapping onto the host's is kept: an H100's
+# drifts ~4 ppm from the host's (PERF.md), ~4 us a second.
+CLOCK_PERIOD_S = 1.0
 
 
 def _pcm_bucket(n: int, cap: int = _DRAIN_CAP) -> int:
@@ -345,7 +374,7 @@ class StreamScheduler:
         """The kernels this scheduler's ticks launch on a card."""
         names = ["mfcc"] + viterbi_libraries(self.graph.num_states)
         if self._device_bp:
-            names.append("path_walk")
+            names += ["path_walk", "tick_stamp"]
         if self._featurizer.has_pitch:
             names.append("pitch_viterbi")
         if self._wire == "adpcm":
@@ -575,6 +604,18 @@ class StreamScheduler:
         self._inflight: "collections.deque" = collections.deque()
         self._pending_finalize: list = []
         self._tick_fetch: Optional[PackedFetch] = None
+        # tracing (module docstring): this scheduler's serial number, bodies
+        # issued, the device clock on the host's, this step's records and
+        # wait, open stream records, and fetches whose stamps have not landed
+        self._trace_src = new_source()
+        self._ticks_issued = 0
+        self._clock = None
+        self._t_enter = 0.0
+        self._wait_s = 0.0
+        self._step_ticks: List[TickRecord] = []
+        self._tick_rec: Optional[TickRecord] = None
+        self._stream_recs: Dict[Tuple[int, int], StreamRecord] = {}
+        self._unlanded: "collections.deque" = collections.deque()
 
     @property
     def kernel_launches(self) -> Dict[str, int]:
@@ -630,6 +671,14 @@ class StreamScheduler:
 
     def finish(self, sid: int) -> None:
         self.pool.finish(sid)
+        state = self.slots[sid]
+        if self._device_bp and state.active and not state.done:
+            key = (sid, state.gen)
+            if key not in self._stream_recs:
+                rec = StreamRecord(self._trace_src, sid, state.gen, t_finish=time.perf_counter(),
+                                   tick_finish=self._ticks_issued)
+                self._stream_recs[key] = rec
+                get_metrics().streams.append(rec)
 
     def poll(self, sid: int, block: bool = True) -> Optional[List[str]]:
         """The stream's transcript once it is decoded; None before. On the
@@ -651,6 +700,8 @@ class StreamScheduler:
         ticket = (sid, state.gen)
         if state.done and state.result is not None:
             self._retire(ticket, state.result)
+        if self._device_bp and not state.done:
+            self._stream_recs.pop(ticket, None)  # closed unflushed: no transcript
         state.gen += 1
         state.active = False
         self._quarantined.discard(sid)
@@ -956,7 +1007,7 @@ class StreamScheduler:
         lanes = int((n_valid > 0).sum())
         alpha_np = None
         if lanes:
-            with StageTimer("stream_chunk", metrics):
+            with StageTimer("stream_host_step", metrics):
                 bps = self._device_step(windows, n_valid)
             if self.endpointing is not None or self._weigh_silence:
                 alpha_np = self._alpha.cpu().numpy()
@@ -1197,19 +1248,69 @@ class StreamScheduler:
                 state.flushed_feats = True
         return prep
 
-    def _pace(self) -> None:
+    def _pace(self, metrics) -> None:
         """Wait for the oldest tick in flight when PIPELINE_DEPTH are."""
+        t0 = time.perf_counter()
         while len(self._inflight) >= PIPELINE_DEPTH:
             self._inflight.popleft().get()
+        self._waited("stream_wait_pace", time.perf_counter() - t0, metrics)
 
-    def _after_chunk(self, metrics) -> PackedFetch:
+    def _waited(self, stage: str, seconds: float, metrics) -> None:
+        """``seconds`` the host was blocked on the card: a stage, and the
+        current step's wait."""
+        metrics.add_stage(stage, seconds)
+        self._wait_s += seconds
+
+    # -- tracing (module docstring) ----------------------------------------------
+
+    def _issue(self, key: tuple, body, inputs, lanes: int, stage: Optional[str],
+               metrics) -> TickRecord:
+        """Run one tick body (``stage``, if given, times the run call) and
+        open its record."""
+        rec = TickRecord(self._trace_src, self._ticks_issued, key[0], lanes, self._t_enter,
+                         time.perf_counter())
+        self._ticks_issued += 1
+        self._runner.run(key, body, self._st, inputs)
+        if stage is not None:
+            metrics.add_stage(stage, time.perf_counter() - rec.t_issue)
+        self._step_ticks.append(rec)
+        metrics.ticks.append(rec)
+        return rec
+
+    def _fetch(self, rec: TickRecord) -> PackedFetch:
+        """The body's packed rows and stamps on their way to the host; its
+        record gets the stamps when they land."""
+        fetch = self._runner.download(self._st.packed, self._tick.stamps)
+        fetch.on_land = functools.partial(self._landed, rec)
+        self._unlanded.append(fetch)
+        return fetch
+
+    def _landed(self, rec: TickRecord, stamps: np.ndarray) -> None:
+        host, taken = self._clock.host, STAMPS_TAKEN[rec.key]
+        rec.stamps = tuple(host(ns) if i in taken else None for i, ns in enumerate(stamps))
+
+    def _keep_clock(self) -> None:
+        """The device clock mapped onto the host's afresh once the mapping is
+        ``CLOCK_PERIOD_S`` old (the host's own clock on the CPU)."""
+        if self._clock is None or (self.device.type == "cuda"
+                                   and time.perf_counter() - self._clock.base_s > CLOCK_PERIOD_S):
+            self._clock = calibrate(self.device)
+
+    def _land_stamps(self) -> None:
+        """Stamps of every fetch that has landed, oldest first, without
+        waiting."""
+        q = self._unlanded
+        while q and q[0].ready():
+            q.popleft().get()
+
+    def _after_chunk(self, rec: TickRecord, metrics) -> PackedFetch:
         """Download the chunk tick's packed rows (the finalize traces and
         the endpoint statistics), marking the tick in flight."""
         self.device_dispatches += 1
         self._pending_reset[:] = False
         with StageTimer("stream_download", metrics):
-            fetch = self._runner.download(self._st.packed)
-        self._tick_fetch = fetch
+            fetch = self._fetch(rec)
+        self._tick_fetch, self._tick_rec = fetch, rec
         self._inflight.append(fetch)
         return fetch
 
@@ -1237,13 +1338,11 @@ class StreamScheduler:
             meta[:, 6] = self._iv_pending_n
         self._stage_pitch_meta(meta)
         self._write_meta_cols(batch, meta)
-        with StageTimer("stream_pace", metrics):
-            self._pace()
-        with StageTimer("stream_chunk", metrics):
-            self._runner.run(("fused", batch.shape[1], str(batch.dtype)),
-                             self._tick.body_fused, self._st, [batch_t])
+        self._pace(metrics)
+        rec = self._issue(("fused", batch.shape[1], str(batch.dtype)), self._tick.body_fused,
+                          [batch_t], int((n_valid > 0).sum()), "stream_issue_fused", metrics)
         self._commit_pitch_meta()
-        fetch = self._after_chunk(metrics)
+        fetch = self._after_chunk(rec, metrics)
         if self._ivp is not None:
             # everything staged was folded this tick
             self._iv_pending_n[:] = 0
@@ -1274,9 +1373,8 @@ class StreamScheduler:
         meta[:, 5] = has_new
         self._stage_pitch_meta(meta)
         self._write_meta_cols(batch, meta)
-        with StageTimer("stream_chunk", metrics):
-            self._runner.run(("feed", batch.shape[1], str(batch.dtype)),
-                             self._tick.body_feed, self._st, [batch_t])
+        self._issue(("feed", batch.shape[1], str(batch.dtype)), self._tick.body_feed,
+                    [batch_t], 0, "stream_issue_feed", metrics)
         self._commit_pitch_meta()
         self.device_dispatches += 1
 
@@ -1343,11 +1441,10 @@ class StreamScheduler:
             t, arr = self._host_buffer(a.shape, torch.from_numpy(a).dtype)
             arr[...] = a
             host.append(t)
-        with StageTimer("stream_pace", metrics):
-            self._pace()
-        with StageTimer("stream_chunk", metrics):
-            self._runner.run(("chunk",), self._tick.body_chunk, self._st, host)
-        fetch = self._after_chunk(metrics)
+        self._pace(metrics)
+        rec = self._issue(("chunk",), self._tick.body_chunk, host, int((n_valid > 0).sum()),
+                          "stream_issue_chunk", metrics)
+        fetch = self._after_chunk(rec, metrics)
         if self._ivp is not None:
             for s in self.slots:
                 if s.iv_pending_w is not None:
@@ -1388,7 +1485,13 @@ class StreamScheduler:
 
     def _step_device(self) -> int:
         """The device route's tick (module docstring)."""
+        self._t_enter = time.perf_counter()
+        self._wait_s = 0.0
+        self._step_ticks = []
         metrics = get_metrics()
+        self._keep_clock()
+        if self._unlanded:
+            self._land_stamps()
         N = self.max_streams
         device_feats = self._device_feats
         windows = None
@@ -1400,23 +1503,24 @@ class StreamScheduler:
         chunk_have = np.zeros(N, dtype=np.int64)
         flushed: List[int] = []
         if self._pending_finalize:
-            with StageTimer("stream_finalize", metrics):
-                self._harvest_finalizes(block=False)
+            self._harvest_finalizes(block=False)
         prep = None
         self._pending_drain = False
-        self._tick_fetch = None
+        self._tick_fetch = self._tick_rec = None
         with StageTimer("stream_features", metrics):
             if device_feats:
                 prep = self._prep_features_device()
             else:
                 self._drain_features_all()
         pitch_matched = self._plan_pitch() if device_feats else None
-        with StageTimer("stream_ep_apply", metrics):
-            ep_fired: Set[int] = (
-                self._apply_endpoint_stats()
-                if self._ep_device and self._ep_stats_pending
-                else set()
-            )
+        # self time: the wait for a row inside is stream_wait_ep
+        t0, w0 = time.perf_counter(), self._wait_s
+        ep_fired: Set[int] = (
+            self._apply_endpoint_stats()
+            if self._ep_device and self._ep_stats_pending
+            else set()
+        )
+        metrics.add_stage("stream_ep_apply", time.perf_counter() - t0 - (self._wait_s - w0))
         need = self._chunk_in + max(self._win_hi - self._chunk_in, 0)
         with StageTimer("stream_ready", metrics):
             for sid, state in enumerate(self.slots):
@@ -1468,7 +1572,10 @@ class StreamScheduler:
         elif lanes:
             self._step_chunk(windows, n_valid, chunk_t0, chunk_have, flushed, metrics)
         with StageTimer("stream_finalize", metrics):
-            self._finalize_device(flushed)
+            self._finalize_device(flushed, metrics)
+        t_return = time.perf_counter()
+        for rec in self._step_ticks:
+            rec.t_return, rec.wait_s = t_return, self._wait_s
         return lanes
 
     def _apply_endpoint_stats(self) -> Set[int]:
@@ -1492,7 +1599,9 @@ class StreamScheduler:
         fetch, gens, out_snap = pending[newest]
         for _ in range(newest + 1):
             pending.popleft()
+        t0 = time.perf_counter()
         p = fetch.get(block=True)
+        self._waited("stream_wait_ep", time.perf_counter() - t0, get_metrics())
         self._ep_stats_deferred = 0
         F = p.shape[1] - PACKED_STAT_COLS
         trail, nonsil = p[:, F + 2], p[:, F + 3]
@@ -1511,7 +1620,7 @@ class StreamScheduler:
                 fired.add(sid)
         return fired
 
-    def _finalize_device(self, flushed: List[int]) -> None:
+    def _finalize_device(self, flushed: List[int], metrics) -> None:
         """Mark flushed streams done; their transcripts come from this
         tick's packed rows (the walk ran for every slot), or, on a tick
         that decoded nothing, from one walk alone. The rows are assembled
@@ -1526,15 +1635,20 @@ class StreamScheduler:
                                     utterances=1)
             if state.out_frames <= 0:
                 state.result = []
+                self._stream_recs.pop((sid, state.gen), None)
                 continue
             todo.append(sid)
         if not todo:
             return
         fetch = self._tick_fetch
         if fetch is None:
-            self._runner.run(("finalize",), self._tick.body_finalize, self._st, [])
+            # timed as part of stream_finalize
+            rec = self._issue(("finalize",), self._tick.body_finalize, [], 0, None, metrics)
             self.device_dispatches += 1
-            fetch = self._tick_fetch = self._runner.download(self._st.packed)
+            fetch = self._tick_fetch = self._fetch(rec)
+            self._tick_rec = rec
+        for sid in todo:
+            self._flush_record(sid, self._tick_rec)
         self._pending_finalize.append((
             todo,
             [self.slots[sid].gen for sid in todo],
@@ -1542,16 +1656,33 @@ class StreamScheduler:
             fetch,
         ))
 
+    def _flush_record(self, sid: int, tick: TickRecord) -> None:
+        """The stream's record learns its flushing tick (a stream flushed
+        without ``finish()`` gets one here, with no finish stamp)."""
+        key = (sid, self.slots[sid].gen)
+        rec = self._stream_recs.get(key)
+        if rec is None:
+            rec = self._stream_recs[key] = StreamRecord(self._trace_src, *key)
+            get_metrics().streams.append(rec)
+        rec.tick_flush, rec.t_flush, rec.flush = tick.tick, tick.t_issue, tick
+
     def _harvest_finalizes(self, block: bool = True) -> None:
         """Words of every finalized stream whose packed row has landed
         (``block`` waits for the rest). A slot closed since its flush gets
         its result in the retired store, under close()'s ticket."""
         graph = self.graph
+        metrics = get_metrics()
+        # self time: a blocking wait for a row is stream_wait_fin
+        t_start, w_start = time.perf_counter(), self._wait_s
         pending, self._pending_finalize = self._pending_finalize, []
         for entry in pending:
             group, gens, frames, fetch = entry
-            with StageTimer("stream_fin_wait", get_metrics()):
-                packed = fetch.get(block=block)
+            if block:
+                t0 = time.perf_counter()
+                packed = fetch.get()
+                self._waited("stream_wait_fin", time.perf_counter() - t0, metrics)
+            else:
+                packed = fetch.get(block=False)
             if packed is None:
                 self._pending_finalize.append(entry)
                 continue
@@ -1575,6 +1706,13 @@ class StreamScheduler:
                     self._retire((sid, gen), res)
                 else:
                     state.result = res
+                rec = self._stream_recs.pop((sid, gen), None)
+                if rec is not None:
+                    stamps = rec.flush.stamps if rec.flush is not None else None
+                    rec.s5, rec.flush = (None if stamps is None else stamps[5]), None
+                    rec.t_result = time.perf_counter()
+        metrics.add_stage("stream_harvest",
+                          time.perf_counter() - t_start - (self._wait_s - w_start))
 
     # -- results -------------------------------------------------------------------
 

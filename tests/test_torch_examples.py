@@ -67,8 +67,10 @@ def test_serve_streams(wire):
         assert out["exact"] == 3 and out["transcripts"] == [[t] for t in out["texts"]]
     assert out["ticks"] > 0 and out["tick_p50_ms"] <= out["tick_p90_ms"]
     assert out["fleet_rtf"] == pytest.approx(out["wall_s"] / out["audio_s"])
-    assert out["metrics"]["utterances"] == 3 and "stream_chunk" in out["metrics"]["stages"]
-    expected = {"mfcc", "viterbi", "path_walk"} | ({"adpcm_decode"} if wire == "adpcm" else set())
+    assert out["metrics"]["utterances"] == 3 and "stream_issue_fused" in out["metrics"]["stages"]
+    assert out["metrics"]["tick_ms"]["fused"]["ticks"] > 0
+    expected = {"mfcc", "viterbi", "path_walk", "tick_stamp"}
+    expected |= {"adpcm_decode"} if wire == "adpcm" else set()
     assert set(out["kernel_launches"]) == expected  # all 0: the CPU runs the twins
 
 
@@ -106,10 +108,11 @@ def test_tick_device_profile():
     # no card: the device probes are not measured
     assert out["device_exec_ms"] is None and out["run_ms"] is None and out["h2d_ms"] is None
     assert out["upload_bytes"] > 0 and out["ticks"] > 0
-    assert set(out["launches_per_replay"]) == {"mfcc", "viterbi", "path_walk"}
+    assert set(out["launches_per_replay"]) == {"mfcc", "viterbi", "path_walk", "tick_stamp"}
     assert 0 < out["captured_p50_ms"] <= out["captured_p90_ms"]
     assert 0 < out["eager_p50_ms"] <= out["eager_p90_ms"]
     assert set(out["host_p50_ms"]) == {"step_ms", "wait_ms", "prep", "launch", "pace", "harvest"}
+    assert out["tick_stages_ms"]["fused"]["ticks"] > 0 and out["tick_stages_ms"]["fused"]["am"] > 0
 
 
 def test_tick_device_profile_seeded30000_graph(tmp_path):

@@ -228,6 +228,7 @@ def test_gmm_on_the_card(trained, cuda):
         s.finish(sid)
     s.run_until_idle()
     assert [s.poll(sid) for sid in sids] == batch
-    assert all(max(t.values()) <= 1 for t in per_tick)
+    # each kernel at most once a tick (the stamps, one a stamp the body takes)
+    assert all(max(v for k, v in t.items() if k != "tick_stamp") <= 1 for t in per_tick)
     assert all(v > 0 for v in s.kernel_launches.values())
     assert s._runner.checks and all(all(eq.values()) for _key, eq in s._runner.checks)

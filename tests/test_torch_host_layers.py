@@ -48,8 +48,9 @@ COPIED = [
     "testing/tdnnf.py",
     "tools.py",
     "utils/__init__.py",
-    "utils/metrics.py",
 ]
+# utils/metrics.py is no copy: the port's registry keeps the stream
+# scheduler's tick and stream records (tests/test_torch_tick_trace.py)
 
 # Docstrings of the originals cite the upstream sources by the absolute
 # path of a local checkout; the copies cite them relative to it.

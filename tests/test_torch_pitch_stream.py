@@ -227,6 +227,7 @@ def test_captured_pitch_tick_on_the_card(nnet3_pitch, cuda):
     cpu = StreamScheduler(profile.model_dir, graph_dir, max_streams=2, device="cpu")
     want, _sids = _run_scheduler(cpu, pcms)
     assert [card.poll(s) for s in sids] == want == [[t] for t in TEXTS]
-    assert all(max(t.values()) <= 1 for t in per_tick)
+    # each kernel at most once a tick (the stamps, one a stamp the body takes)
+    assert all(max(v for k, v in t.items() if k != "tick_stamp") <= 1 for t in per_tick)
     assert all(v > 0 for v in card.kernel_launches.values())
     assert card._runner.checks and all(all(eq.values()) for _key, eq in card._runner.checks)

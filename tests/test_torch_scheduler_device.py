@@ -467,6 +467,8 @@ def test_captured_tick_on_the_card(trained, cuda, name):
         on_tick()
     got, want = [[s.poll(sid) for sid in row] for s, row in zip(scheds, sids)]
     assert got == want == [[t] for t in TEXTS]
-    assert card._runner.graphs and all(max(t.values()) <= 1 for t in per_tick)
+    # each kernel at most once a tick (the stamps, one a stamp the body takes)
+    assert card._runner.graphs and all(
+        max(v for k, v in t.items() if k != "tick_stamp") <= 1 for t in per_tick)
     assert all(card.kernel_launches[k] > 0 for k in ("mfcc", "viterbi", "path_walk"))
     assert card._runner.checks and all(all(eq.values()) for _key, eq in card._runner.checks)
