@@ -129,7 +129,16 @@ bodies) against their plain PyTorch twins:
    timed by CUDA events, takes six stamp launches and stamps s0 .. s5 in
    order, spanning no more than the events' time and lying, on the host
    clock, between the replay's issue and its synchronize (within the
-   calibration's error); tick ms p50 / p90 (host clock) captured, eager and on
+   calibration's error); after a warm-up, every AM lane bucket (8, 16 and
+   32 rows) has a captured fused graph, and each captured fused graph
+   replays once checked bit-equal to its body run eagerly, with its node
+   count and its replay's device time (CUDA events, median of 10, the state
+   put back before each) printed; one tick with every slot decoding run
+   again from its state with 1, 8 and 9 slots decoding, at the tick's lane
+   bucket and at every slot: rings, offsets and packed traces equal, alpha
+   and the packed costs within rtol 1e-5 / atol 1e-2, the decoding slots'
+   log-probs within 1e-4, a recurrent AM's idle rows bit-unchanged; tick ms
+   p50 / p90 (host clock) captured, eager and on
    the host route, bytes down a tick, graphs captured, the fleet's
    real-time factor, and the host-side stages in a synchronized pass. Then
    the port's synthetic speech profile (``testing/synthetic.py``, with an
@@ -211,7 +220,8 @@ bodies) against their plain PyTorch twins:
    device route, captured, as in 12 (its AM window stops short of the
    i-vector tap, so K1 runs a tick in the host featurizer and the captured
    body holds the recurrent AM, K2 and K4; replays bit-equal with the
-   recurrence rows among the state); the AM stage by CUDA events and host
+   recurrence rows among the state), its chunk AM at each lane bucket
+   against every slot as in 12; the AM stage by CUDA events and host
    clock, the batch call's stages, the stream's RTF and the tick's p50 /
    p90;
 18. bf16 (``compute_dtype="bfloat16"``): the flagship's batch call counted
@@ -297,6 +307,7 @@ Without a CUDA device it exits 2 before printing any result.
 
 import asyncio
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import io
@@ -415,7 +426,8 @@ from rhasspy_speech_torch.ops.ivector import extract_ivectors  # noqa: E402
 from rhasspy_speech_torch.ops.lattice import forward_backward  # noqa: E402
 from rhasspy_speech_torch.ops.mfcc_cuda import mfcc_batch  # noqa: E402
 from rhasspy_speech_torch.ops.tick_stamp_cuda import calibrate  # noqa: E402
-from rhasspy_speech_torch.pipeline.device_tick import STAMPS, STAMPS_TAKEN  # noqa: E402
+from rhasspy_speech_torch.pipeline.device_tick import (  # noqa: E402
+    STAMPS, STAMPS_TAKEN, am_buckets, am_rows, lane_list)
 from rhasspy_speech_torch.utils.metrics import TICK_STAGES  # noqa: E402
 from rhasspy_speech_torch.utils.timing import cuda_ms, device_ms, p50_p90  # noqa: E402
 from rhasspy_speech_torch.utils.roofline import (  # noqa: E402
@@ -523,6 +535,14 @@ BF16_SPREAD_SHARE, BF16_MIN_AGREE = 0.05, 0.9  # tests/test_bf16.py's bf16 bound
 # the all-types graph, card vs CPU: one or two small f32 products a branch,
 # tests/test_torch_nnet3_components.py's tolerance
 ALL_TYPES_TOL = 2e-4
+# the chunk AM at a lane bucket against the AM over every slot, both on the
+# card from one state: cuBLAS may take another algorithm at M = 8 or 16 than
+# at M = 32, f32 sums in another order (~1e-6 of log-probs of magnitude
+# ~10-40); alpha and the packed costs add one chunk of them to the same
+# carried costs (tests/test_torch_scheduler.py's cost tolerance)
+BUCKET_LP_ATOL = 1e-4
+COST_RTOL, COST_ATOL = 1e-5, 1e-2
+BUCKET_LANES = (1, 8, 9)
 SUMMARY = {}  # this run's figures of the same names
 PHASE_S = {}  # each phase's seconds in this run
 
@@ -1765,7 +1785,8 @@ def tick_stamp_numbers(sched):
           f"the fused tick's graph holds {recorded['tick_stamp']} stamp launches")
     saved = st.clone()
     before = runner.launches["tick_stamp"]
-    runner.run(key, sched._tick.body_fused, st, [x.clone() for x in static])
+    runner.run(key, functools.partial(sched._tick.body_fused, rows=key[3]), st,
+               [x.clone() for x in static])
     check(runner.launches["tick_stamp"] - before == STAMPS,
           f"a fused replay counted {runner.launches['tick_stamp'] - before} stamp launches")
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1794,6 +1815,180 @@ def tick_stamp_numbers(sched):
           f"{event_ms:.4f} ms by CUDA events, stamps s0 -> s5 {span_ms:.4f} ms "
           f"({100 * span_ms / event_ms:.1f}%), stages ms {stages}; on the host clock inside the "
           f"replay's {1e3 * (h1 - h0):.4f} ms bracket (calibration error {1e6 * clock.error_s:.1f} us)")
+
+
+def graph_nodes(body, st, static):
+    """Nodes of ``body`` captured once more into a kept graph of its own
+    (never replayed), by libcuda's ``cuGraphGetNodes``; None where this
+    PyTorch keeps no captured graph."""
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return None
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side):
+        body(st, *static)
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    count = ctypes.c_size_t(0)
+    rc = lib.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    check(rc == 0, f"cuGraphGetNodes returned {rc}")
+    del graph
+    return count.value
+
+
+def bucket_numbers(name, sched, warm_s=1.0):
+    """Every AM lane bucket of the scheduler's fused tick on the card:
+    ``warmup()`` captures each (``device_tick.am_buckets``); then each
+    captured fused graph (a width and a bucket) replays once with the
+    runner's check (bit-equal to its body run eagerly on copies of its
+    state and last inputs), and prints its node count and its replay's
+    device time by CUDA events (median of 10, the slots' state put back
+    before each). The state is put back after."""
+    runner, st, tick = sched._runner, sched._st, sched._tick
+    sched.warmup(warm_s)
+    keys = sorted(k for k in runner.graphs if k[0] == "fused")
+    buckets = am_buckets(sched.max_streams)
+    check({k[3] for k in keys} == set(buckets),
+          f"{name}: captured buckets {sorted({k[3] for k in keys})}, not {buckets}")
+    saved = st.clone()
+    n_checks = len(runner.checks)
+    rows_out = []
+    for key in keys:
+        graph, static, recorded = runner.graphs[key]
+        body = functools.partial(tick.body_fused, rows=key[3])
+        runner.check_next = True
+        runner.run(key, body, st, [x.clone() for x in static])
+        ms = []
+        for _ in range(10):
+            for field_name, t in st.tensors().items():
+                t.copy_(saved.tensors()[field_name])
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            graph.replay()
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        for field_name, t in st.tensors().items():
+            t.copy_(saved.tensors()[field_name])
+        nodes = graph_nodes(body, st.clone(), static)
+        launches = {k: v for k, v in recorded.items() if v}
+        rows_out.append({"rows": key[3], "width": key[1], "dtype": key[2], "nodes": nodes,
+                         "replay_ms": round(float(np.median(ms)), 4), "launches": launches})
+    torch.cuda.synchronize()
+    checks = runner.checks[n_checks:]
+    check(len(checks) == len(keys) and all(all(eq.values()) for _k, eq in checks),
+          f"{name}: a bucket's replay differs from its eager body: "
+          f"{[c for c in checks if not all(c[1].values())][:2]}")
+    print(f"scheduler {name} AM lane buckets {buckets}, {len(keys)} captured fused graphs, each "
+          f"replay bit-equal to its eager body: "
+          f"{json.dumps(rows_out)}")
+    return rows_out
+
+
+def buckets_against_all_slots(name, sched, pcms):
+    """The chunk AM at each lane bucket against the AM over every slot, on
+    the card, from one state and one set of inputs: a tick at which every
+    slot decodes a chunk (all streams fed STREAM_CHUNK a round in lockstep,
+    the second such tick) is kept with the state before it and run again
+    eagerly with 1, 8 and 9 slots decoding (the others' n_valid set to 0,
+    the lane list rebuilt), at the tick's bucket and at every slot. The
+    rings, the offsets and the packed rows' traces are equal; alpha and the
+    packed costs agree within the cost tolerance and the decoding slots'
+    log-probs within BUCKET_LP_ATOL; a recurrent AM's rows of the slots
+    that decode nothing are bit-unchanged. The streams are drained and
+    closed after."""
+    N, tick, runner = sched.max_streams, sched._tick, sched._runner
+    kept, run, probe = [], runner.run, sched._tick.probe
+
+    def meta_of(kind, inputs):
+        if kind == "chunk":
+            return inputs[1].numpy().copy()
+        return tick.unpack(inputs[0])[1].numpy().copy()
+
+    def spy(key, body, st, inputs):
+        if key[0] in ("fused", "chunk") and (meta_of(key[0], inputs)[:, 0] > 0).all():
+            kept.append((key[0], body.func, st.clone(), [x.clone() for x in inputs]))
+        return run(key, body, st, inputs)
+
+    runner.run = spy
+    sids = [sched.open_stream() for _ in range(N)]
+    check(all(sid >= 0 for sid in sids), f"{name}: the scheduler refused a stream")
+    try:
+        for off in range(0, min(p.shape[0] for p in pcms), STREAM_CHUNK):
+            for sid, pcm in zip(sids, pcms):
+                sched.feed(sid, pcm[off : off + STREAM_CHUNK])
+            sched.step()
+            if len(kept) == 2:
+                break
+    finally:
+        runner.run = run
+    sched._warm_drain(sids)
+    check(len(kept) == 2, f"{name}: no second tick with every slot decoding")
+    kind, body, st0, inputs = kept[1]
+    F = sched._ring_frames
+    rng = np.random.RandomState(SEED + 21)
+    worst = {"log_probs": 0.0, "alpha": 0.0}
+
+    def once(inputs, rows):
+        st = st0.clone()
+        tick.probe = {}
+        try:
+            body(st, *[x.to(sched.device) for x in inputs], rows=rows)
+            log_probs = tick.probe["viterbi"][0]
+        finally:
+            tick.probe = probe
+        torch.cuda.synchronize()
+        return st, log_probs
+
+    for lanes in BUCKET_LANES:
+        meta = meta_of(kind, inputs)
+        active = np.zeros(N, dtype=bool)
+        active[rng.choice(N, lanes, replace=False)] = True
+        meta[~active, 0] = 0
+        if kind == "chunk":
+            meta[:, 4] = lane_list(meta[:, 0])
+            these = [inputs[0], torch.from_numpy(meta), *inputs[2:]]
+        else:
+            meta[:, 10] = lane_list(meta[:, 0])
+            upload = inputs[0].clone()
+            StreamScheduler._write_meta_cols(upload.numpy(), meta)
+            these = [upload]
+        rows = am_rows(lanes, N)
+        ref, ref_lp = once(these, N)
+        got, got_lp = once(these, rows)
+        for field_name in ("ring", "offs"):
+            check(torch.equal(getattr(got, field_name), getattr(ref, field_name)),
+                  f"{name}: {lanes} lanes at {rows} rows: {field_name} differs from every slot's")
+        pk, rpk = (x.packed.cpu().numpy().view(np.uint16) for x in (got, ref))
+        check(np.array_equal(pk[:, : F + 4], rpk[:, : F + 4]),
+              f"{name}: {lanes} lanes at {rows} rows: the packed traces differ")
+        for col in (F + 4, F + 6):
+            a, b = [(x[:, col].astype(np.uint32) | (x[:, col + 1].astype(np.uint32) << 16))
+                    .view(np.float32) for x in (pk, rpk)]
+            check(np.allclose(a, b, rtol=COST_RTOL, atol=COST_ATOL),
+                  f"{name}: {lanes} lanes at {rows} rows: packed costs differ")
+        check(torch.allclose(got.alpha, ref.alpha, rtol=COST_RTOL, atol=COST_ATOL),
+              f"{name}: {lanes} lanes at {rows} rows: alpha differs")
+        on = torch.from_numpy(active).to(sched.device)
+        lp_d = float((got_lp[on] - ref_lp[on]).abs().max())
+        check(lp_d <= BUCKET_LP_ATOL, f"{name}: {lanes} lanes at {rows} rows: log-probs |d| {lp_d}")
+        worst["log_probs"] = max(worst["log_probs"], lp_d)
+        fin = torch.isfinite(ref.alpha) & (ref.alpha.abs() < 1e29)
+        worst["alpha"] = max(worst["alpha"], float((got.alpha - ref.alpha)[fin].abs().max()))
+        if st0.rec:
+            reset = torch.from_numpy(meta[:, 1] != 0).to(sched.device)
+            for k, before in st0.rec.items():
+                kept_rows = torch.where(reset[:, None, None], 0.0, before)
+                check(torch.equal(got.rec[k][~on], kept_rows[~on]),
+                      f"{name}: {lanes} lanes at {rows} rows: idle rows of {k} changed")
+    print(f"scheduler {name} ({kind} body{', recurrent' if st0.rec else ''}): the AM at lane "
+          f"buckets against every slot from one state, {BUCKET_LANES} lanes at rows "
+          f"{[am_rows(n, N) for n in BUCKET_LANES]}: rings, offsets and packed traces equal; "
+          f"max |d| log-probs {worst['log_probs']:.3e}, alpha {worst['alpha']:.3e}")
+    return worst
 
 
 def sched_kernel_numbers(sched, probes, dev):
@@ -1930,6 +2125,8 @@ def scheduler_phase(model_dir, graph_dir, big_dirs, root, dev, pcms, fuzzy):
     k1, k2 = sched_kernel_numbers(sched, probes, dev)
     k4 = path_walk_numbers("flagship", sched, dev)
     tick_stamp_numbers(sched)
+    bucket_numbers("flagship", sched)
+    buckets_against_all_slots("flagship", sched, pcms)
     del sched, probes
     big_counts, big_probes, big = sched_graph_part("13789", *big_dirs, dev, pcms, {})
     lp, lens, alpha0 = big_probes["idle"]
@@ -2894,6 +3091,7 @@ def tdnn_lstm_phase(root, model_dir, graph_dir, graph, dev, pcms, fuzzy):
     rec = sched._st.rec
     check(sched._recurrent and set(rec) == set(sched._chunk_model.plan.carried),
           "TDNN-LSTM scheduler: no recurrence rows in the tick state")
+    buckets_against_all_slots("tdnn_lstm", sched, pcms)
     k4 = path_walk_numbers("tdnn_lstm", sched, dev)
     print(f"TDNN-LSTM scheduler: recurrence rows {[list(v.shape) for v in rec.values()]}; K1 "
           f"{counts['mfcc']} launches in the host featurizer (the AM window ends at input frame "

@@ -12,7 +12,7 @@ the i-vector CMVN, for a pitch model a PCM history ring, and for a
 recurrent AM its per-slot recurrence rows ``[N, depth, dim]`` (``rec``). A
 tick's bodies update it in place:
 
-- ``body_fused``: one ``pcm_meta`` upload ``[N, L + 24]`` (PCM and ten
+- ``body_fused``: one ``pcm_meta`` upload ``[N, L + 24]`` (PCM and eleven
   int32 slot scalars as 16-bit halves; on the uint8 wires ``[N, W + 48]``,
   each half as two bytes) -> on the ``mulaw`` wire one 256-entry gather, on
   the ``adpcm`` wire one ADPCM decode launch (K6, ``ops/adpcm_cuda.py``) ->
@@ -29,6 +29,22 @@ tick's bodies update it in place:
 - ``body_finalize``: the path walk alone, for a tick that flushes a stream
   and decodes nothing.
 
+**Lane buckets.** The chunk AM runs over the tick's lanes alone, not over
+every slot: the host picks ``rows = am_rows(lanes, N)`` (the smallest power
+of two >= the slots with a chunk, at least ``AM_ROWS_MIN``, at most ``N``)
+and sends the lane list (``lane_list``: the slots with a chunk in ascending
+order, then the idle slots) in meta column 10 of the fused upload, or
+column 4 of the chunk body's meta. ``DeviceTick.chunk`` gathers the first
+``rows`` entries' windows and i-vectors, runs the AM on ``[rows, W, D]``
+and scatters the log-probs into an ``[N, chunk_out, P]`` buffer whose
+other rows are zero; an idle slot's ``n_valid`` is 0, so K2 reads none of
+them. A recurrent AM continues from the gathered rows of ``rec`` and writes
+back only the lanes with a chunk. Everything else (the reset, the i-vector
+fold, K2, the silence weights, the ring write and K4) runs over every slot.
+At ``rows == N`` nothing is gathered or scattered. The bucket is bound into
+the body (``rows=``) and is part of the runner's key, so each bucket is its
+own captured graph.
+
 **Stamps.** Each body writes the time into ``DeviceTick.stamps`` (int64
 ns, ``ops/tick_stamp_cuda.py``) at fixed points, captured into its graph so
 that every replay stamps: s0 body start; s1 after ``feed_feats`` (unpack,
@@ -44,7 +60,8 @@ packed rows, and ``PackedFetch`` hands them out when the row lands.
 ``tick_stamp`` launches are counted with the other kernels'.
 
 ``TickRunner.run`` executes a body. On the CPU it runs eagerly. On the card
-the first call of each key (body and input shapes) runs eagerly on a side
+the first call of each key (body, input shapes and lane bucket: ``("fused",
+width, dtype, rows)``, ``("chunk", rows)``) runs eagerly on a side
 stream -- that call IS the tick -- and then captures the body into a
 ``torch.cuda.CUDAGraph`` (one private memory pool per scheduler); every
 later call copies the pinned inputs into the graph's static inputs and
@@ -74,11 +91,13 @@ from ..ops.tick_stamp_cuda import tick_stamp
 from ..ops.viterbi_cuda import viterbi_decode
 
 # trailing int16 / f32 columns of the pcm_meta upload: 12 int32 slots as
-# lo / hi 16-bit halves (10 used: n_valid, reset, t0, have, feature-ring
-# write offset, has new audio, pending i-vector frames, and for the pitch
-# lane the window's start sample, the pitch frames already final and the
-# flush flag; zero without a pitch lane)
+# lo / hi 16-bit halves (11 used: n_valid, reset, t0, have, feature-ring
+# write offset, has new audio, pending i-vector frames, for the pitch lane
+# the window's start sample, the pitch frames already final and the flush
+# flag (zero without a pitch lane), and the lane list)
 META_COLS = 24
+# the fewest rows the chunk AM runs (``am_rows``)
+AM_ROWS_MIN = 8
 KERNELS = ("mfcc", "viterbi", "path_walk", "pitch_viterbi", "adpcm_decode", "tick_stamp")
 WIRES = ("i16", "mulaw", "adpcm")
 # the stamps a body writes (module docstring), by the body's key
@@ -91,6 +110,28 @@ def kernel_counts() -> Dict[str, int]:
     return {"mfcc": mfcc_batch.launches, "viterbi": viterbi_decode.launches,
             "path_walk": path_walk.launches, "pitch_viterbi": pitch_viterbi.launches,
             "adpcm_decode": adpcm_decode.launches, "tick_stamp": tick_stamp.launches}
+
+
+def am_rows(lanes: int, n: int) -> int:
+    """The rows the chunk AM runs in a tick with ``lanes`` slots of ``n``
+    to decode: the smallest power of two >= ``lanes``, at least
+    ``AM_ROWS_MIN``, at most ``n``."""
+    rows = AM_ROWS_MIN
+    while rows < lanes:
+        rows *= 2
+    return min(rows, n)
+
+
+def am_buckets(n: int) -> List[int]:
+    """Every value of ``am_rows`` over ``n`` slots, ascending."""
+    return sorted({am_rows(lanes, n) for lanes in range(n + 1)})
+
+
+def lane_list(n_valid: np.ndarray) -> np.ndarray:
+    """The tick's lane list ``[N]`` int32: the slots with a chunk
+    (``n_valid > 0``) in ascending order, then the idle slots in ascending
+    order. A permutation, so the first ``am_rows`` entries are distinct."""
+    return np.argsort(np.asarray(n_valid) <= 0, kind="stable").astype(np.int32)
 
 
 def meta_cols(wire: str) -> int:
@@ -369,16 +410,48 @@ class DeviceTick:
         return path_walk(st.ring, frames, start, costs, self.walk_tables,
                          self.cfg.ring_frames, self.cfg.ep_stats)
 
+    def _am(self, st: TickState, windows: torch.Tensor, ivec: Optional[torch.Tensor],
+            n_valid: torch.Tensor, lanes: torch.Tensor, rows: int) -> torch.Tensor:
+        """The chunk AM over the first ``rows`` entries of the lane list
+        (module docstring) -> log-probs ``[N, chunk_out, P]``, zero on the
+        slots it did not run; at ``rows == N`` over every slot as it is."""
+        idx = None
+        if rows < self.cfg.N:
+            idx = lanes[:rows].to(torch.int64)
+            windows = windows.index_select(0, idx)
+            if ivec is not None:
+                ivec = ivec.index_select(0, idx)
+        if st.rec:
+            # a recurrent AM continues from each lane's rows; an idle lane
+            # (n_valid 0) keeps them
+            rec = st.rec if idx is None else {k: v.index_select(0, idx) for k, v in st.rec.items()}
+            log_probs, new = self.chunk_model.forward_with_state(windows, rec, ivec)
+            active = (n_valid if idx is None else n_valid.index_select(0, idx)) > 0
+            for k, v in new.items():
+                kept = torch.where(active[:, None, None], v, rec[k])
+                if idx is None:
+                    st.rec[k].copy_(kept)
+                else:
+                    st.rec[k].index_copy_(0, idx, kept)
+        else:
+            log_probs = self.chunk_model(windows, ivec)
+        if idx is None:
+            return log_probs
+        out = log_probs.new_zeros((self.cfg.N, *log_probs.shape[1:]))
+        return out.index_copy_(0, idx, log_probs)
+
     def chunk(self, st: TickState, windows: torch.Tensor, n_valid: torch.Tensor,
               reset: torch.Tensor, t0s: torch.Tensor, haves: torch.Tensor,
-              iv_wins: Optional[torch.Tensor], iv_ws: torch.Tensor) -> None:
-        """Reset, i-vector fold, chunk AM, decode, silence weights, ring
-        write and walk over every slot (``batch_chunk``)."""
+              iv_wins: Optional[torch.Tensor], iv_ws: torch.Tensor, lanes: torch.Tensor,
+              rows: int) -> None:
+        """Reset, i-vector fold, decode, silence weights, ring write and
+        walk over every slot (``batch_chunk``); the chunk AM over the lane
+        bucket ``rows`` of the lane list ``lanes``."""
         cfg = self.cfg
         st.alpha.copy_(torch.where(reset[:, None], self.graph.init_weight[None, :], st.alpha))
         st.offs.copy_(torch.where(reset, 0, st.offs))
-        for rows in st.rec.values():
-            rows.copy_(torch.where(reset[:, None, None], 0.0, rows))
+        for carried in st.rec.values():
+            carried.copy_(torch.where(reset[:, None, None], 0.0, carried))
         ivec = None
         if self.ivector_dim is not None:
             if self.ivp is None:
@@ -403,15 +476,7 @@ class DeviceTick:
                     off = -ivp.splice_left - cfg.win_lo
                     st.iv_carry.copy_(windows[:, off : off + st.iv_carry.shape[1], : cfg.num_ceps])
         self._stamp(2)
-        if st.rec:
-            # a recurrent AM continues from each slot's rows; an idle slot
-            # (n_valid 0) keeps them
-            log_probs, new = self.chunk_model.forward_with_state(windows, st.rec, ivec)
-            active = (n_valid > 0)[:, None, None]
-            for k, v in new.items():
-                st.rec[k].copy_(torch.where(active, v, st.rec[k]))
-        else:
-            log_probs = self.chunk_model(windows, ivec)
+        log_probs = self._am(st, windows, ivec, n_valid, lanes, rows)
         self._stamp(3)
         if self.probe is not None:
             self.probe["viterbi"] = (log_probs.clone(), n_valid.clone(), st.alpha.clone())
@@ -436,7 +501,8 @@ class DeviceTick:
 
     # -- the bodies -------------------------------------------------------------
 
-    def body_fused(self, st: TickState, pcm_meta: torch.Tensor) -> None:
+    def body_fused(self, st: TickState, pcm_meta: torch.Tensor, rows: int) -> None:
+        """``rows``: the AM's lane bucket (``am_rows``)."""
         self._stamp(0)
         pcm, meta = self.unpack(pcm_meta)
         n_valid, reset, t0s, haves = meta[:, 0], meta[:, 1] != 0, meta[:, 2], meta[:, 3]
@@ -445,18 +511,21 @@ class DeviceTick:
         iv_ws = (torch.arange(self.cfg.chunk_in, device=meta.device)[None, :]
                  < meta[:, 6:7]).to(torch.float32)
         windows = self.gather_windows(st, t0s, haves)
-        self.chunk(st, windows, n_valid.contiguous(), reset, t0s, haves, None, iv_ws)
+        self.chunk(st, windows, n_valid.contiguous(), reset, t0s, haves, None, iv_ws, meta[:, 10],
+                   rows)
 
     def body_feed(self, st: TickState, pcm_meta: torch.Tensor) -> None:
         pcm, meta = self.unpack(pcm_meta)
         self.feed_feats(st, pcm, meta)
 
     def body_chunk(self, st: TickState, windows: torch.Tensor, meta: torch.Tensor,
-                   iv_ws: torch.Tensor, iv_wins: Optional[torch.Tensor] = None) -> None:
-        """meta [N, 4] int32: n_valid, reset, t0, have."""
+                   iv_ws: torch.Tensor, iv_wins: Optional[torch.Tensor] = None, *,
+                   rows: int) -> None:
+        """meta [N, 5] int32: n_valid, reset, t0, have, the lane list;
+        ``rows``: the AM's lane bucket (``am_rows``)."""
         self._stamp(0)
         self.chunk(st, windows, meta[:, 0].contiguous(), meta[:, 1] != 0, meta[:, 2],
-                   meta[:, 3], iv_wins, iv_ws)
+                   meta[:, 3], iv_wins, iv_ws, meta[:, 4], rows)
 
     def body_finalize(self, st: TickState) -> None:
         st.packed.copy_(self._walk(st, st.alpha, st.offs))
@@ -547,8 +616,8 @@ class TickRunner:
         graph = torch.cuda.CUDAGraph()
         before = kernel_counts()
         # a probe must not keep tensors of the graph's pool, which hold
-        # nothing until a replay
-        owner = getattr(body, "__self__", None)
+        # nothing until a replay (a body may come with its lane bucket bound)
+        owner = getattr(body, "func", body).__self__
         probe, owner.probe = owner.probe, None
         try:
             with torch.cuda.graph(graph, pool=self._pool, stream=side):

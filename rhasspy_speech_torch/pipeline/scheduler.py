@@ -34,15 +34,27 @@ reference's rule (the flags keep the reference's names):
   launch. Without it the host featurizer keeps the features (one MFCC call
   a tick) and the device step takes the host's windows.
 
+**Lane buckets.** On the device route the chunk AM runs over the tick's
+lanes only: the host picks the bucket ``device_tick.am_rows(lanes, N)``
+(a power of two, 8 to ``N``; on a card, where that bucket has no graph
+at the tick's width and a larger one has, the smallest such,
+``_am_bucket``) and writes the lane list
+(``device_tick.lane_list``: the slots with a chunk first, ascending, then
+the idle slots) into meta column 10 of the fused upload (column 4 of the
+chunk body's meta). The runner's keys are ``("fused", width, dtype, rows)``
+and ``("chunk", rows)``, each bucket its own captured graph; a tick's record
+keeps its key's first part and the bucket in ``am_rows``.
+
 Everything else takes the host route: each chunk's backpointers come to
 the host, where the endpoint rules, the silence weights and the final
 backtrace read them (a graph past 65,532 arcs; silence weighting whose tap
 the AM window does not cover).
 
 On the card the device route's tick runs as a captured CUDA graph, one per
-body and PCM width (``device_tick.TickRunner``); on the CPU the same bodies
-run eagerly with the kernels' plain twins. ``kernel_launches`` counts the
-kernels the ticks ran, captured launches times replays. Every tick's decode
+body, PCM width and AM lane bucket (``device_tick.TickRunner``); on the CPU
+the same bodies run eagerly with the kernels' plain twins.
+``kernel_launches`` counts the kernels the ticks ran, captured launches
+times replays. Every tick's decode
 is one Viterbi kernel launch on the card whatever the graph's size (its
 replicated, halo or global body, by the graph's states), on both routes.
 
@@ -120,8 +132,11 @@ is ``stream_wait_fin``), ``stream_features``, ``stream_ep_apply`` (its wait
 step and its download) and ``stream_finalize``.
 
 **Warm start.** ``warmup(seconds)`` builds and loads the kernels and
-drives silence through every slot, which runs (captures, on a card) each
-tick body the feeds give; ``save_aot(seconds)`` also records the shape in
+drives silence through the slots, which runs (captures, on a card) each
+tick body the feeds give: chunk-sized feeds through 8, 16, ... and every
+slot in turn (each AM lane bucket at the steady width; every slot on the
+host route), then a dribble and a burst through one stream and every
+slot; ``save_aot(seconds)`` also records the shape in
 ``<graph_dir>/aot/warmup.json``, and a scheduler of the same configuration
 warms it in its constructor (``utils/warmup.py``; the fused route without a
 mesh, as the reference gates its AOT store).
@@ -168,6 +183,9 @@ from .device_tick import (
     TickConfig,
     TickRunner,
     TickState,
+    am_buckets,
+    am_rows,
+    lane_list,
     meta_cols,
 )
 from .endpoint import EndpointConfig, silence_pdfs_from_model, trailing_silence_frames
@@ -394,34 +412,42 @@ class StreamScheduler:
 
     def warmup(self, seconds: float = 3.0) -> None:
         """Pay the first ticks' one-time costs: build and load the kernels,
-        then drive silence through every slot as serving would (chunk-sized
-        feeds of ``seconds``-long streams, a dribble of small feeds and a
-        burst past the drain cap), which runs (on a card: captures) the
-        tick body of every PCM width those feeds give. Every stream is
-        closed after, and no result is kept."""
+        then drive silence through the slots as serving would, which runs
+        (on a card: captures) the tick body of every PCM width and AM lane
+        bucket the drives give: chunk-sized feeds of ``seconds``-long
+        streams through every slot and, on the device route, through each
+        smaller bucket's number of streams in turn up to the first tick
+        that decodes
+        (``device_tick.am_buckets``: 8, 16, ...), then a dribble of small
+        feeds and a burst past the drain cap through one stream and through
+        every slot. Every stream is closed after, and no result is kept."""
         load_kernels(self._kernels(), self.device)
         chunk_samples = self._chunk_in * self._frame_shift
         n_chunks = max(2, int(round(seconds * 16000 / chunk_samples)))
-        pcm = np.zeros(chunk_samples, dtype=np.float32)
-        sids = []
-        while True:
-            sid = self.open_stream()
-            if sid < 0:
-                break
-            sids.append(sid)
-        for _ in range(n_chunks):
-            for sid in sids:
-                self.feed(sid, pcm)
-            self.step()
-        self._warm_drain(sids)
+        N = self.max_streams
+
+        def zeros(n):
+            return np.zeros(n, dtype=np.float32)
+
+        # (streams, feeds, whether to stop at the first tick that decodes):
+        # a smaller bucket's drive needs only its first chunk at the steady
+        # width, then the flush
+        drives = [(streams, [zeros(chunk_samples)] * n_chunks, streams < N)
+                  for streams in (am_buckets(N) if self._device_bp else [N])]
         # a dribble walks the small widths, a burst the largest and its rest
-        burst = np.zeros(2 * self._drain_cap + 1600, dtype=np.float32)
-        for feeds in ([np.zeros(1200, dtype=np.float32)] * 8, [burst, burst[:0]]):
-            sid = self.open_stream()
-            for chunk in feeds:
-                self.feed(sid, chunk)
-                self.step()
-            self._warm_drain([sid])
+        for feeds in ([zeros(1200)] * 8, [zeros(2 * self._drain_cap + 1600), zeros(0)]):
+            drives += [(1, feeds, False)]
+            if self._device_bp and am_rows(1, N) < N:
+                drives += [(N, feeds, False)]
+        for streams, feeds, first in drives:
+            sids = [self.open_stream() for _ in range(streams)]
+            sids = [sid for sid in sids if sid >= 0]
+            for pcm in feeds:
+                for sid in sids:
+                    self.feed(sid, pcm)
+                if self.step() and first:
+                    break
+            self._warm_drain(sids)
         self._retired.clear()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -1264,11 +1290,11 @@ class StreamScheduler:
     # -- tracing (module docstring) ----------------------------------------------
 
     def _issue(self, key: tuple, body, inputs, lanes: int, stage: Optional[str],
-               metrics) -> TickRecord:
+               metrics, rows: Optional[int] = None) -> TickRecord:
         """Run one tick body (``stage``, if given, times the run call) and
-        open its record."""
+        open its record; ``rows``: its chunk AM's lane bucket."""
         rec = TickRecord(self._trace_src, self._ticks_issued, key[0], lanes, self._t_enter,
-                         time.perf_counter())
+                         time.perf_counter(), am_rows=rows)
         self._ticks_issued += 1
         self._runner.run(key, body, self._st, inputs)
         if stage is not None:
@@ -1314,6 +1340,23 @@ class StreamScheduler:
         self._inflight.append(fetch)
         return fetch
 
+    def _am_bucket(self, head: tuple, lanes: int) -> int:
+        """The AM rows of a tick whose runner key starts with ``head``: the
+        smallest bucket >= ``am_rows`` whose graph at that width is
+        captured, else ``am_rows``. A tick at a width that warm-up met at a
+        larger bucket alone (after a stall many lanes are ready at once, at
+        new widths) then replays that graph in place of capturing one on
+        the serving path; on the CPU nothing is captured, and the rows are
+        ``am_rows``."""
+        N = self.max_streams
+        rows = bucket = am_rows(lanes, N)
+        graphs = self._runner.graphs
+        while (*head, bucket) not in graphs:
+            if bucket == N:
+                return rows
+            bucket = min(2 * bucket, N)
+        return bucket
+
     def _step_fused(self, prep, n_valid, chunk_t0, chunk_have, flushed, metrics) -> None:
         """The fused tick: ONE upload (the PCM batch with the slot scalars
         in its trailing columns), ONE device body (MFCC into the feature
@@ -1327,7 +1370,10 @@ class StreamScheduler:
                 (N, self._meta_cols), torch.int16 if self._wire == "i16" else torch.uint8)
             counts_before = np.zeros(N, dtype=np.int32)
             has_new = np.zeros(N, dtype=bool)
-        meta = np.zeros((N, 10), dtype=np.int32)
+        lanes = int((n_valid > 0).sum())
+        head = ("fused", batch.shape[1], str(batch.dtype))
+        rows = self._am_bucket(head, lanes)
+        meta = np.zeros((N, 11), dtype=np.int32)
         meta[:, 0] = n_valid
         meta[:, 1] = self._pending_reset
         meta[:, 2] = chunk_t0
@@ -1337,10 +1383,11 @@ class StreamScheduler:
         if self._ivp is not None:
             meta[:, 6] = self._iv_pending_n
         self._stage_pitch_meta(meta)
+        meta[:, 10] = lane_list(n_valid)
         self._write_meta_cols(batch, meta)
         self._pace(metrics)
-        rec = self._issue(("fused", batch.shape[1], str(batch.dtype)), self._tick.body_fused,
-                          [batch_t], int((n_valid > 0).sum()), "stream_issue_fused", metrics)
+        rec = self._issue((*head, rows), functools.partial(self._tick.body_fused, rows=rows),
+                          [batch_t], lanes, "stream_issue_fused", metrics, rows)
         self._commit_pitch_meta()
         fetch = self._after_chunk(rec, metrics)
         if self._ivp is not None:
@@ -1427,7 +1474,10 @@ class StreamScheduler:
         slot scalars and the staged i-vector inputs up, the chunk body, the
         packed rows down."""
         N = self.max_streams
-        meta = np.stack([n_valid, self._pending_reset, chunk_t0, chunk_have], axis=1)
+        lanes = int((n_valid > 0).sum())
+        rows = self._am_bucket(("chunk",), lanes)
+        meta = np.stack([n_valid, self._pending_reset, chunk_t0, chunk_have, lane_list(n_valid)],
+                        axis=1)
         inputs = [windows, meta.astype(np.int32)]
         if self._ivp is not None:
             iv_wins, iv_ws = self._pending_ivector_inputs()
@@ -1442,8 +1492,8 @@ class StreamScheduler:
             arr[...] = a
             host.append(t)
         self._pace(metrics)
-        rec = self._issue(("chunk",), self._tick.body_chunk, host, int((n_valid > 0).sum()),
-                          "stream_issue_chunk", metrics)
+        rec = self._issue(("chunk", rows), functools.partial(self._tick.body_chunk, rows=rows),
+                          host, lanes, "stream_issue_chunk", metrics, rows)
         fetch = self._after_chunk(rec, metrics)
         if self._ivp is not None:
             for s in self.slots:

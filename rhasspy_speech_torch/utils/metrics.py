@@ -14,8 +14,10 @@ first-class replacement.
   entry, the body's issue and ``step()``'s return, the host seconds that
   ``step()`` was blocked on the card, and the body's device stamps
   (``pipeline/device_tick.py``) on the host clock once its row has landed
-  (a feed-only body takes none and keeps ``stamps`` None). ``summary()``
-  splits the fused and the chunk bodies into stages by their stamps.
+  (a feed-only body takes none and keeps ``stamps`` None), and for the
+  fused and the chunk bodies the rows their chunk AM ran (``am_rows``, the
+  lane bucket). ``summary()`` splits those two bodies into stages by their
+  stamps and gives their lanes as a share of those rows.
 - **Stream records** (``StreamRecord``), one a stream the device route
   finalizes, keyed by ``(sid, gen)``: ``finish()``'s host stamp and the
   ticks issued by then, the flushing tick's index and issue stamp, that
@@ -79,6 +81,7 @@ class TickRecord:
     # device stamps s0 .. s5 on the host clock (None: not taken by this
     # body), once the row has landed
     stamps: Optional[Tuple[Optional[float], ...]] = None
+    am_rows: Optional[int] = None  # the chunk AM's rows (fused and chunk bodies)
 
 
 @dataclass(slots=True)
@@ -149,8 +152,10 @@ def tick_means(ticks: Iterable[TickRecord]) -> Optional[Dict[str, object]]:
     span, over the ticks that decoded a lane; and for each body of
     ``SPLIT_BODIES`` with landed stamps, the mean ms of each stage ending at
     one of its stamps (``TICK_STAGES``, from the stamp before) and of the
-    whole body (first stamp to last), with its ticks counted. None without
-    such ticks."""
+    whole body (first stamp to last), with its ticks counted, and the
+    percent of its AM rows that were lanes (``am_row_use_pct``: the lanes
+    summed over the rows summed, over its ticks with ``am_rows``). None
+    without such ticks."""
     ticks = list(ticks)
     steps = [t for t in ticks if t.lanes > 0 and t.t_return is not None]
     out: Dict[str, object] = {"decoding_steps": len(steps)}
@@ -158,6 +163,10 @@ def tick_means(ticks: Iterable[TickRecord]) -> Optional[Dict[str, object]]:
         landed = [t.stamps for t in ticks if t.key == key and t.stamps is not None]
         if landed:
             out[key] = _split(landed)
+            rowed = [t for t in ticks if t.key == key and t.am_rows]
+            if rowed:
+                out[key]["am_row_use_pct"] = round(
+                    100.0 * sum(t.lanes for t in rowed) / sum(t.am_rows for t in rowed), 4)
     if not steps and len(out) == 1:
         return None
     out["step_wait"] = _ms(_mean(t.wait_s for t in steps))

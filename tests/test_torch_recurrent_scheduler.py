@@ -9,8 +9,10 @@ scheduler's tick for tick on both routes (rtol / atol 1e-4, f32 sums in
 other orders), with transcripts equal to the JAX scheduler's and the
 spoken sentences; a reopened lane must start from zero: after its first
 tick its rows equal a fresh scheduler's, and a lane never opened keeps
-zero rows. On the card the captured tick carries the rows as the CPU run
-does.
+zero rows. The device route's rows follow the JAX scheduler's too at 32
+slots with 1, 8 and 9 staggered streams, where the port's AM runs over 8-
+and 16-row lane buckets. On the card the captured tick carries the rows as
+the CPU run does.
 """
 
 import numpy as np
@@ -24,7 +26,7 @@ from rhasspy_speech_torch.pipeline import scheduler as sched_mod
 from rhasspy_speech_torch.pipeline.scheduler import StreamScheduler
 
 from test_torch_recurrent_routes import TEXTS, trained  # noqa: F401 (the module's fixture)
-from test_torch_scheduler import _feed_interleaved
+from test_torch_scheduler import STAGGER_SLOTS, STAGGERED, _feed_interleaved, _feed_staggered
 
 ROW_TOL = dict(rtol=1e-4, atol=1e-4)
 ROUTES = ("host", "device")
@@ -61,6 +63,34 @@ def test_scheduler_rows_follow_jax(trained, monkeypatch, route):
     got, want = _feed_interleaved([port, jax_sched], pcms, on_tick=compare)
     assert got == want == [[t] for t in TEXTS]
     assert len(ticks) > 10 and any(ticks)
+
+
+@pytest.mark.parametrize("streams", STAGGERED)
+def test_lane_buckets_rows_follow_jax(trained, streams):
+    """The device route at 32 slots with ``streams`` staggered streams
+    (tests/test_torch_scheduler.py: ``_feed_staggered``): the port's AM
+    continues each lane's rows over 8- and 16-row lane buckets, the JAX
+    scheduler's over every slot. After every tick the rows follow the JAX
+    scheduler's and the slots never opened keep zero rows; the transcripts
+    equal the JAX scheduler's and the spoken sentences."""
+    profile, graph_dir, pcms = trained
+    pcms = [pcms[i % len(pcms)] for i in range(streams)]
+    port = StreamScheduler(profile.model_dir, graph_dir, max_streams=STAGGER_SLOTS, device="cpu")
+    assert port._recurrent and port._device_bp
+    jax_sched = JaxScheduler(profile.model_dir, graph_dir, max_streams=STAGGER_SLOTS)
+    ticks = []
+
+    def compare():
+        rows, jrows = _rows(port), jax_sched._am_state
+        for k in rows:
+            np.testing.assert_allclose(rows[k].numpy(), np.asarray(jrows[k]), **ROW_TOL)
+            assert not rows[k][streams:].any()
+        ticks.append(bool(rows["rec.b"].any()))
+
+    (got, want), buckets = _feed_staggered([port, jax_sched], pcms, on_tick=compare)
+    assert got == want == [[TEXTS[i % len(TEXTS)]] for i in range(streams)]
+    assert buckets == ({8, 16} if streams > 8 else {8})
+    assert len(ticks) > 5 and any(ticks)
 
 
 @pytest.mark.parametrize("route", ROUTES)

@@ -14,7 +14,9 @@ near-zero entries and 1e-3 on X's, whose small entries cancel sums of
 hundreds) and the i-vectors solved from them within 2e-3, the tolerances
 tests/test_torch_stream.py holds one stream to; a slot that decoded nothing, had
 nothing to fold and was not reopened keeps its alpha and statistics bit
-for bit. Three JAX schedulers are built in all.
+for bit. The same holds at 32 slots with 1, 8 and 9 staggered streams
+(opened two a round, fed a chunk a round), where the port's AM runs over
+8- and 16-row lane buckets. Six JAX schedulers are built in all.
 """
 
 import numpy as np
@@ -56,6 +58,10 @@ TEXTS = ["turn on the light", "never mind", "turn off the fan", "turn on fan",
          "turn off light never mind", "never mind"]
 SLOTS = 8
 PUSH = 1024
+# the lane-bucket runs: a 32-slot scheduler and 1, 8 or 9 staggered
+# streams, so the port's AM runs at 8 rows and (9 streams) at 16
+STAGGER_SLOTS = 32
+STAGGERED = (1, 8, 9)
 OPTIONS = {"plain": {}, "silence_weight": dict(silence_weight=0.01),
            "chunk14": dict(chunk_out_frames=14)}
 
@@ -105,6 +111,47 @@ def _feed_interleaved(scheds, pcms, on_tick=None):
         if on_tick is not None:
             on_tick()
     return [[s.poll(sid) for sid in row] for s, row in zip(scheds, sids)]
+
+
+def _feed_staggered(scheds, pcms, on_tick=None):
+    """Stream ``i`` opens in each scheduler at round ``i // 2`` and is fed a
+    chunk's samples a round (``_chunk_in`` frames), a tick after each round,
+    and finished with its last push; then steps until every transcript is
+    in. Past its first push every open stream decodes a chunk a tick, so a
+    tick's lanes rise to the open streams and fall as each ends. Returns
+    each scheduler's transcripts and the AM lane buckets the first one ran
+    (its runner's keys of the chunk-decoding bodies)."""
+    push = scheds[0]._chunk_in * scheds[0]._frame_shift
+    sids = [[None] * len(pcms) for _ in scheds]
+    offs = [0] * len(pcms)
+    rnd = 0
+    while any(off < pcm.shape[0] for off, pcm in zip(offs, pcms)):
+        for i, pcm in enumerate(pcms):
+            if i // 2 > rnd or offs[i] >= pcm.shape[0]:
+                continue
+            for s, row in zip(scheds, sids):
+                if row[i] is None:
+                    row[i] = s.open_stream()
+                    assert row[i] >= 0
+                s.feed(row[i], pcm[offs[i] : offs[i] + push])
+                if offs[i] + push >= pcm.shape[0]:
+                    s.finish(row[i])
+            offs[i] += push
+        for s in scheds:
+            s.step()
+        if on_tick is not None:
+            on_tick()
+        rnd += 1
+    for _ in range(200):
+        if all(s.poll(sid) is not None for s, row in zip(scheds, sids) for sid in row):
+            break
+        for s in scheds:
+            s.step()
+        if on_tick is not None:
+            on_tick()
+    texts = [[s.poll(sid) for sid in row] for s, row in zip(scheds, sids)]
+    buckets = {k[-1] for k in scheds[0]._runner.warm_keys if k[0] in ("fused", "chunk")}
+    return texts, buckets
 
 
 class _TickRecorder:
@@ -174,6 +221,26 @@ def test_many_streams_equal_jax_and_batch(trained, lockstep, name):
 def test_tick_state_equals_jax(lockstep):
     _got, _want, rec = lockstep
     assert rec.ticks > 10 and rec.idle_checked > rec.ticks
+
+
+@pytest.mark.parametrize("streams", STAGGERED)
+def test_lane_buckets_equal_jax(trained, streams):
+    """The chunk body (this profile's features stay on the host) at 32
+    slots with ``streams`` staggered streams (``_feed_staggered``): the
+    port's AM runs over 8- and 16-row lane buckets, the JAX scheduler's
+    over every slot. Every tick's alpha, i-vector statistics and i-vectors
+    follow the JAX scheduler's, idle slots keep theirs bit for bit, and
+    the transcripts equal the JAX scheduler's and the spoken sentences."""
+    _root, profile, graph_dir, pcms = trained
+    pcms = [pcms[i % len(pcms)] for i in range(streams)]
+    port = _port(trained, max_streams=STAGGER_SLOTS)
+    assert port._device_bp and not port._device_feats
+    jax_sched = JaxScheduler(profile.model_dir, graph_dir, max_streams=STAGGER_SLOTS)
+    rec = _TickRecorder(port, jax_sched)
+    (got, want), buckets = _feed_staggered([port, jax_sched], pcms, on_tick=rec)
+    assert got == want == [[TEXTS[i % len(TEXTS)]] for i in range(streams)]
+    assert buckets == ({8, 16} if streams > 8 else {8})
+    assert rec.ticks > 5 and rec.idle_checked > rec.ticks
 
 
 def test_one_device_step_a_tick(trained):

@@ -30,6 +30,10 @@ tests/test_torch_scheduler.py.
   tolerance.) The JAX side's packed row is read synchronously from its
   tick output. A tick makes at most one device program, one upload and one
   download.
+- The same lockstep, the i-vector statistics left out, at 32 slots with 1,
+  8 and 9 staggered streams (opened two a round, fed a chunk a round),
+  where the port's AM runs over 8- and 16-row lane buckets and the JAX
+  scheduler's over every slot.
 - With ``silence_weight`` and with ``endpointing`` (streams with trailing
   silence, never finished) the transcripts equal the JAX scheduler's, the
   port's batch transcripts and the spoken sentences. Which tick an
@@ -82,10 +86,13 @@ from test_torch_scheduler import (
     IV_TOL,
     PUSH,
     SLOTS,
+    STAGGER_SLOTS,
+    STAGGERED,
     STATS_RTOL,
     TEXTS,
     X_ATOL,
     _feed_interleaved,
+    _feed_staggered,
 )
 
 SW = 0.01
@@ -140,10 +147,10 @@ def test_route_flags_equal_jax(trained, jax_scheds, name):
 
 class _Lockstep:
     """Holds the port's device state against the JAX scheduler's after
-    every tick."""
+    every tick (the i-vector statistics too, with ``ivector``)."""
 
-    def __init__(self, port, j, pcms):
-        self.port, self.jax = port, j
+    def __init__(self, port, j, pcms, ivector=True):
+        self.port, self.jax, self.ivector = port, j, ivector
         cfg = port.am.frontend_config
         self.allow = [mfcc_allowance(cfg, frames_of(cfg, pcm), sides=2) for pcm in pcms]
         self.ticks = self.packed_ticks = self.ring_frames = self.feat_rows = 0
@@ -183,7 +190,8 @@ class _Lockstep:
         p, j = self.port, self.jax
         np.testing.assert_allclose(p._alpha.numpy(), np.asarray(j._alpha), rtol=COST_RTOL,
                                    atol=COST_ATOL)
-        self.check_ivector()
+        if self.ivector:
+            self.check_ivector()
         offs = p._offs.numpy()
         np.testing.assert_array_equal(offs, np.asarray(j._offs))
         np.testing.assert_array_equal(p._feat_counts, j._feat_counts)
@@ -231,6 +239,29 @@ def test_lockstep_every_tick(lockstep):
     _got, _want, rec = lockstep
     assert rec.ticks > 10 and rec.packed_ticks > 5
     assert rec.ring_frames > 0 and rec.feat_rows > 0
+
+
+@pytest.mark.parametrize("streams", STAGGERED)
+def test_lane_buckets_lockstep_with_jax(trained, streams):
+    """32 slots and ``streams`` staggered streams
+    (tests/test_torch_scheduler.py: ``_feed_staggered``): the port's fused
+    tick runs its AM over 8- and 16-row lane buckets, gathering the lanes
+    and scattering their log-probs, the JAX scheduler's over every slot.
+    Every tick is held as in the lockstep run but for the i-vector
+    statistics (alpha, the rings, the packed rows' traces and costs), and
+    the transcripts equal the JAX scheduler's and the spoken sentences.
+    (The statistics are left out: a stream's last tick, when it folds a
+    whole chunk's 21 frames, moves them past this file's tolerances, at 8
+    slots with the AM over every slot as well.)"""
+    profile, graph_dir, pcms = trained
+    pcms = [pcms[i % len(pcms)] for i in range(streams)]
+    port = _port(trained, max_streams=STAGGER_SLOTS)
+    jax_sched = JaxScheduler(profile.model_dir, graph_dir, max_streams=STAGGER_SLOTS)
+    rec = _Lockstep(port, jax_sched, pcms, ivector=False)
+    (got, want), buckets = _feed_staggered([port, jax_sched], pcms, on_tick=rec)
+    assert got == want == [[TEXTS[i % len(TEXTS)]] for i in range(streams)]
+    assert buckets == ({8, 16} if streams > 8 else {8})
+    assert rec.ticks > 5 and rec.packed_ticks > 3
 
 
 def test_silence_weighting_equals_jax(trained, jax_scheds):
