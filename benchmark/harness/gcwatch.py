@@ -1,7 +1,8 @@
 """Python's cyclic garbage collector, watched over a window: how many
 collections of each generation ran and how long they held the host. A full
-collection walks every Python object the process holds (the grammar's FSTs
-among them), so it can stall a serving loop for longer than a tick."""
+collection walks every tracked Python object that is not frozen; over the
+whole heap (the grammar's FSTs among them) it stalls a serving loop for
+longer than a tick, so the stream driver freezes its set-up's heap."""
 
 from __future__ import annotations
 

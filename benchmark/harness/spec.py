@@ -16,8 +16,10 @@
 - ``benchmark/waiting/<cell>.json``: the ``BENCHMARK.json`` entries of a
   cell held back, with why (the harness does not read them; the tests do).
 
-A later cell, configuration, mix or metric is new files and new entries;
-nothing here names one.
+A later cell, configuration, model family, mix or metric is new files and
+new entries; nothing here names one. A model family is its writer,
+``benchmark/models/<family>.py``, and its reference,
+``benchmark/reference/nets/<family>.py``.
 """
 
 from __future__ import annotations

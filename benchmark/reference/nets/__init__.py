@@ -13,7 +13,15 @@ family (``reference/nets/<family>.py``), found by the configuration's
   every frame, and the recurrent state carried past them (None for a
   feed-forward net);
 - ``products(args)``: the matrix products in order, (name, in_dim,
-  out_dim, time offsets of its input), for ``counts/roofline.py``.
+  out_dim, time offsets of its input), for ``counts/roofline.py``;
+- ``TINY_ARGS``: a whole ``model.args`` in the family's layout at CPU size,
+  every key that these functions and the family's writer read; the tests
+  run each family's cells at this size, taking from it each key that a
+  configuration's arguments hold (``benchmark/tests/conftest.py:shrink``).
+
+A model family joins the benchmark as two new files, this module and its
+writer (``benchmark/models/<family>.py``), with a configuration that names
+it: no other file of the benchmark names a family.
 
 Batch norm runs in test mode: ``(x - mean) * target_rms / sqrt(var + eps)``.
 A ``TdnnComponent`` over time offsets ``(a, b)`` is one product over the

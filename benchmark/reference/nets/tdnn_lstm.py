@@ -28,6 +28,9 @@ from benchmark.reference.nets import SUBSAMPLING, affine, bn, splice, with_ivect
 # the time offsets of the input splices before the recurrence: lda, tdnn2, tdnn3
 TDNN_SPLICES = ((-2, -1, 0, 1, 2), (-1, 0, 1), (-1, 0, 1))
 MID_SPLICE = 3  # copies of time 0 that tdnn4-7 splice
+# the family at CPU size, for the benchmark's tests
+TINY_ARGS = {"num_ceps": 40, "ivector_dim": 8, "ubm_gauss": 8, "num_pdfs": 400,
+             "hidden_dim": 32, "cell_dim": 32, "proj_dim": 8}
 
 
 def weights(args: Dict, seed: int) -> Dict:

@@ -33,6 +33,13 @@ import torch
 from benchmark.reference import weights as W
 from benchmark.reference.nets import SUBSAMPLING, affine, bn, splice, t, with_ivector
 
+# the family at CPU size, for the benchmark's tests: the recipe's layout
+# (``configs/tdnnf-minilibri1h-grammar13789.json``) at narrow widths
+TINY_ARGS = {"num_ceps": 40, "ivector_dim": 8, "ubm_gauss": 8, "num_pdfs": 400,
+             "lda_offsets": [-1, 0, 1], "tdnn1_dim": 32, "tdnnf_dim": 32, "bottleneck_dim": 8,
+             "time_strides": [1, 1, 1, 0, 3, 3, 3, 3, 3, 3, 3, 3], "bypass_scale": 0.66,
+             "prefinal_l_dim": 12, "prefinal_big_dim": 32, "prefinal_small_dim": 12}
+
 
 def layer_offsets(stride: int) -> Tuple[Sequence[int], Sequence[int]]:
     """The time offsets of a TDNN-F layer's linear and affine parts."""

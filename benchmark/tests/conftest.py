@@ -1,9 +1,10 @@
 """CPU tests of the benchmark (``python -m pytest benchmark/tests``).
 
 ``tiny_bench`` copies the benchmark's files into a temporary directory with
-the configurations shrunk to CPU size (same layouts, narrow widths, a small
-grammar, few slots and short utterances), so a whole run -- set-up, window,
-reference comparison, result line -- drives the port's plain twins here.
+the configurations shrunk to CPU size (each family's layout at its own
+``TINY_ARGS``, a small grammar, few slots and short utterances), so a
+whole run -- set-up, window, reference comparison, result line -- drives
+the port's plain twins here.
 Tests that need a card are marked ``cuda`` and skip, decided in the
 ``cuda`` fixture."""
 
@@ -20,14 +21,6 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-TINY_MODEL = {"num_pdfs": 400, "ivector_dim": 8, "ubm_gauss": 8, "hidden_dim": 32,
-              "cell_dim": 32, "proj_dim": 8, "tdnn1_dim": 32, "tdnnf_dim": 32,
-              "bottleneck_dim": 8, "prefinal_l_dim": 12, "prefinal_big_dim": 32,
-              "prefinal_small_dim": 12}
-# a TDNN-LSTM configuration in the port writer's layout, for the tests that
-# pair each model family with each traffic kind
-TDNN_LSTM_ARGS = {"num_ceps": 40, "ivector_dim": 100, "ubm_gauss": 512, "num_pdfs": 2328,
-                  "hidden_dim": 1024, "cell_dim": 1024, "proj_dim": 256}
 TINY_GRAMMAR = {"areas": 3, "devices": 3, "scenes": 2}
 TINY_TRAFFIC = {
     "batch_closed": {"batch": 4, "min_s": 1.0, "max_s": 2.0, "distinct_batches": 2},
@@ -36,17 +29,25 @@ TINY_TRAFFIC = {
 }
 
 
-def tiny_model(args: dict) -> dict:
-    return {k: TINY_MODEL.get(k, v) for k, v in args.items()}
+def tiny_args(bench_dir: Path, family: str) -> dict:
+    """The family's arguments at CPU size: ``TINY_ARGS`` of its reference
+    under ``bench_dir``."""
+    from benchmark.harness.spec import load_module
+
+    return json.loads(json.dumps(
+        load_module(bench_dir / "reference" / "nets" / f"{family}.py").TINY_ARGS))
 
 
 def shrink(bench_dir: Path, widths: bool = True) -> None:
     """Every configuration, mix and workload under ``bench_dir`` to CPU size
-    (``widths=False`` keeps the models' widths: a card's size)."""
+    (``widths=False`` keeps the models' widths: a card's size). A
+    configuration takes each of its arguments that its family's
+    ``TINY_ARGS`` holds from there and keeps the others."""
     for p in (bench_dir / "configs").glob("*.json"):
         c = json.loads(p.read_text())
         if widths:
-            c["model"]["args"] = tiny_model(c["model"]["args"])
+            tiny = tiny_args(bench_dir, c["model"]["family"])
+            c["model"]["args"] = {k: tiny.get(k, v) for k, v in c["model"]["args"].items()}
         c["graph"]["args"].update(TINY_GRAMMAR)
         c["graph"]["states"] = c["graph"]["arcs"] = None
         p.write_text(json.dumps(c))
